@@ -11,29 +11,38 @@ Phases (any failed check raises and the exit code is non-zero):
   2. build: nvcc compiles csrc/ into build/ (first use only), with
      ptxas's register and spill report;
   3. kernels vs their plain PyTorch versions in bf16, at every shape the
-     scoring path gives them (K1 at the 12 backbone-call x stage shapes,
-     with the post-LN variant at stages 0-2, and with x = 0, where the
-     output is the MLP branch alone; K2 at the three stem LNs); pass:
-     max|diff| / max|ref| <= 3e-2 and every element within 2 bf16 ulps
-     (both versions round at the same points); once per width, folds
-     missing one term (fc2 bias, LN-bias fold, layer scale) must fail that
-     check; CUDA-event times of both, and of the plain bf16 graph the
-     kernel path replaces;
+     scoring path gives them (K1 and K4 in both int8 modes at the 12
+     backbone-call x stage shapes, with the post-LN variant at stages 0-2,
+     and with x = 0, where the output is the MLP branch alone; K2 at the
+     three stem LNs; K3 at M = 15, 30, 120 on the 25088x12544 head and at
+     one odd shape); pass: max|diff| / max|ref| <= 3e-2 and every element
+     within 2 bf16 ulps (3 for K4: one int8 step, see convnext_mlp_int8),
+     since both versions round at the same points; planted faults (K1:
+     fc2 bias, LN-bias fold, layer scale dropped; K2: bias dropped; K3:
+     bias dropped, scale replaced by its mean; K4: b2g dropped, LN-bias
+     fold dropped, s1 replaced by its mean) must fail that check; CUDA-
+     event times of kernel and plain version, of the plain bf16 graph (K1),
+     of K1 at K4's shapes, and of the one PyTorch call that computes the
+     same function where there is one (F.layer_norm for K2, F.linear on
+     the bf16 head for K3), beside the bound at the H100's published peaks;
   4. the scoring path through the Predictor: net='genconvit',
      convnext_tiny, 224 px, 15 frames, random weights on the device from a
      seed, the real 25088x12544 VAE heads; V=1, V=2 with masked frames,
-     V=8, predict_faces with k<F faces and with none; every forward must
-     launch K1 54 times and K2 3 times;
-  5. the bf16 kernel path vs the port's float32 plain path on the same
+     V=8, predict_faces with k<F faces and with none; in four
+     configurations: the default (every forward launches K1 54 times and
+     K2 3 times), int8 heads (K3 once more), int8_mlp='fc1' and int8 heads
+     + int8_mlp='full' (K4 54 times in place of K1); peak device memory;
+  5. each configuration vs the port's float32 plain path on the same
      weights (layer scale randomized, both heads' last layer scaled so
      that verdicts are decisive, deterministic VAE, TF32 off for the
-     float32 pass): max|dy_val| <= 2e-2, equal y wherever the float32
-     class means differ by more than 4e-2;
-  6. throughput: videos/s and ms/launch at V=8 and V=1 on device-resident
-     distinct inputs in rotating buffers, one sync per trial, and the V=1
-     latency of a synchronized call;
-  7. only with --profile: torch.profiler over 3 V=8 forwards, device time
-     by kernel group and the device's busy share of the wall time.
+     float32 pass): max|dy_val| <= 2e-2 (4e-2 with int8 tails), equal y
+     wherever the float32 class means differ by more than twice that;
+  6. throughput, each configuration: videos/s and ms/launch at V=8 and
+     V=1 on device-resident distinct inputs in rotating buffers, one sync
+     per trial, and the V=1 latency of a synchronized call;
+  7. only with --profile: torch.profiler over 3 V=8 forwards of the
+     default and of the int8 heads + 'full' configuration, device time by
+     kernel group and the device's busy share of the wall time.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Without CUDA it exits non-zero at once.
@@ -48,15 +57,23 @@ import time
 
 REL_TOL = 3e-2       # bf16 kernel vs plain, max|diff| relative to max|ref|
                      # (tools/onchip_parity.py:77 of the JAX package); the
-                     # elementwise bound is km.ULP_TOL bf16 ulps
+                     # elementwise bound is km.ULP_TOL bf16 ulps (K4: k4.ULP_TOL)
 YVAL_TOL = 2e-2      # bf16 kernel path vs float32 plain path
-DECISIVE = 4e-2      # class-mean gap above which y must agree
+YVAL_TOL_INT8 = 4e-2  # with int8 block tails (onchip_parity.py:77-84's int8 bound)
 LOGIT_SCALE = 30.0   # phase 5 scales both heads' last layer by this
+HBM = 3.35e12        # H100 SXM published peaks: bytes/s,
+BF16 = 989e12        # dense bf16 tensor-core flop/s,
+INT8 = 1979e12       # dense int8 tensor-core op/s,
+FP32 = 67e12         # f32 flop/s outside the tensor cores
+LATENT = (25088, 12544)  # the VAE mu head, K x N
 FRAMES = 15
 IMG = 224
 CALLS = (("ed", 240, 224), ("vae_x", 120, 224), ("vae_xhat", 120, 112))
 DIMS = (96, 192, 384, 768)
 DEPTHS = (3, 3, 9, 3)
+# the slice's configurations: (name, int8_mlp, int8_heads)
+CONFIGS = (("default", "", False), ("int8_heads", "", True),
+           ("int8_mlp=fc1", "fc1", False), ("int8_heads+full", "full", True))
 
 
 def log(msg: str) -> None:
@@ -105,28 +122,51 @@ def random_block(torch, c: int, dev, g):
     return blk.to(torch.bfloat16).to(memory_format=torch.channels_last)
 
 
-def compare(torch, km, what: str, out, ref, x=None, scale=None) -> tuple:
+def compare(torch, km, what: str, out, ref, x=None, scale=None, tol=None) -> tuple:
     """Kernel output vs its plain version: finite, max|diff| / max|ref| <=
-    REL_TOL, and every element within km.ULP_TOL bf16 ulps
+    REL_TOL, and every element within tol (default km.ULP_TOL) bf16 ulps
     (km.bf16_ulp_error with the residual input x and the scale floor)."""
+    tol = km.ULP_TOL if tol is None else tol
     torch.cuda.synchronize()
     err = (out.float() - ref.float()).abs().max().item()
     rel = err / ref.float().abs().max().item()
     ulps = km.bf16_ulp_error(out, ref, x, scale)
-    if not (torch.isfinite(out).all() and rel <= REL_TOL and ulps <= km.ULP_TOL):
+    if not (torch.isfinite(out).all() and rel <= REL_TOL and ulps <= tol):
         raise AssertionError(f"{what}: max|diff| {err:.3e}, /max|ref| {rel:.3e} "
-                             f"(limit {REL_TOL}), {ulps} bf16 ulps (limit {km.ULP_TOL})")
+                             f"(limit {REL_TOL}), {ulps} bf16 ulps (limit {tol})")
     return err, rel, ulps
 
 
-def must_fail(torch, km, what: str, out, ref, x=None, scale=None) -> str:
+def must_fail(torch, km, what: str, out, ref, x=None, scale=None, tol=None) -> str:
     """A planted fault: the check must refuse it."""
+    tol = km.ULP_TOL if tol is None else tol
     torch.cuda.synchronize()
     rel = (out.float() - ref.float()).abs().max().item() / ref.float().abs().max().item()
     ulps = km.bf16_ulp_error(out, ref, x, scale)
-    if ulps <= km.ULP_TOL:
+    if ulps <= tol:
         raise AssertionError(f"planted fault {what} passed the check ({ulps} ulps)")
     return f"{what}: {ulps:.1f} ulps, rel {rel:.2e} -> refused"
+
+
+def bound(nbytes: float, ops: dict) -> tuple:
+    """The least time the card could take, in ms, and what sets it: the
+    bytes over the HBM rate, or the operations of each type over its peak
+    (ops: {peak: count}), whichever is larger."""
+    t_bytes = nbytes / HBM
+    t_ops = sum(n / peak for peak, n in ops.items())
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def mlp_bound(rows: int, c: int, mode: str, post: bool = False) -> tuple:
+    """Bound of one block-tail launch: d, x and out once (bf16), the folded
+    weights once; 16*R*C^2 operations of the two matmuls, on the bf16 or
+    the int8 tensor cores by mode."""
+    h = 4 * c
+    w = {"": 2 * c * h * 2, "fc1": c * h + h * c * 2, "full": 2 * c * h}[mode]
+    vec = 4 * (2 * h + 2 * c + (2 * c if post else 0)) + (4 * c if mode == "full" else 0)
+    half = 8 * rows * c * c
+    ops = {"": {BF16: 2 * half}, "fc1": {INT8: half, BF16: half}, "full": {INT8: 2 * half}}[mode]
+    return bound(3 * rows * c * 2 + w + vec, ops)
 
 
 def planted_folds(torch, km, blk) -> dict:
@@ -145,17 +185,124 @@ def planted_folds(torch, km, blk) -> dict:
     return faults
 
 
+def planted_int8(torch, k4, blk, folded, mode: str) -> dict:
+    """K4's folds, each with one term wrong, as a kernel that forgot it
+    would compute."""
+    args = list(blk._fold_args())
+    args[1] = torch.zeros_like(args[1])      # the LN bias
+    return {"b2g dropped": folded._replace(b2g=torch.zeros_like(folded.b2g)),
+            "LN-bias fold dropped": k4.fold_block_mlp_int8(*args, mode, torch.bfloat16),
+            "s1 by its mean": folded._replace(
+                s1=folded.s1.mean().expand_as(folded.s1).contiguous())}
+
+
+def check_k4_shape(torch, km, k4, tag, blk, dr, xr, posts, tiers, planted, acc) -> None:
+    """K4 in both modes at one (call, stage) shape against its plain
+    version, as K1: with and without the post-LN, x and x = 0; the planted
+    faults when asked; times of kernel, plain and K1 at the shape."""
+    c = xr.shape[-1]
+    zero = torch.zeros_like(xr)
+    for mode in k4.MODES:
+        folded = blk.fold_int8(mode)
+        o_max = k4.ln_mlp_residual_int8_plain(dr, zero, folded).float().abs().max().item()
+        for post in posts:
+            for tier in tiers:
+                for xin in (xr, zero):
+                    what = (f"K4 {mode:4s} {tag} post_ln={int(post is not None)} "
+                            f"gelu={tier:7s} x={'0' if xin is zero else 'randn'}")
+                    ref = k4.ln_mlp_residual_int8_plain(dr, xin, folded, post, tier)
+                    out = k4.ln_mlp_residual_int8(dr, xin, folded, post, tier)
+                    if post is None:
+                        r = compare(torch, km, what, out, ref, xin, o_max, k4.ULP_TOL)
+                    else:
+                        r = compare(torch, km, what, out, ref, None,
+                                    ref.float().abs().max().item(), k4.ULP_TOL)
+                    acc[mode]["err"] = max(acc[mode]["err"], r[0])
+                    acc[mode]["ulps"] = max(acc[mode]["ulps"], r[2])
+                    log(f"{what} max|diff|={r[0]:.3e} rel={r[1]:.3e} ulps={r[2]:.3f}")
+        if planted:
+            for xin in (xr, zero):
+                ref = k4.ln_mlp_residual_int8_plain(dr, xin, folded)
+                for name, bad in planted_int8(torch, k4, blk, folded, mode).items():
+                    out = k4.ln_mlp_residual_int8(dr, xin, bad)
+                    msg = must_fail(torch, km, name, out, ref, xin, o_max, k4.ULP_TOL)
+                    acc[mode]["planted_min"] = min(acc[mode]["planted_min"],
+                                                   km.bf16_ulp_error(out, ref, xin, o_max))
+                    log(f"  K4 {mode} C={c} planted, x={'0' if xin is zero else 'randn'}: {msg}")
+        iters = 20 if dr.numel() < 2e7 else 10
+        t_k = cuda_ms(torch, lambda: k4.ln_mlp_residual_int8(dr, xr, folded), iters)
+        t_p = cuda_ms(torch, lambda: k4.ln_mlp_residual_int8_plain(dr, xr, folded), 3, 1)
+        f1 = blk.fold()
+        t_1 = cuda_ms(torch, lambda: km.ln_mlp_residual(dr, xr, f1), iters)
+        b, by = mlp_bound(dr.numel() // c, c, mode)
+        acc[mode]["shapes"].append((tag, t_k, t_p, t_1, b, by))
+        del folded, f1
+
+
+def phase_k3(torch, km, k3, dev, card: str) -> dict:
+    """K3 at the slice's shapes on the full latent head, and one odd shape."""
+    import torch.nn.functional as F
+
+    from genconvit_tpu_torch.ops.quant import quantize_wint8
+
+    g = torch.Generator(device=dev).manual_seed(4321)
+    k, n = LATENT
+    w16 = (0.01 * torch.randn(n, k, device=dev, generator=g)).to(torch.bfloat16)
+    wq, sc = quantize_wint8(w16, dim=1)
+    b = 0.1 * torch.randn(n, device=dev, generator=g)
+    b16 = b.to(torch.bfloat16)
+    rec = {"err": 0.0, "ulps": 0.0, "planted_min": float("inf"), "shapes": []}
+    odd = 0.01 * torch.randn(300, 1000, device=dev, generator=g)
+    oq, osc = quantize_wint8(odd, dim=1)
+    ob = 0.1 * torch.randn(300, device=dev, generator=g)
+    for m, (wq_, sc_, b_) in ((7, (oq, osc, ob)), (15, (wq, sc, b)), (30, (wq, sc, b)),
+                              (120, (wq, sc, b))):
+        kk = wq_.shape[1]
+        x = torch.randn(m, kk, device=dev, generator=g).to(torch.bfloat16)
+        what = f"K3 M={m:3d} K={kk:5d} N={wq_.shape[0]:5d}"
+        ref = k3.matmul_wint8_plain(x, wq_, sc_, b_)
+        out = k3.matmul_wint8(x, wq_, sc_, b_)
+        err, rel, ulps = compare(torch, km, what, out, ref)
+        rec["err"] = max(rec["err"], err)
+        rec["ulps"] = max(rec["ulps"], ulps)
+        r32 = k3.matmul_wint8_plain(x.float(), wq_, sc_, b_)
+        e32 = ((k3.matmul_wint8(x.float(), wq_, sc_, b_) - r32).abs().max()
+               / r32.abs().max()).item()
+        if not e32 <= 1e-5:
+            raise AssertionError(f"{what} float32 output: max|diff|/max|ref| {e32:.3e} > 1e-5")
+        log(f"{what} max|diff|={err:.3e} rel={rel:.3e} ulps={ulps:.3f}; f32 out rel {e32:.2e}")
+        for name, bad in (("bias dropped", (wq_, sc_, torch.zeros_like(b_))),
+                          ("scale by its mean", (wq_, sc_.mean().expand_as(sc_).contiguous(), b_))):
+            bo = k3.matmul_wint8(x, *bad)
+            rec["planted_min"] = min(rec["planted_min"], km.bf16_ulp_error(bo, ref))
+            log(f"  K3 M={m} planted: " + must_fail(torch, km, name, bo, ref))
+        if kk == k:
+            t_k = cuda_ms(torch, lambda: k3.matmul_wint8(x, wq, sc, b), 20)
+            t_p = cuda_ms(torch, lambda: k3.matmul_wint8_plain(x, wq, sc, b), 5)
+            t_l = cuda_ms(torch, lambda: F.linear(x, w16, b16), 20)
+            bd, by = bound(m * k * 2 + n * k + 8 * n + m * n * 2, {BF16: 2 * m * k * n})
+            rec["shapes"].append((m, t_k, t_p, t_l, bd, by))
+            log(f"K3 time M={m}: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, F.linear on the "
+                f"bf16 head {t_l:.4f} ms, bound {bd:.4f} ms ({by}) [{card}]")
+    return rec
+
+
 def phase_kernels(torch, dev, card: str) -> list:
     import torch.nn.functional as F
 
     from genconvit_tpu_torch.models.convnext import _nhwc
     from genconvit_tpu_torch.ops.act import gelu
     from genconvit_tpu_torch.ops.cuda import convnext_mlp as km
+    from genconvit_tpu_torch.ops.cuda import convnext_mlp_int8 as k4
+    from genconvit_tpu_torch.ops.cuda import int8_matmul as k3
     from genconvit_tpu_torch.ops.norm import layer_norm
 
     g = torch.Generator(device=dev).manual_seed(1234)
-    k1_ms = k1_plain_ms = k1_graph_ms = 0.0
+    k1_ms = k1_plain_ms = k1_graph_ms = k1_bound = 0.0
+    k1_sides = []
     k1_err = 0.0
+    k4acc = {m: {"err": 0.0, "ulps": 0.0, "planted_min": float("inf"), "shapes": []}
+             for m in k4.MODES}
     for call, n, px in CALLS:
         for si, c in enumerate(DIMS):
             h = (px // 4) >> si  # 56/28/14/7 at 224 px, 28/14/7/3 at 112
@@ -201,6 +348,8 @@ def phase_kernels(torch, dev, card: str) -> list:
                             log(f"  C={c} planted, x={'0' if xin is zero else 'randn'}: "
                                 + must_fail(torch, km, name, out, ref, xin, o_max))
                 del ref, out, zero
+                check_k4_shape(torch, km, k4, f"{call:8s} s{si} R={rows:7d} C={c:3d}", blk,
+                               dr, xr, post_variants, tiers, call == "ed", k4acc)
 
                 def graph_tail():
                     t = layer_norm(dr, blk.norm.weight, blk.norm.bias, 1e-6)
@@ -212,17 +361,37 @@ def phase_kernels(torch, dev, card: str) -> list:
                 t_k = cuda_ms(torch, lambda: km.ln_mlp_residual(dr, xr, folded), iters)
                 t_p = cuda_ms(torch, lambda: km.ln_mlp_residual_plain(dr, xr, folded), iters)
                 t_g = cuda_ms(torch, graph_tail, iters)
+            bd, by = mlp_bound(rows, c, "")
             log(f"K1 time {call:8s} s{si} R={rows:7d} C={c:3d}: kernel {t_k:.4f} ms, "
-                f"plain {t_p:.4f} ms, plain bf16 graph {t_g:.4f} ms [{card}]")
+                f"plain {t_p:.4f} ms, plain bf16 graph {t_g:.4f} ms, bound {bd:.4f} ms "
+                f"({by}) [{card}]")
+            k1_bound += DEPTHS[si] * bd
+            k1_sides.append((DEPTHS[si] * bd, by))
             k1_ms += DEPTHS[si] * t_k
             k1_plain_ms += DEPTHS[si] * t_p
             k1_graph_ms += DEPTHS[si] * t_g
             del blk, x, d, dr, xr, folded
     log(f"K1 per V=8 ensemble forward (54 launches, depth-weighted): kernel "
         f"{k1_ms:.4f} ms, plain {k1_plain_ms:.4f} ms, plain bf16 graph "
-        f"{k1_graph_ms:.4f} ms [{card}]")
+        f"{k1_graph_ms:.4f} ms, bound {k1_bound:.4f} ms [{card}]")
+    k4tot = {}
+    for mode, rec in k4acc.items():
+        tot = {"ms": 0.0, "plain_ms": 0.0, "k1_ms": 0.0, "bound_ms": 0.0}
+        for i, (tag, t_k, t_p, t_1, bd, by) in enumerate(rec["shapes"]):
+            depth = DEPTHS[i % 4]
+            tot["ms"] += depth * t_k
+            tot["plain_ms"] += depth * t_p
+            tot["k1_ms"] += depth * t_1
+            tot["bound_ms"] += depth * bd
+            log(f"K4 {mode:4s} time {tag}: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, K1 "
+                f"{t_1:.4f} ms, bound {bd:.4f} ms ({by}) [{card}]")
+        log(f"K4 {mode} per V=8 ensemble forward (54 launches, depth-weighted): kernel "
+            f"{tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, K1 {tot['k1_ms']:.4f} ms, "
+            f"bound {tot['bound_ms']:.4f} ms; max ulps {rec['ulps']:.3f} (limit "
+            f"{k4.ULP_TOL}); planted faults >= {rec['planted_min']:.1f} ulps [{card}]")
+        k4tot[mode] = tot
 
-    k2_ms = k2_plain_ms = 0.0
+    k2_ms = k2_plain_ms = k2_lib_ms = k2_bound = 0.0
     k2_err = 0.0
     for call, n, px in CALLS:
         h, c = px // 4, DIMS[0]
@@ -236,24 +405,62 @@ def phase_kernels(torch, dev, card: str) -> list:
         if call == "ed":
             log("  K2 planted, " + must_fail(torch, km, "LN bias dropped",
                                              km.layer_norm_rows(x, s, 0 * b), ref))
+        s16, b16 = s.to(torch.bfloat16), b.to(torch.bfloat16)
         t_k = cuda_ms(torch, lambda: km.layer_norm_rows(x, s, b), 20)
         t_p = cuda_ms(torch, lambda: km.layer_norm_rows_plain(x, s, b), 20)
+        t_l = cuda_ms(torch, lambda: F.layer_norm(x, (c,), s16, b16, 1e-6), 20)
+        rows = x.numel() // c
+        bd, by = bound(2 * rows * c * 2 + 8 * c, {FP32: 8 * rows * c})
         k2_ms += t_k
         k2_plain_ms += t_p
-        log(f"K2 {call:8s} R={x.numel() // c:7d} C={c}: max|diff|={err:.3e} "
-            f"rel={rel:.3e} ulps={ulps:g}; kernel {t_k:.4f} ms, plain {t_p:.4f} ms [{card}]")
+        k2_lib_ms += t_l
+        k2_bound += bd
+        log(f"K2 {call:8s} R={rows:7d} C={c}: max|diff|={err:.3e} "
+            f"rel={rel:.3e} ulps={ulps:g}; kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
+            f"F.layer_norm {t_l:.4f} ms, bound {bd:.4f} ms ({by}) [{card}]")
     log(f"K2 per V=8 ensemble forward (3 launches): kernel {k2_ms:.4f} ms, "
-        f"plain {k2_plain_ms:.4f} ms [{card}]")
-    return [
+        f"plain {k2_plain_ms:.4f} ms, F.layer_norm {k2_lib_ms:.4f} ms, bound "
+        f"{k2_bound:.4f} ms [{card}]")
+    k3rec = phase_k3(torch, km, k3, dev, card)
+    m120 = [r for r in k3rec["shapes"] if r[0] == 120][0]
+    log(f"K3 per V=8 ensemble forward (1 launch, M=120): kernel {m120[1]:.4f} ms, plain "
+        f"{m120[2]:.4f} ms, F.linear {m120[3]:.4f} ms, bound {m120[4]:.4f} ms; max ulps "
+        f"{k3rec['ulps']:.3f}; planted faults >= {k3rec['planted_min']:.1f} ulps [{card}]")
+    mlp = "genconvit_tpu/ops/pallas/convnext_mlp.py"
+    rec = [
         {"name": "ln_mlp_residual", "route": "cuda",
-         "source": "genconvit_tpu_torch/csrc/convnext_mlp.cu",
-         "replaces": "genconvit_tpu/ops/pallas/convnext_mlp.py:74",
-         "launches": 0, "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms},
+         "source": "genconvit_tpu_torch/csrc/convnext_mlp.cu", "replaces": f"{mlp}:74",
+         "launches": 0, "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms,
+         "bound_ms": k1_bound, "bound_by": "bytes", "library_ms": None},
         {"name": "layer_norm_rows", "route": "cuda",
-         "source": "genconvit_tpu_torch/csrc/convnext_mlp.cu",
-         "replaces": "genconvit_tpu/ops/pallas/convnext_mlp.py:244",
-         "launches": 0, "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms},
+         "source": "genconvit_tpu_torch/csrc/convnext_mlp.cu", "replaces": f"{mlp}:244",
+         "launches": 0, "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms,
+         "bound_ms": k2_bound, "bound_by": "bytes", "library_ms": k2_lib_ms},
+        {"name": "matmul_wint8", "route": "cuda",
+         "source": "genconvit_tpu_torch/csrc/int8_matmul.cu",
+         "replaces": "genconvit_tpu/ops/pallas/int8_matmul.py:30",
+         "launches": 0, "max_abs_err": k3rec["err"], "ms": m120[1], "plain_ms": m120[2],
+         "bound_ms": m120[4], "bound_by": m120[5], "library_ms": m120[3]},
     ]
+    for mode, line in (("fc1", 189), ("full", 137)):
+        tot = k4tot[mode]
+        rec.append(
+            {"name": f"ln_mlp_residual_int8[{mode}]", "route": "cuda",
+             "source": "genconvit_tpu_torch/csrc/convnext_mlp_int8.cu",
+             "replaces": f"{mlp}:{line}", "launches": 0,
+             "max_abs_err": k4acc[mode]["err"], "ms": tot["ms"], "plain_ms": tot["plain_ms"],
+             "bound_ms": tot["bound_ms"], "bound_by": "bytes", "library_ms": None})
+    # a per-forward bound is a sum of per-launch bounds: name the side that
+    # sets the larger part of it
+    def side(parts):
+        ops = sum(t for t, by in parts if by == "operations")
+        return "operations" if ops > sum(t for t, _ in parts) - ops else "bytes"
+
+    rec[0]["bound_by"] = side(k1_sides)
+    for r, mode in ((rec[3], "fc1"), (rec[4], "full")):
+        r["bound_by"] = side([(DEPTHS[i % 4] * sh[4], sh[5])
+                              for i, sh in enumerate(k4acc[mode]["shapes"])])
+    return rec
 
 
 def check_verdicts(np, y, y_val, v: int) -> None:
@@ -265,15 +472,30 @@ def check_verdicts(np, y, y_val, v: int) -> None:
         raise AssertionError(f"verdicts out of range: y={y} y_val={y_val}")
 
 
-def phase_slice(torch, np, dev, card: str):
-    from genconvit_tpu_torch.infer.engine import Predictor
-    from genconvit_tpu_torch.ops.cuda import convnext_mlp as km
+def make_plan(int8_mlp: str, int8_heads: bool):
+    from genconvit_tpu_torch.ops.kernel_plan import KernelPlan
 
+    return KernelPlan(int8_mlp=int8_mlp, int8_heads=int8_heads)
+
+
+def phase_slice(torch, np, dev, card: str, cfg) -> tuple:
+    """The slice's requests through one Predictor of configuration cfg;
+    every forward must launch exactly the kernels of its plan."""
+    from genconvit_tpu_torch.infer.engine import Predictor
+    from genconvit_tpu_torch.ops import cuda as kcuda
+
+    name, int8_mlp, int8_heads = cfg
+    want = {"ln_mlp_residual": 0 if int8_mlp else 54, "layer_norm_rows": 3,
+            "ln_mlp_residual_int8": 54 if int8_mlp else 0,
+            "matmul_wint8": 1 if int8_heads else 0}
     t0 = time.perf_counter()
-    pred = Predictor(net="genconvit", device=dev, seed=0)
+    pred = Predictor(net="genconvit", device=dev, seed=0,
+                     kernel_plan=make_plan(int8_mlp, int8_heads))
     torch.cuda.synchronize()
-    log(f"slice: Predictor (random init on device, bf16, folds) "
-        f"{time.perf_counter() - t0:.2f} s; plan {pred.kernel_plan}")
+    log(f"slice [{name}]: Predictor (random init on device, bf16, "
+        f"{'int8 heads, ' if int8_heads else ''}folds) {time.perf_counter() - t0:.2f} s; "
+        f"plan {pred.kernel_plan}; weights {torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB")
+    torch.cuda.reset_peak_memory_stats(dev)
     rng = np.random.default_rng(0)
 
     def frames(v):
@@ -288,35 +510,37 @@ def phase_slice(torch, np, dev, card: str):
         ("V=8", 8, lambda: pred.predict_videos_batched(frames(8), np.ones((8, FRAMES), np.float32))),
         ("faces k=7", 1, lambda: tuple(np.array([r]) for r in pred.predict_faces(frames(1)[0, :7], FRAMES))),
     ]
-    km.reset_launch_counts()
-    for name, v, fn in requests:
-        before = km.launch_counts()
+    kcuda.reset_launch_counts()
+    for rname, v, fn in requests:
+        before = kcuda.launch_counts()
         t = time.perf_counter()
         y, y_val = fn()
         dt = time.perf_counter() - t
-        after = km.launch_counts()
+        after = kcuda.launch_counts()
         got = {k: after[k] - before[k] for k in after}
-        log(f"slice {name}: y={y.tolist()} y_val={np.round(y_val, 5).tolist()} "
+        log(f"slice [{name}] {rname}: y={y.tolist()} y_val={np.round(y_val, 5).tolist()} "
             f"({dt:.2f} s, launches {got})")
         check_verdicts(np, np.asarray(y), np.asarray(y_val, np.float64), v)
-        if got != {"ln_mlp_residual": 54, "layer_norm_rows": 3}:
-            raise AssertionError(f"{name}: kernel launches {got}, want 54 K1 and 3 K2")
-    totals = km.launch_counts()
+        if got != want:
+            raise AssertionError(f"[{name}] {rname}: kernel launches {got}, want {want}")
+    totals = kcuda.launch_counts()
     empty = pred.predict_faces(np.zeros((0, IMG, IMG, 3), np.uint8), FRAMES)
-    if empty != (0, 0.5) or km.launch_counts() != totals:
-        raise AssertionError(f"zero faces gave {empty}, launches {km.launch_counts()}")
-    log(f"slice: zero faces -> {empty}; main-path launches {totals} over "
-        f"{len(requests)} forwards")
-    return pred, totals
+    if empty != (0, 0.5) or kcuda.launch_counts() != totals:
+        raise AssertionError(f"zero faces gave {empty}, launches {kcuda.launch_counts()}")
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    log(f"slice [{name}]: zero faces -> {empty}; main-path launches {totals} over "
+        f"{len(requests)} forwards; peak device memory over the forwards {peak:.2f} GiB [{card}]")
+    return pred, totals, peak
 
 
-def phase_parity(torch, np, dev, card: str) -> None:
+def phase_parity(torch, np, dev, card: str) -> dict:
+    """Each configuration vs the float32 plain path on the same weights."""
     from genconvit_tpu_torch.infer.aggregate import masked_prob_sums
     from genconvit_tpu_torch.infer.engine import Predictor
     from genconvit_tpu_torch.models.convnext import Block
 
     base = Predictor(net="genconvit", device=dev, seed=1, dtype=torch.float32,
-                     deterministic_vae=True)
+                     deterministic_vae=True, kernel_plan=make_plan("", False))
     g = torch.Generator(device=dev).manual_seed(7)
     with torch.no_grad():
         for m in base.model.modules():
@@ -327,8 +551,7 @@ def phase_parity(torch, np, dev, card: str) -> None:
         for branch in base.model.branches():
             branch.fc2.weight.mul_(LOGIT_SCALE)
             branch.fc2.bias.mul_(LOGIT_SCALE)
-    p16 = Predictor(net="genconvit", device=dev, params=base.state_dicts(),
-                    deterministic_vae=True)
+    params = base.state_dicts()
     v = 4
     fr = torch.randint(0, 256, (v, FRAMES, IMG, IMG, 3), dtype=torch.uint8,
                        device=dev, generator=g)
@@ -345,7 +568,6 @@ def phase_parity(torch, np, dev, card: str) -> None:
         y_val = np.where(m[:, 0] > m[:, 1], m[:, 0], np.abs(1 - m[:, 1]))
         return y, y_val
 
-    m16 = means(p16)
     tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -353,23 +575,35 @@ def phase_parity(torch, np, dev, card: str) -> None:
         m32 = means(base)
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
-    y16, v16 = verdicts(m16)
+    del base
+    torch.cuda.empty_cache()
     y32, v32 = verdicts(m32)
-    dyv = float(np.abs(v16 - v32).max())
-    decisive = np.abs(m32[:, 0] - m32[:, 1]) > DECISIVE
-    log(f"parity bf16 kernels vs f32 plain: class means bf16 {np.round(m16, 5).tolist()} "
-        f"f32 {np.round(m32, 5).tolist()}")
-    log(f"parity: max|dy_val| = {dyv:.3e} (limit {YVAL_TOL}); decisive videos "
-        f"{int(decisive.sum())}/{v}, y bf16 {y16.tolist()} f32 {y32.tolist()} [{card}]")
-    if not dyv <= YVAL_TOL:
-        raise AssertionError(f"max|dy_val| {dyv} > {YVAL_TOL}")
-    if not decisive.any():
-        raise AssertionError("no decisive video: the y check would test nothing")
-    if not (y16[decisive] == y32[decisive]).all():
-        raise AssertionError("y differs on a decisive video")
+    log(f"parity: f32 plain class means {np.round(m32, 5).tolist()}")
+    out = {}
+    for name, int8_mlp, int8_heads in CONFIGS:
+        p16 = Predictor(net="genconvit", device=dev, params=params, deterministic_vae=True,
+                        kernel_plan=make_plan(int8_mlp, int8_heads))
+        m16 = means(p16)
+        del p16
+        torch.cuda.empty_cache()
+        y16, v16 = verdicts(m16)
+        tol = YVAL_TOL_INT8 if int8_mlp else YVAL_TOL
+        dyv = float(np.abs(v16 - v32).max())
+        decisive = np.abs(m32[:, 0] - m32[:, 1]) > 2 * tol
+        log(f"parity [{name}] vs f32 plain: class means {np.round(m16, 5).tolist()}; "
+            f"max|dy_val| = {dyv:.3e} (limit {tol}); decisive videos "
+            f"{int(decisive.sum())}/{v}, y {y16.tolist()} f32 {y32.tolist()} [{card}]")
+        if not dyv <= tol:
+            raise AssertionError(f"[{name}] max|dy_val| {dyv} > {tol}")
+        if not decisive.any():
+            raise AssertionError(f"[{name}] no decisive video: the y check would test nothing")
+        if not (y16[decisive] == y32[decisive]).all():
+            raise AssertionError(f"[{name}] y differs on a decisive video")
+        out[name] = dyv
+    return out
 
 
-def phase_throughput(torch, pred, dev, card: str) -> None:
+def phase_throughput(torch, pred, dev, card: str, name: str) -> dict:
     g = torch.Generator(device=dev).manual_seed(3)
 
     def run(v: int, iters: int, trials: int = 3):
@@ -387,15 +621,16 @@ def phase_throughput(torch, pred, dev, card: str) -> None:
             torch.cuda.synchronize()
             dt = time.perf_counter() - t0
             rates.append((v * iters / dt, dt / iters * 1e3))
-            log(f"throughput V={v}: {rates[-1][0]:.2f} videos/s, "
+            log(f"throughput [{name}] V={v}: {rates[-1][0]:.2f} videos/s, "
                 f"{rates[-1][1]:.2f} ms/launch [{card}]")
         return bufs, mask, rates
 
     torch.cuda.reset_peak_memory_stats(dev)
     _, _, r8 = run(8, 6)
     best = max(r8)
-    log(f"throughput V=8 best: {best[0]:.2f} videos/s, {best[1]:.2f} ms/launch; "
-        f"peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB [{card}]")
+    peak8 = torch.cuda.max_memory_allocated(dev) / 2**30
+    log(f"throughput [{name}] V=8 best: {best[0]:.2f} videos/s, {best[1]:.2f} ms/launch; "
+        f"peak device memory {peak8:.2f} GiB [{card}]")
     bufs, mask, r1 = run(1, 24)
     lat = []
     for i in range(10):
@@ -405,11 +640,14 @@ def phase_throughput(torch, pred, dev, card: str) -> None:
         y_val.cpu()
         lat.append((time.perf_counter() - t0) * 1e3)
     lat.sort()
-    log(f"latency V=1: pipelined best {max(r1)[1]:.2f} ms/launch; synchronized "
+    v1 = min(r[1] for r in r1)
+    log(f"latency [{name}] V=1: pipelined best {v1:.2f} ms/launch; synchronized "
         f"call median {lat[len(lat) // 2]:.2f} ms, min {lat[0]:.2f} ms [{card}]")
+    return {"v8_videos_s": best[0], "v8_ms": best[1], "v1_ms": v1,
+            "v1_sync_median_ms": lat[len(lat) // 2], "peak_v8_gib": peak8}
 
 
-def phase_profile(torch, pred, dev, card: str, n: int = 3) -> None:
+def phase_profile(torch, pred, dev, card: str, name: str, n: int = 3) -> None:
     from torch.profiler import ProfilerActivity, profile
 
     g = torch.Generator(device=dev).manual_seed(5)
@@ -433,6 +671,10 @@ def phase_profile(torch, pred, dev, card: str, n: int = 3) -> None:
 
     def group(key):
         k = key.lower()
+        if "ln_mlp_residual_int8" in k:
+            return f"K4 {key}"
+        if "wint8" in k:
+            return "K3 matmul_wint8 (split-K product, epilogue)"
         if "ln_mlp_residual" in k:
             return f"K1 {key}"  # one template instance per row tile
         if "layer_norm_rows" in k:
@@ -452,7 +694,7 @@ def phase_profile(torch, pred, dev, card: str, n: int = 3) -> None:
     busy = sum(t for members in groups.values() for t, _, _ in members)
     if busy <= 0:
         raise AssertionError("profiler recorded no device time")
-    log(f"profile V=8 forward: {wall:.2f} ms/launch under the profiler, device "
+    log(f"profile [{name}] V=8 forward: {wall:.2f} ms/launch under the profiler, device "
         f"busy {busy:.2f} ms ({100 * busy / wall:.1f}%) [{card}]")
     for name, members in sorted(groups.items(), key=lambda kv: -sum(m[0] for m in kv[1])):
         t = sum(m[0] for m in members)
@@ -464,6 +706,7 @@ def phase_profile(torch, pred, dev, card: str, n: int = 3) -> None:
 
 def main() -> int:
     import argparse
+    import gc
 
     import torch
 
@@ -486,18 +729,43 @@ def main() -> int:
     info = _build.build()
     log(f"build: {info.seconds:.1f} s -> {info.path}")
     for line in info.log.splitlines():
-        if "registers" in line or "spill" in line or "error" in line:
+        if "registers" in line or "spill" in line or "error" in line or "Compiling" in line:
             log(f"  ptxas: {line.strip()}")
     log(f"K1 row tiles: {{C: rows}} = {{{', '.join(f'{c}: {km.row_tile(c)}' for c in DIMS)}}}")
+    t = time.perf_counter()
     kernels = phase_kernels(torch, dev, card)
-    pred, totals = phase_slice(torch, np, dev, card)
-    phase_parity(torch, np, dev, card)
-    phase_throughput(torch, pred, dev, card)
-    if args.profile:
-        phase_profile(torch, pred, dev, card)
+    log(f"phase 3: {time.perf_counter() - t:.1f} s")
+    runs = {}
+    for cfg in CONFIGS:
+        t = time.perf_counter()
+        pred, totals, peak = phase_slice(torch, np, dev, card, cfg)
+        runs[cfg[0]] = dict(phase_throughput(torch, pred, dev, card, cfg[0]),
+                            launches=totals, peak_forward_gib=peak)
+        if args.profile and cfg[0] in ("default", "int8_heads+full"):
+            phase_profile(torch, pred, dev, card, cfg[0])
+        del pred
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"phases 4 and 6 [{cfg[0]}]: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    parity = phase_parity(torch, np, dev, card)
+    log(f"phase 5: {time.perf_counter() - t:.1f} s")
+    for name, r in runs.items():
+        log(f"summary [{name}]: V=8 {r['v8_videos_s']:.2f} videos/s ({r['v8_ms']:.2f} "
+            f"ms/launch), V=1 {r['v1_ms']:.2f} ms/launch (synchronized median "
+            f"{r['v1_sync_median_ms']:.2f} ms), peak device memory {r['peak_forward_gib']:.2f} "
+            f"GiB over phase 4's forwards, {r['peak_v8_gib']:.2f} GiB at V=8; "
+            f"max|dy_val| vs f32 plain {parity[name]:.3e} [{card}]")
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_all:.1f} s [{card}]")
+    # each kernel's launches: the count of the configuration whose main path
+    # runs it (the counts were set to 0 just before its requests)
+    source_run = {"ln_mlp_residual": "default", "layer_norm_rows": "default",
+                  "matmul_wint8": "int8_heads",
+                  "ln_mlp_residual_int8[fc1]": "int8_mlp=fc1",
+                  "ln_mlp_residual_int8[full]": "int8_heads+full"}
     for k in kernels:
-        k["launches"] = totals[k["name"]]
+        counter = k["name"].split("[")[0]
+        k["launches"] = runs[source_run[k["name"]]]["launches"][counter]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -48,10 +48,9 @@
 //
 // Every entry point returns cudaGetLastError() after its launch.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <mma.h>
-#include <stdint.h>
+
+#include "common.cuh"
 
 using namespace nvcuda;
 
@@ -66,10 +65,6 @@ constexpr int kPadF32 = 4;
 constexpr int kScratchLd = 16;    // per-warp 16x16 f32 staging row stride
 constexpr int kKs1 = 32;          // rows of wg per fc1 weight slice
 constexpr int kKs2 = 16;          // rows of w2g per fc2 weight slice
-constexpr float kLnEps = 1e-6f;
-
-typedef __nv_bfloat16 bf16;
-typedef __nv_bfloat162 bf162;
 
 struct MlpArgs {
   const bf16* d;
@@ -85,52 +80,6 @@ struct MlpArgs {
   int c;
   int hp;
 };
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// GELU (erf form) with the rational erf of genconvit_tpu/ops/act.py:34-45,
-// Horner in z^2, pinned to sign(z) beyond the fit range.
-__device__ __forceinline__ float gelu_rational(float h, int hp) {
-  const float z = h * 0.7071067811865476f;
-  const float zmax = hp ? 3.625f : 3.0f;
-  const float zc = fminf(fmaxf(z, -zmax), zmax);
-  const float t = zc * zc;
-  float p, q;
-  if (hp) {
-    p = -1.0666330908322879e-06f;
-    p = p * t + 0.00015586043306483894f;
-    p = p * t + 0.0057354856364086396f;
-    p = p * t + 0.057255831726436376f;
-    p = p * t + 0.2571863689937213f;
-    p = p * t + 1.1283791233432234f;
-    q = 0.0013449923247288303f;
-    q = q * t + 0.018689943146010534f;
-    q = q * t + 0.13783698081066592f;
-    q = q * t + 0.5612572789010719f;
-    q = q * t + 1.0f;
-  } else {
-    p = -0.00044320715362244646f;
-    p = p * t + 0.023272086736849436f;
-    p = p * t + 0.2362246069042269f;
-    p = p * t + 1.1279169492647987f;
-    q = 0.10605450434127411f;
-    q = q * t + 0.5398383027204903f;
-    q = q * t + 1.0f;
-  }
-  float r = __fdividef(1.0f, q);  // q in [1, 3): fast reciprocal
-  r = r * (2.0f - q * r);          // + one Newton step
-  float e = zc * p * r;
-  if (fabsf(z) >= zmax) e = copysignf(1.0f, z);
-  return 0.5f * h * (1.0f + e);
-}
-
-__host__ __device__ __forceinline__ constexpr size_t align128(size_t n) {
-  return (n + 127) & ~static_cast<size_t>(127);
-}
 
 // Row tile per width: the f32 fc2 accumulator [BM, C] is at most 6 WMMA
 // tiles per warp. BM=64 for C<=192, 32 for C<=384, 16 for C<=768; the 8
@@ -164,21 +113,6 @@ __host__ __device__ __forceinline__ MlpSmem mlp_smem(int c, int bm) {
   const size_t os = align128(static_cast<size_t>(bm) * (c + kPadF32) * sizeof(float));
   s.total = s.ring + (ring > os ? ring : os);
   return s;
-}
-
-__device__ __forceinline__ void cp_async16(void* smem_dst, const void* gmem_src) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem_src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-// Wait until at most N of this thread's newest copy groups are pending.
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 template <int BM>

@@ -3,7 +3,11 @@ genconvit_tpu/infer/engine.py:42, 64-110, 165-177, 349-437, 866-874).
 
 A uint8 face batch [V,F,S,S,3] with a [V,F] frame mask goes to the device
 once; normalization, the ensemble and the masked per-video aggregation run
-there. bfloat16 on CUDA (the kernel backbone), float32 on the CPU.
+there. The Predictor runs on the GPU unless device="cpu" is passed: bfloat16
+on CUDA (the kernel backbone), float32 on the CPU. The plan's int8 switches
+(GENCONVIT_INT8_HEADS, GENCONVIT_INT8_MLP) apply as in the JAX engine
+(infer/engine.py:223-237 there): the latent heads quantize after the dtype
+cast, and the backbone folds follow plan.int8_mlp.
 """
 
 from __future__ import annotations
@@ -23,7 +27,11 @@ from genconvit_tpu_torch.ops.kernel_plan import KernelPlan
 
 
 def default_device() -> torch.device:
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    """The GPU; without one this raises (pass device="cpu" to run there)."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the Predictor runs on the GPU unless "
+                           "device='cpu' is passed")
+    return torch.device("cuda")
 
 
 def default_compute_dtype(device: torch.device) -> torch.dtype:
@@ -65,8 +73,12 @@ class Predictor:
         # cast once (the latent heads alone are 630M parameters), then hold
         # every 4-D weight channels_last like the activations
         model = model.to(self.dtype).to(memory_format=torch.channels_last).eval()
+        if self.kernel_plan.int8_heads:
+            # after the cast, as the JAX engine does: the int8 weights come
+            # from the weights the default path would multiply with
+            model.quantize_heads_int8_()
         if self.dtype == torch.bfloat16:
-            model.prepare_kernels()  # the K1 folds, from the bf16 weights
+            model.prepare_kernels(self.kernel_plan)  # K1 or K4 folds, from bf16
         self.model = model
 
     # ------------------------------------------------------------- forward
@@ -115,6 +127,10 @@ class Predictor:
         return int(y[0]), float(y_val[0])
 
     def state_dicts(self) -> Dict[str, Dict[str, torch.Tensor]]:
-        """{'ed': ..., 'vae': ...} of the branches present, reference keys."""
+        """{'ed': ..., 'vae': ...} of the branches present, reference keys.
+        Raises once the latent heads are int8: their float weights are gone."""
+        if hasattr(self.model, "vae") and self.model.vae.encoder.heads_int8:
+            raise RuntimeError("the VAE latent heads are int8 (int8_heads): the "
+                               "branch no longer holds its float weights")
         return {name: getattr(self.model, name).state_dict()
                 for name in ("ed", "vae") if hasattr(self.model, name)}

@@ -11,7 +11,8 @@ Two paths, chosen per call as the JAX package chooses them
   * kernel backbone — bfloat16 on CUDA, plan.gelu != 'exact' and
     plan.pallas != '0': stem conv -> K2 (the stem LN as `layer_norm_rows`);
     per block the depthwise conv, then K1 (`ln_mlp_residual`) on the NHWC
-    rows. The last block of stages 0-2 fuses the next downsample's LN
+    rows, or K4 (`ln_mlp_residual_int8`) when plan.int8_mlp is 'fc1' or
+    'full'. The last block of stages 0-2 fuses the next downsample's LN
     (`post_ln`), and the downsample then runs its conv directly;
   * plain graph — everything else (float32, CPU, pallas '0', exact GELU):
     the reference block with two-pass LayerNorm and the plan's GELU.
@@ -22,7 +23,7 @@ read as [N*H*W, C] rows is the tensor's own storage.
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.nn as nn
@@ -34,6 +35,8 @@ from genconvit_tpu_torch.ops.cuda.convnext_mlp import (FoldedMLP,
                                                        fold_block_mlp,
                                                        layer_norm_rows,
                                                        ln_mlp_residual)
+from genconvit_tpu_torch.ops.cuda.convnext_mlp_int8 import (
+    FoldedMLPInt8, fold_block_mlp_int8, ln_mlp_residual_int8)
 from genconvit_tpu_torch.ops.kernel_plan import KernelPlan
 from genconvit_tpu_torch.ops.norm import layer_norm, layer_norm_2d
 
@@ -97,13 +100,20 @@ class Block(nn.Module):
         h = h * self.gamma.to(h.dtype)
         return x + _nchw(h)
 
+    def _fold_args(self):
+        return (self.norm.weight, self.norm.bias, self.mlp.fc1.weight,
+                self.mlp.fc1.bias, self.mlp.fc2.weight, self.mlp.fc2.bias,
+                self.gamma)
+
     def fold(self) -> FoldedMLP:
         """The MLP folds, matrices in the weights' dtype (bf16 on the
         kernel path)."""
-        return fold_block_mlp(self.norm.weight, self.norm.bias,
-                              self.mlp.fc1.weight, self.mlp.fc1.bias,
-                              self.mlp.fc2.weight, self.mlp.fc2.bias,
-                              self.gamma, self.mlp.fc1.weight.dtype)
+        return fold_block_mlp(*self._fold_args(), self.mlp.fc1.weight.dtype)
+
+    def fold_int8(self, mode: str) -> FoldedMLPInt8:
+        """The MLP folds of int8 mode 'fc1' or 'full', quantized from the
+        float32 folds of the current weights."""
+        return fold_block_mlp_int8(*self._fold_args(), mode, self.mlp.fc1.weight.dtype)
 
 
 class Stage(nn.Module):
@@ -117,10 +127,12 @@ class Stage(nn.Module):
 
 class KernelWeights(NamedTuple):
     """What the kernel backbone reads besides the module's own weights:
-    f32 LayerNorm params and each block's folded MLP."""
+    f32 LayerNorm params and each block's folded MLP (K1's folds, or K4's
+    for int8 mode `int8_mlp`)."""
     stem_ln: Tuple[torch.Tensor, torch.Tensor]
-    blocks: List[List[FoldedMLP]]
+    blocks: List[List[Union[FoldedMLP, FoldedMLPInt8]]]
     post_ln: List[Optional[Tuple[torch.Tensor, torch.Tensor]]]
+    int8_mlp: str = ""
 
 
 def uses_kernels(x: torch.Tensor, plan: KernelPlan) -> bool:
@@ -147,9 +159,11 @@ class ConvNeXt(nn.Module):
     def from_name(cls, name: str, num_classes: int = 1000) -> "ConvNeXt":
         return cls(num_classes=num_classes, **CONVNEXT_CFGS[name])
 
-    def fold_kernel_weights(self) -> KernelWeights:
+    @torch.no_grad()
+    def fold_kernel_weights(self, int8_mlp: str = "") -> KernelWeights:
         """The kernel backbone's folds, computed in f32 from the module's
-        current weights."""
+        current weights: K1's, or K4's of int8 mode 'fc1' or 'full'. No
+        autograd graph: it would keep each fold's f32 intermediates alive."""
         def f32(ln):
             return ln.weight.float().contiguous(), ln.bias.float().contiguous()
 
@@ -157,14 +171,15 @@ class ConvNeXt(nn.Module):
                    for nxt in list(self.stages)[1:]] + [None]
         return KernelWeights(
             stem_ln=f32(self.stem[1]),
-            blocks=[[blk.fold() for blk in stage.blocks] for stage in self.stages],
-            post_ln=post_ln)
+            blocks=[[blk.fold_int8(int8_mlp) if int8_mlp else blk.fold()
+                     for blk in stage.blocks] for stage in self.stages],
+            post_ln=post_ln, int8_mlp=int8_mlp)
 
-    def prepare_kernels(self) -> None:
-        """Fold once for the kernel backbone, after the final dtype cast.
-        The kernel path reads only these folds: call it again after any
-        change to the weights."""
-        self._kernel_weights = self.fold_kernel_weights()
+    def prepare_kernels(self, plan: KernelPlan = DEFAULT_PLAN) -> None:
+        """Fold once for the kernel backbone, after the final dtype cast,
+        in the plan's int8 mode. The kernel path reads only these folds:
+        call it again after any change to the weights."""
+        self._kernel_weights = self.fold_kernel_weights(plan.int8_mlp)
 
     def _features_plain(self, x: torch.Tensor, gelu_tier: str) -> torch.Tensor:
         x = conv2d(x, self.stem[0].weight, self.stem[0].bias, stride=4)
@@ -177,10 +192,16 @@ class ConvNeXt(nn.Module):
                 x = blk(x, gelu_tier)
         return x
 
-    def _features_kernels(self, x: torch.Tensor, gelu_tier: str) -> torch.Tensor:
+    def _features_kernels(self, x: torch.Tensor, gelu_tier: str,
+                          int8_mlp: str = "") -> torch.Tensor:
         kw = self._kernel_weights
         if kw is None:
             raise RuntimeError("kernel backbone without folds: call prepare_kernels() first")
+        if kw.int8_mlp != int8_mlp:
+            raise RuntimeError(
+                f"kernel backbone folded for int8_mlp={kw.int8_mlp!r}, run with "
+                f"{int8_mlp!r}: call prepare_kernels(plan) with this plan")
+        tail = ln_mlp_residual_int8 if int8_mlp else ln_mlp_residual
         x = conv2d(x, self.stem[0].weight, self.stem[0].bias, stride=4)
         x = _nchw(layer_norm_rows(_nhwc(x), *kw.stem_ln))
         for si, stage in enumerate(self.stages):
@@ -192,14 +213,14 @@ class ConvNeXt(nn.Module):
             for bi, blk in enumerate(stage.blocks):
                 d = blk.dw(x)
                 post = kw.post_ln[si] if bi == last else None
-                x = _nchw(ln_mlp_residual(_nhwc(d), _nhwc(x), kw.blocks[si][bi],
-                                          post, gelu_tier))
+                x = _nchw(tail(_nhwc(d), _nhwc(x), kw.blocks[si][bi], post,
+                               gelu_tier))
         return x
 
     def features(self, x: torch.Tensor, plan: KernelPlan = DEFAULT_PLAN) -> torch.Tensor:
         """[N,3,H,W] -> [N,C,H/32,W/32] (pre-head)."""
         if uses_kernels(x, plan):
-            return self._features_kernels(x, plan.gelu)
+            return self._features_kernels(x, plan.gelu, plan.int8_mlp)
         return self._features_plain(x, plan.gelu)
 
     def forward(self, x: torch.Tensor, plan: KernelPlan = DEFAULT_PLAN) -> torch.Tensor:

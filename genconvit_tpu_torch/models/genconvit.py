@@ -44,9 +44,14 @@ class GenConViT(nn.Module):
     def backbones(self) -> List[ConvNeXt]:
         return [m for m in self.modules() if isinstance(m, ConvNeXt)]
 
-    def prepare_kernels(self) -> None:
+    def prepare_kernels(self, plan: KernelPlan = DEFAULT_PLAN) -> None:
         for bb in self.backbones():
-            bb.prepare_kernels()
+            bb.prepare_kernels(plan)
+
+    def quantize_heads_int8_(self) -> None:
+        """int8 latent heads for the VAE branch (a no-op without one)."""
+        if hasattr(self, "vae"):
+            self.vae.encoder.quantize_heads_int8_()
 
     def forward(self, x: torch.Tensor, plan: KernelPlan = DEFAULT_PLAN, *,
                 sample: bool = True, generator: Optional[torch.Generator] = None,

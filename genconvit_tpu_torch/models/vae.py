@@ -5,7 +5,10 @@ Encoder 4x [conv3x3 s2 p1 -> BN -> LeakyReLU] (3->16->32->64->128), CHW
 flatten, mu head (25088 -> 12544 at 224 px). Quirk B4 of the reference is
 kept: z = mu + eps * exp(0.5 * mu), sampling in eval too unless
 sample=False. The var head only feeds the training KL term, so scoring
-never computes it; it is kept for the checkpoint. Decoder: unflatten to
+never computes it; it is kept for the checkpoint. With int8 heads
+(`Encoder.quantize_heads_int8_`, models/vae.py:149-178 of the JAX
+package) both heads hold per-output-column int8 weights and the mu head
+runs through K3 (`matmul_wint8`). Decoder: unflatten to
 (256, s, s), 4x [convT2x2 s2 -> LeakyReLU] to 3 channels at half size. The
 backbone runs on x and on the reconstruction in two calls (their sizes
 differ), then ReLU -> fc -> ReLU -> fc2. Keys: encoder.features.{0,3,6,9}
@@ -24,12 +27,30 @@ import torch.nn.functional as F
 from genconvit_tpu_torch.models.convnext import DEFAULT_PLAN, ConvNeXt
 from genconvit_tpu_torch.ops.act import leaky_relu, relu
 from genconvit_tpu_torch.ops.conv import conv2d, conv_transpose2d
+from genconvit_tpu_torch.ops.cuda.int8_matmul import matmul_wint8
 from genconvit_tpu_torch.ops.kernel_plan import KernelPlan
 from genconvit_tpu_torch.ops.norm import batch_norm
+from genconvit_tpu_torch.ops.quant import quantize_wint8
 from genconvit_tpu_torch.ops.resize import resize_bilinear_torch
 
 _ENC_CH = (3, 16, 32, 64, 128)
 _DEC_CH = (256, 64, 32, 16, 3)
+
+
+class Int8Linear(nn.Module):
+    """A Linear with weight-only int8: wq [N, K] int8 with per-output f32
+    scales (`quantize_wint8` of the weight in its current dtype) and the
+    f32 bias; the forward is K3 and returns x's dtype."""
+
+    def __init__(self, linear: nn.Linear):
+        super().__init__()
+        wq, scale = quantize_wint8(linear.weight.detach(), dim=1)
+        self.register_buffer("wq", wq)
+        self.register_buffer("scale", scale)
+        self.register_buffer("bias", linear.bias.detach().float().contiguous())
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return matmul_wint8(x, self.wq, self.scale, self.bias)
 
 
 class Encoder(nn.Module):
@@ -51,7 +72,23 @@ class Encoder(nn.Module):
                                              stride=2, padding=1), bn))
         # torch flattens in CHW order; flatten(1) of the channels_last
         # tensor gathers exactly that order
+        if self.heads_int8:
+            return self.mu(x.flatten(1))
         return F.linear(x.flatten(1), self.mu.weight, self.mu.bias)
+
+    @property
+    def heads_int8(self) -> bool:
+        return isinstance(self.mu, Int8Linear)
+
+    @torch.no_grad()
+    def quantize_heads_int8_(self) -> None:
+        """Weight-only int8 for both latent heads, from their weights in the
+        current dtype (quantize_latent_heads_int8 of the JAX package); the
+        float weights are dropped, one head at a time."""
+        if self.heads_int8:
+            return
+        self.mu = Int8Linear(self.mu)
+        self.var = Int8Linear(self.var)
 
 
 class Decoder(nn.Module):

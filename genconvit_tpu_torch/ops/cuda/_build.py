@@ -1,13 +1,15 @@
 """Build and load the port's CUDA kernels: nvcc into a shared library with a
 plain C interface, loaded with ctypes. No PyTorch headers are compiled, so
-a build takes seconds.
+a build takes seconds. One nvcc per source, all started together, then
+one link:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
-         -Xcompiler -fPIC -o build/genconvit_tpu_torch/libgcv_kernels_<hash>.so
-         genconvit_tpu_torch/csrc/convnext_mlp.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC
+         -Xptxas -v -c genconvit_tpu_torch/csrc/<source>.cu -o <source>.o   (each)
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared
+         -o build/genconvit_tpu_torch/libgcv_kernels_<hash>.so *.o
 
-The hash covers the source bytes and the flags, so an edited source builds
-anew. The library is written under a temporary name and renamed into
+The hash covers the sources' and the header's bytes and the flags, so an
+edited source builds anew. The library is written under a temporary name and renamed into
 place, so processes that build at once never load a partial file. Nothing
 builds at import: the first kernel launch (or `build()`) does.
 """
@@ -25,11 +27,13 @@ from typing import Optional
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
-SOURCES = (os.path.join(_PKG_DIR, "csrc", "convnext_mlp.cu"),)
+SOURCES = tuple(os.path.join(_PKG_DIR, "csrc", f) for f in
+                ("convnext_mlp.cu", "convnext_mlp_int8.cu", "int8_matmul.cu"))
+HEADERS = (os.path.join(_PKG_DIR, "csrc", "common.cuh"),)
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
                          "genconvit_tpu_torch")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _SIGNATURES = {
@@ -39,6 +43,13 @@ _SIGNATURES = {
     # x, scale, bias, out, rows, c, stream
     "gcv_layer_norm_rows": ([_P] * 4 + [ctypes.c_longlong, ctypes.c_int, _P],
                             ctypes.c_int),
+    # d, x, wq1, s1, bw, w2g, wq2, s2, b2g, lns, lnb, out, rows, c, hp, mode, stream
+    "gcv_ln_mlp_residual_int8": ([_P] * 12 + [ctypes.c_longlong, ctypes.c_int,
+                                              ctypes.c_int, ctypes.c_int, _P],
+                                 ctypes.c_int),
+    # x, wq, scale, bias, work, out, m, k, n, out_f32, stream
+    "gcv_matmul_wint8": ([_P] * 6 + [ctypes.c_int] * 4 + [_P], ctypes.c_int),
+    "gcv_wint8_splits": ([ctypes.c_int] * 3, ctypes.c_int),
     "gcv_mlp_row_tile": ([ctypes.c_int], ctypes.c_int),
     "gcv_error_string": ([ctypes.c_int], ctypes.c_char_p),
 }
@@ -61,7 +72,7 @@ def nvcc_path() -> str:
 
 def library_path() -> str:
     h = hashlib.sha256()
-    for src in SOURCES:
+    for src in SOURCES + HEADERS:
         with open(src, "rb") as f:
             h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -80,15 +91,28 @@ def build() -> BuildInfo:
         return BuildInfo(path, 0.0, log)
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{path}.tmp.{os.getpid()}"
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *SOURCES]
+    nvcc = nvcc_path()
+    objs = [f"{tmp}.{i}.o" for i in range(len(SOURCES))]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", src, "-o", obj],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True)
+             for src, obj in zip(SOURCES, objs)]
+    outs = [p.communicate()[0] for p in procs]
+    log = "".join(outs)
+    failed = [src for src, p in zip(SOURCES, procs) if p.returncode != 0]
+    if not failed:
+        link = subprocess.run([nvcc, *ARCH, "-shared", "-o", tmp, *objs],
+                              capture_output=True, text=True, check=False)
+        log += link.stdout + link.stderr
+        if link.returncode != 0:
+            failed = ["link"]
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+    for f in objs + ([tmp] if failed else []):
+        if os.path.exists(f):
+            os.remove(f)
+    if failed:
+        raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{log}")
     with open(log_path, "w") as f:
         f.write(log)
     os.replace(tmp, path)

@@ -38,17 +38,26 @@ class FoldedMLP(NamedTuple):
     b2g: torch.Tensor   # [C] f32: b2 * gamma
 
 
-def fold_block_mlp(ln_scale, ln_bias, fc1_weight, fc1_bias, fc2_weight,
-                   fc2_bias, gamma, dtype: torch.dtype) -> FoldedMLP:
-    """Fold in float32 from the given (torch-layout) weights, then store the
-    two matrices in `dtype` (as convnext_mlp.py:388-397 does)."""
+def fold_block_mlp_f32(ln_scale, ln_bias, fc1_weight, fc1_bias, fc2_weight,
+                       fc2_bias, gamma) -> FoldedMLP:
+    """The folds in float32 from the given (torch-layout) weights, as
+    convnext_mlp.py:388-397 computes them: wg32 [C, 4C], bw, w2g32 [4C, C],
+    b2g."""
     w1 = fc1_weight.float().t()                  # [C, 4C]
     gam = gamma.float()
-    wg = (ln_scale.float()[:, None] * w1).to(dtype).contiguous()
+    wg = ln_scale.float()[:, None] * w1
     bw = (ln_bias.float() @ w1 + fc1_bias.float()).contiguous()
-    w2g = (fc2_weight.float().t() * gam[None, :]).to(dtype).contiguous()
+    w2g = fc2_weight.float().t() * gam[None, :]
     b2g = (fc2_bias.float() * gam).contiguous()
     return FoldedMLP(wg, bw, w2g, b2g)
+
+
+def fold_block_mlp(ln_scale, ln_bias, fc1_weight, fc1_bias, fc2_weight,
+                   fc2_bias, gamma, dtype: torch.dtype) -> FoldedMLP:
+    """Fold in float32, then store the two matrices in `dtype`."""
+    f = fold_block_mlp_f32(ln_scale, ln_bias, fc1_weight, fc1_bias, fc2_weight,
+                           fc2_bias, gamma)
+    return f._replace(wg=f.wg.to(dtype).contiguous(), w2g=f.w2g.to(dtype).contiguous())
 
 
 def _row_moments(v32: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -210,13 +219,3 @@ layer_norm_rows.launches = 0
 def row_tile(c: int) -> int:
     """Rows per block K1 uses at width c (loads the library)."""
     return _build.load().gcv_mlp_row_tile(c)
-
-
-def reset_launch_counts() -> None:
-    ln_mlp_residual.launches = 0
-    layer_norm_rows.launches = 0
-
-
-def launch_counts() -> dict:
-    return {"ln_mlp_residual": ln_mlp_residual.launches,
-            "layer_norm_rows": layer_norm_rows.launches}

@@ -112,3 +112,114 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
                            folded.b2g[:48].contiguous())
     with pytest.raises(ValueError, match="devices"):
         km.ln_mlp_residual(x, x.cpu(), folded)
+
+
+# K3 and K4 (the int8 configuration). K4 is held within k4.ULP_TOL bf16
+# ulps: K1's two rounding flips plus one int8 step (convnext_mlp_int8).
+
+def _int8_block(c, dev, g):
+    """Block weights in bf16, as the kernel path holds them."""
+    def r(*shape, s=1.0):
+        return (s * torch.randn(*shape, device=dev, generator=g)).to(torch.bfloat16)
+    gamma = (0.1 + 0.9 * torch.rand(c, device=dev, generator=g)).to(torch.bfloat16)
+    return (1 + r(c, s=0.1), r(c, s=0.1), r(4 * c, c, s=0.02), r(4 * c, s=0.02),
+            r(c, 4 * c, s=0.02), r(c, s=0.02), gamma)
+
+
+@pytest.mark.parametrize("post_ln", [False, True])
+@pytest.mark.parametrize("c", [96, 160, 384, 768])   # 160: a width off the path
+@pytest.mark.parametrize("mode", ["fc1", "full"])
+def test_k4_matches_plain(dev, mode, c, post_ln):
+    from genconvit_tpu_torch.ops.cuda import convnext_mlp_int8 as k4
+
+    g = torch.Generator(device=dev).manual_seed(c + post_ln)
+    rows = 1037  # ragged against every row tile
+    args = _int8_block(c, dev, g)
+    folded = k4.fold_block_mlp_int8(*args, mode, torch.bfloat16)
+    dw = (2 * torch.randn(rows, c, device=dev, generator=g)).to(torch.bfloat16)
+    x = torch.randn(rows, c, device=dev, generator=g).to(torch.bfloat16)
+    post = None
+    if post_ln:
+        post = ((1 + 0.1 * torch.randn(c, device=dev, generator=g)).float(),
+                (0.1 * torch.randn(c, device=dev, generator=g)).float())
+    zero = torch.zeros_like(x)
+    o_max = k4.ln_mlp_residual_int8_plain(dw, zero, folded).float().abs().max().item()
+    before = k4.ln_mlp_residual_int8.launches
+    for xin in (x, zero):
+        out = k4.ln_mlp_residual_int8(dw, xin, folded, post)
+        torch.cuda.synchronize()
+        ref = k4.ln_mlp_residual_int8_plain(dw, xin, folded, post)
+        if post_ln:
+            scale, xr = ref.float().abs().max().item(), None
+        else:
+            scale, xr = o_max, xin
+        assert _rel(out, ref) <= TOL
+        assert km.bf16_ulp_error(out, ref, xr, scale) <= k4.ULP_TOL
+    assert k4.ln_mlp_residual_int8.launches == before + 2
+    # planted faults: b2g dropped, LN-bias fold dropped, s1 by its mean
+    ref = k4.ln_mlp_residual_int8_plain(dw, zero, folded)
+    no_lnb = list(args)
+    no_lnb[1] = torch.zeros_like(args[1])
+    for bad in (folded._replace(b2g=torch.zeros_like(folded.b2g)),
+                k4.fold_block_mlp_int8(*no_lnb, mode, torch.bfloat16),
+                folded._replace(s1=folded.s1.mean().expand_as(folded.s1).contiguous())):
+        out = k4.ln_mlp_residual_int8(dw, zero, bad)
+        assert km.bf16_ulp_error(out, ref, zero, o_max) > k4.ULP_TOL
+
+
+@pytest.mark.parametrize("m,k,n", [(7, 1000, 300), (15, 2048, 520), (33, 4096, 130),
+                                   (130, 520, 200)])
+def test_k3_matches_plain(dev, m, k, n):
+    from genconvit_tpu_torch.ops.cuda import int8_matmul as k3
+    from genconvit_tpu_torch.ops.quant import quantize_wint8
+
+    g = torch.Generator(device=dev).manual_seed(m + k + n)
+    wq, s = quantize_wint8(0.02 * torch.randn(n, k, device=dev, generator=g), dim=1)
+    b = 0.1 * torch.randn(n, device=dev, generator=g)
+    x = torch.randn(m, k, device=dev, generator=g).to(torch.bfloat16)
+    before = k3.matmul_wint8.launches
+    out = k3.matmul_wint8(x, wq, s, b)
+    torch.cuda.synchronize()
+    assert k3.matmul_wint8.launches == before + 1
+    ref = k3.matmul_wint8_plain(x, wq, s, b)
+    assert out.dtype == torch.bfloat16 and _agrees(out, ref)
+    out32 = k3.matmul_wint8(x.float(), wq, s, b)
+    ref32 = k3.matmul_wint8_plain(x.float(), wq, s, b)
+    assert out32.dtype == torch.float32
+    assert ((out32 - ref32).abs().max() / ref32.abs().max()).item() <= 1e-5
+    # planted faults: bias dropped, scale by its mean
+    assert not _agrees(k3.matmul_wint8(x, wq, s, torch.zeros_like(b)), ref)
+    assert not _agrees(k3.matmul_wint8(x, wq, s.mean().expand_as(s).contiguous(), b), ref)
+
+
+def test_int8_wrappers_raise_on_what_the_kernels_do_not_take(dev):
+    from genconvit_tpu_torch.ops.cuda import convnext_mlp_int8 as k4
+    from genconvit_tpu_torch.ops.cuda import int8_matmul as k3
+
+    g = torch.Generator(device=dev).manual_seed(2)
+    folded = k4.fold_block_mlp_int8(*_int8_block(96, dev, g), "full", torch.bfloat16)
+    x = torch.randn(64, 96, device=dev, generator=g).to(torch.bfloat16)
+    with pytest.raises(ValueError, match="bfloat16"):
+        k4.ln_mlp_residual_int8(x.float(), x.float(), folded)
+    with pytest.raises(ValueError, match="contiguous"):
+        k4.ln_mlp_residual_int8(x.t().contiguous().t(), x, folded)
+    with pytest.raises(ValueError, match="devices"):
+        k4.ln_mlp_residual_int8(x, x.cpu(), folded)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        k4.ln_mlp_residual_int8(x[:, :48].contiguous(), x[:, :48].contiguous(), folded)
+    with pytest.raises(ValueError, match="mode"):
+        k4.ln_mlp_residual_int8(x, x, folded._replace(mode="w4"))
+    with pytest.raises(ValueError, match="int8"):
+        k4.ln_mlp_residual_int8(x, x, folded._replace(wq1=folded.wq1.float()))
+    wq = torch.zeros(8, 96, dtype=torch.int8, device=dev)
+    s = torch.ones(8, device=dev)
+    with pytest.raises(ValueError, match="int8"):
+        k3.matmul_wint8(x, wq.float(), s, s)
+    with pytest.raises(ValueError, match="float32"):
+        k3.matmul_wint8(x, wq, s.to(torch.bfloat16), s)
+    with pytest.raises(ValueError, match="contiguous"):
+        k3.matmul_wint8(x.t().contiguous().t(), wq, s, s)
+    with pytest.raises(ValueError, match="another device"):
+        k3.matmul_wint8(x, wq.cpu(), s, s)
+    with pytest.raises(ValueError, match="bfloat16 or float32"):
+        k3.matmul_wint8(x.half(), wq, s, s)

@@ -83,6 +83,15 @@ def test_random_init_predictor_runs(small_backbone):
     assert set(pred.state_dicts()) == {"ed", "vae"}
 
 
+def test_predictor_without_a_device_needs_the_gpu(monkeypatch, small_backbone):
+    """No device given means CUDA: without a GPU the Predictor raises
+    rather than run on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = Config(model=ModelConfig(backbone=small_backbone), img_size=IMG)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Predictor(cfg)
+
+
 def test_normalize_and_pad_match_jax():
     rng = np.random.default_rng(2)
     frames = rng.integers(0, 256, (2, 8, 8, 3), dtype=np.uint8)

@@ -18,6 +18,7 @@ from genconvit_tpu.ops.pallas.convnext_mlp import (fused_ln_mlp_residual,
                                                    layer_norm_rows)
 
 from genconvit_tpu_torch.ops import act
+from genconvit_tpu_torch.ops import cuda as kcuda
 from genconvit_tpu_torch.ops.cuda import _build
 from genconvit_tpu_torch.ops.cuda import convnext_mlp as km
 from genconvit_tpu_torch.ops.kernel_plan import KernelPlan
@@ -226,14 +227,14 @@ def test_wrappers_take_plain_path_on_cpu_and_count_nothing():
     dw = torch.from_numpy(rng.standard_normal((2, 3, 4, c)).astype(np.float32))
     x = torch.from_numpy(rng.standard_normal((2, 3, 4, c)).astype(np.float32))
     post = (torch.ones(c), torch.zeros(c))
-    km.reset_launch_counts()
+    kcuda.reset_launch_counts()
     for pl in (None, post):
         torch.testing.assert_close(km.ln_mlp_residual(dw, x, _fold(p), pl),
                                    km.ln_mlp_residual_plain(dw, x, _fold(p), pl),
                                    rtol=0, atol=0)
     torch.testing.assert_close(km.layer_norm_rows(x, *post),
                                km.layer_norm_rows_plain(x, *post), rtol=0, atol=0)
-    assert km.launch_counts() == {"ln_mlp_residual": 0, "layer_norm_rows": 0}
+    assert set(kcuda.launch_counts().values()) == {0}
     assert not _build.is_loaded()
 
 

@@ -24,7 +24,7 @@ from genconvit_tpu_torch.models.convnext import ConvNeXt
 from genconvit_tpu_torch.models.ed import GenConViTED
 from genconvit_tpu_torch.models.genconvit import GenConViT
 from genconvit_tpu_torch.models.vae import GenConViTVAE
-from genconvit_tpu_torch.ops.cuda import convnext_mlp as km
+from genconvit_tpu_torch.ops import cuda as kcuda
 from genconvit_tpu_torch.ops.kernel_plan import KernelPlan
 
 from tests.test_torch_util import (BACKBONE_CLASSES, IMG, SMALL_DEPTHS,
@@ -73,10 +73,10 @@ def test_kernel_backbone_wiring_matches_jax_kernel_backbone(tier, monkeypatch):
     ref = jax_convnext._features_mlp_kernel(tree, jnp.asarray(x_nhwc))
     m = _port_convnext(tree)
     m.prepare_kernels()
-    km.reset_launch_counts()
+    kcuda.reset_launch_counts()
     with torch.no_grad():
         got = m._features_kernels(x, tier)
-    assert km.launch_counts() == {"ln_mlp_residual": 0, "layer_norm_rows": 0}
+    assert set(kcuda.launch_counts().values()) == {0}
     np.testing.assert_allclose(got.permute(0, 2, 3, 1).numpy(), np.asarray(ref),
                                rtol=1e-4, atol=1e-4)
 
@@ -162,8 +162,8 @@ def test_bf16_on_cpu_runs_the_plain_graph(small_backbone):
     tree = jax_convert.convert_ed(ed_state_dict(8, rng))
     _, x, _ = images(rng)
     m = _port(GenConViTED, "ed", tree, small_backbone).to(torch.bfloat16)
-    km.reset_launch_counts()
+    kcuda.reset_launch_counts()
     with torch.no_grad():
         out = m(x.to(torch.bfloat16))
     assert torch.isfinite(out.float()).all()
-    assert km.launch_counts() == {"ln_mlp_residual": 0, "layer_norm_rows": 0}
+    assert set(kcuda.launch_counts().values()) == {0}
