@@ -25,13 +25,25 @@ Phases (any failed check raises and the exit code is non-zero):
      of K1 at K4's shapes, and of the one PyTorch call that computes the
      same function where there is one (F.layer_norm for K2, F.linear on
      the bf16 head for K3), beside the bound at the H100's published peaks;
+     K5 at its five path shapes and K6 at its five chains (pallas '1' and
+     'stage'), held the same way, K6 block by block (the chain cut after
+     block k against the plain block k on the kernel's own input, each
+     within 2 ulps), with planted faults (dw bias dropped, dw kernel
+     transposed, LN bias dropped, layer scale 1; for K6 also the LN bias
+     dropped in the middle block alone, the middle block skipped and the
+     blocks reversed), timed beside their plain versions, the cuDNN
+     depthwise conv + K1 at the same shapes (the default path for those
+     blocks) and the bound, which lets the tensor cores and the f32 cores
+     run at the same time;
   4. the scoring path through the Predictor: net='genconvit',
      convnext_tiny, 224 px, 15 frames, random weights on the device from a
      seed, the real 25088x12544 VAE heads; V=1, V=2 with masked frames,
-     V=8, predict_faces with k<F faces and with none; in four
+     V=8, predict_faces with k<F faces and with none; in six
      configurations: the default (every forward launches K1 54 times and
      K2 3 times), int8 heads (K3 once more), int8_mlp='fc1' and int8 heads
-     + int8_mlp='full' (K4 54 times in place of K1); peak device memory;
+     + int8_mlp='full' (K4 54 times in place of K1), pallas='1' (K5 15
+     times, nothing else) and pallas='stage' (K6 5 times, one per chain,
+     nothing else); peak device memory;
   5. each configuration vs the port's float32 plain path on the same
      weights (layer scale randomized, both heads' last layer scaled so
      that verdicts are decisive, deterministic VAE, TF32 off for the
@@ -41,8 +53,9 @@ Phases (any failed check raises and the exit code is non-zero):
      V=1 on device-resident distinct inputs in rotating buffers, one sync
      per trial, and the V=1 latency of a synchronized call;
   7. only with --profile: torch.profiler over 3 V=8 forwards of the
-     default and of the int8 heads + 'full' configuration, device time by
-     kernel group and the device's busy share of the wall time.
+     default, the int8 heads + 'full', the pallas='1' and the
+     pallas='stage' configuration, device time by kernel group and the
+     device's busy share of the wall time.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Without CUDA it exits non-zero at once.
@@ -71,9 +84,13 @@ IMG = 224
 CALLS = (("ed", 240, 224), ("vae_x", 120, 224), ("vae_xhat", 120, 112))
 DIMS = (96, 192, 384, 768)
 DEPTHS = (3, 3, 9, 3)
-# the slice's configurations: (name, int8_mlp, int8_heads)
-CONFIGS = (("default", "", False), ("int8_heads", "", True),
-           ("int8_mlp=fc1", "fc1", False), ("int8_heads+full", "full", True))
+# the slices' configurations: (name, pallas, int8_mlp, int8_heads)
+CONFIGS = (("default", "", "", False), ("int8_heads", "", "", True),
+           ("int8_mlp=fc1", "", "fc1", False), ("int8_heads+full", "", "full", True),
+           ("pallas=1", "1", "", False), ("pallas=stage", "stage", "", False))
+PROFILED = ("default", "int8_heads+full", "pallas=1", "pallas=stage")
+K5_PER_FORWARD = 15  # blocks with H >= 28, H % 14 == 0: ED 3+3, VAE x 3+3, x_hat 3
+K6_PER_FORWARD = 5   # stages with H >= 7, C % 128 == 0: ED s2, s3, VAE x s2, s3, x_hat s2
 
 
 def log(msg: str) -> None:
@@ -148,12 +165,14 @@ def must_fail(torch, km, what: str, out, ref, x=None, scale=None, tol=None) -> s
     return f"{what}: {ulps:.1f} ulps, rel {rel:.2e} -> refused"
 
 
-def bound(nbytes: float, ops: dict) -> tuple:
+def bound(nbytes: float, *units: dict) -> tuple:
     """The least time the card could take, in ms, and what sets it: the
-    bytes over the HBM rate, or the operations of each type over its peak
-    (ops: {peak: count}), whichever is larger."""
+    bytes over the HBM rate, or the busiest unit's operations, whichever is
+    larger. Each unit ({peak: count}) is one kind of pipe (the tensor cores,
+    the f32 cores): the types it runs share its time and add up, while
+    different units run at the same time."""
     t_bytes = nbytes / HBM
-    t_ops = sum(n / peak for peak, n in ops.items())
+    t_ops = max(sum(n / peak for peak, n in ops.items()) for ops in units)
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -450,17 +469,161 @@ def phase_kernels(torch, dev, card: str) -> list:
              "replaces": f"{mlp}:{line}", "launches": 0,
              "max_abs_err": k4acc[mode]["err"], "ms": tot["ms"], "plain_ms": tot["plain_ms"],
              "bound_ms": tot["bound_ms"], "bound_by": "bytes", "library_ms": None})
-    # a per-forward bound is a sum of per-launch bounds: name the side that
-    # sets the larger part of it
-    def side(parts):
-        ops = sum(t for t, by in parts if by == "operations")
-        return "operations" if ops > sum(t for t, _ in parts) - ops else "bytes"
-
     rec[0]["bound_by"] = side(k1_sides)
     for r, mode in ((rec[3], "fc1"), (rec[4], "full")):
         r["bound_by"] = side([(DEPTHS[i % 4] * sh[4], sh[5])
                               for i, sh in enumerate(k4acc[mode]["shapes"])])
     return rec
+
+
+def fused_shapes() -> tuple:
+    """K5's (call, n, H, C, launches per forward) and K6's (call, n, H, C,
+    blocks) on the scoring path, by the port's own rules."""
+    from genconvit_tpu_torch.models.convnext import (block_kernel_applies,
+                                                     stage_kernel_applies)
+
+    k5, k6 = [], []
+    for call, n, px in CALLS:
+        for si, c in enumerate(DIMS):
+            h = (px // 4) >> si
+            if block_kernel_applies(h):
+                k5.append((call, n, h, c, DEPTHS[si]))
+            if stage_kernel_applies(h, c):
+                k6.append((call, n, h, c, DEPTHS[si]))
+    if sum(s[4] for s in k5) != K5_PER_FORWARD or len(k6) != K6_PER_FORWARD:
+        raise AssertionError(f"fused launch plan {k5} {k6} is not {K5_PER_FORWARD} K5 + "
+                             f"{K6_PER_FORWARD} K6 launches per forward")
+    return k5, k6
+
+
+def random_fused_block(torch, c: int, dev, g):
+    """random_block with a non-zero depthwise bias (timm's init is zero,
+    which would hide a kernel that drops it)."""
+    blk = random_block(torch, c, dev, g)
+    with torch.no_grad():
+        blk.conv_dw.bias.copy_(0.1 * torch.randn(c, device=dev, generator=g))
+    return blk
+
+
+def fused_bound(rows: int, c: int, blocks: int) -> tuple:
+    """Bound of one K5 launch (blocks=1) or K6 chain: the activation in and
+    out once (bf16) and every block's weights once; per block 16*R*C^2 bf16
+    operations of the two matmuls on the tensor cores and, at the same time
+    on the f32 cores, 98*R*C operations of the taps."""
+    w = blocks * (49 * c * 2 + 2 * 4 * c * c * 2 + 4 * (6 * c + 4 * c))
+    return bound(2 * rows * c * 2 + w, {BF16: blocks * 16 * rows * c * c},
+                 {FP32: blocks * 98 * rows * c})
+
+
+def fused_steps(k5, k6, name: str, kern, x, p, truth=None):
+    """(input, kernel output, plain output) of each check: K5's one block,
+    or K6's chain block by block (convnext_stage.stage_steps)."""
+    if name == "K6":
+        return k6.stage_steps(kern, x, p, truth)
+    ref = k5.fused_convnext_block_plain(x, p if truth is None else truth)
+    return iter([(x, kern(x, p), ref)])
+
+
+def phase_fused(torch, dev, card: str) -> list:
+    """K5 and K6 at the scoring path's shapes against their plain versions
+    (K6 block by block), with planted faults; times of kernel, plain version
+    and the cuDNN depthwise conv + K1 at the same shapes; the bound."""
+    from genconvit_tpu_torch.models.convnext import _nhwc
+    from genconvit_tpu_torch.ops.cuda import convnext_block as k5
+    from genconvit_tpu_torch.ops.cuda import convnext_mlp as km
+    from genconvit_tpu_torch.ops.cuda import convnext_stage as k6
+
+    g = torch.Generator(device=dev).manual_seed(2345)
+    k5_shapes, k6_chains = fused_shapes()
+    tol = k5.ULP_TOL   # per block, K6's too
+    recs = {}
+    for name, shapes in (("K5", k5_shapes), ("K6", k6_chains)):
+        rec = {"err": 0.0, "ulps": 0.0, "planted_min": float("inf"), "ms": 0.0,
+               "plain_ms": 0.0, "cmp_ms": 0.0, "bound_ms": 0.0, "sides": []}
+        for call, n, h, c, depth in shapes:
+            nb = 1 if name == "K5" else depth    # blocks per launch
+            per_fwd = depth if name == "K5" else 1
+            blks = [random_fused_block(torch, c, dev, g) for _ in range(nb)]
+            x = torch.randn(n, h, h, c, device=dev, generator=g).to(torch.bfloat16)
+            with torch.inference_mode():
+                packs = [b.pack_fused() for b in blks]
+                if name == "K5":
+                    p = packs[0]
+                    kern, plain = k5.fused_convnext_block, k5.fused_convnext_block_plain
+                    faults = k5.planted_faults(p)
+                else:
+                    p = k5.stack_blocks(packs)
+                    kern, plain = k6.fused_convnext_stage, k6.fused_convnext_stage_plain
+                    faults = k6.chain_faults(packs)
+                what = f"{name} {call:8s} N={n} H={h:2d} C={c:3d} blocks={nb}"
+                for k, (xin, out, ref) in enumerate(fused_steps(k5, k6, name, kern, x, p)):
+                    scale = (ref.float() - xin.float()).abs().max().item()
+                    step = what + (f" block {k}" if name == "K6" else "")
+                    err, rel, ulps = compare(torch, km, step, out, ref, xin, scale, tol)
+                    rec["err"] = max(rec["err"], err)
+                    rec["ulps"] = max(rec["ulps"], ulps)
+                    log(f"{step} max|diff|={err:.3e} rel={rel:.3e} ulps={ulps:.3f} (limit {tol})")
+                for fname, bad in faults.items():
+                    # refused when any step fails; the steps after it are not run
+                    worst = 0.0
+                    for k, (xin, out, ref) in enumerate(fused_steps(k5, k6, name, kern, x, bad, p)):
+                        scale = (ref.float() - xin.float()).abs().max().item()
+                        worst = max(worst, km.bf16_ulp_error(out, ref, xin, scale))
+                        if worst > tol:
+                            break
+                    rec["planted_min"] = min(rec["planted_min"], worst)
+                    log(f"  {name} planted: "
+                        + must_fail(torch, km, fname + (f" (block {k})" if name == "K6" else ""),
+                                    out, ref, xin, scale, tol))
+                del xin, ref, out, faults
+                folds = [b.fold() for b in blks]
+                xc = x.permute(0, 3, 1, 2)   # the NCHW channels_last view
+
+                def cudnn_dw_k1():
+                    v = xc
+                    for b, f in zip(blks, folds):
+                        v = km.ln_mlp_residual(_nhwc(b.dw(v)), _nhwc(v), f).permute(0, 3, 1, 2)
+                    return v
+
+                iters = 10 if n * h * h * c * nb < 5e7 else 5
+                t_k = cuda_ms(torch, lambda: kern(x, p), iters)
+                t_p = cuda_ms(torch, lambda: plain(x, p), 2, 1)
+                t_c = cuda_ms(torch, cudnn_dw_k1, iters)
+            bd, by = fused_bound(n * h * h, c, nb)
+            log(f"{name} time {call:8s} N={n} H={h:2d} C={c:3d} blocks={nb}: kernel {t_k:.4f} "
+                f"ms, plain {t_p:.4f} ms, cuDNN dw + K1 {t_c:.4f} ms, bound {bd:.4f} ms ({by}); "
+                f"x{per_fwd} per forward [{card}]")
+            rec["ms"] += per_fwd * t_k
+            rec["plain_ms"] += per_fwd * t_p
+            rec["cmp_ms"] += per_fwd * t_c
+            rec["bound_ms"] += per_fwd * bd
+            rec["sides"].append((per_fwd * bd, by))
+            del blks, x, packs, p, folds
+        launches = K5_PER_FORWARD if name == "K5" else K6_PER_FORWARD
+        log(f"{name} per V=8 ensemble forward ({launches} launches): kernel {rec['ms']:.4f} ms, "
+            f"plain {rec['plain_ms']:.4f} ms, cuDNN dw + K1 {rec['cmp_ms']:.4f} ms, bound "
+            f"{rec['bound_ms']:.4f} ms ({side(rec['sides'])}); max ulps {rec['ulps']:.3f}; "
+            f"planted faults >= {rec['planted_min']:.1f} ulps [{card}]")
+        recs[name] = rec
+    out = []
+    for name, fn, src, tpu in (
+            ("K5", "fused_convnext_block", "convnext_block.cu",
+             "genconvit_tpu/ops/pallas/convnext_block.py:44"),
+            ("K6", "fused_convnext_stage", "convnext_stage.cu",
+             "genconvit_tpu/ops/pallas/convnext_stage.py:53")):
+        r = recs[name]
+        out.append({"name": fn, "route": "cuda", "source": f"genconvit_tpu_torch/csrc/{src}",
+                    "replaces": tpu, "launches": 0, "max_abs_err": r["err"], "ms": r["ms"],
+                    "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                    "bound_by": side(r["sides"]), "library_ms": None})
+    return out
+
+
+def side(parts) -> str:
+    """A per-forward bound is a sum of per-launch bounds: the side that sets
+    the larger part of it."""
+    ops = sum(t for t, by in parts if by == "operations")
+    return "operations" if ops > sum(t for t, _ in parts) - ops else "bytes"
 
 
 def check_verdicts(np, y, y_val, v: int) -> None:
@@ -472,10 +635,24 @@ def check_verdicts(np, y, y_val, v: int) -> None:
         raise AssertionError(f"verdicts out of range: y={y} y_val={y_val}")
 
 
-def make_plan(int8_mlp: str, int8_heads: bool):
+def make_plan(pallas: str, int8_mlp: str, int8_heads: bool):
     from genconvit_tpu_torch.ops.kernel_plan import KernelPlan
 
-    return KernelPlan(int8_mlp=int8_mlp, int8_heads=int8_heads)
+    return KernelPlan(pallas=pallas, int8_mlp=int8_mlp, int8_heads=int8_heads)
+
+
+def expected_launches(kcuda, pallas: str, int8_mlp: str, int8_heads: bool) -> dict:
+    """Every kernel's launches in one ensemble forward of a configuration."""
+    want = dict.fromkeys(kcuda.launch_counts(), 0)
+    if pallas == "1":
+        want["fused_convnext_block"] = K5_PER_FORWARD
+    elif pallas == "stage":
+        want["fused_convnext_stage"] = K6_PER_FORWARD
+    else:
+        want["layer_norm_rows"] = 3
+        want["ln_mlp_residual_int8" if int8_mlp else "ln_mlp_residual"] = 54
+    want["matmul_wint8"] = int(int8_heads)
+    return want
 
 
 def phase_slice(torch, np, dev, card: str, cfg) -> tuple:
@@ -484,16 +661,14 @@ def phase_slice(torch, np, dev, card: str, cfg) -> tuple:
     from genconvit_tpu_torch.infer.engine import Predictor
     from genconvit_tpu_torch.ops import cuda as kcuda
 
-    name, int8_mlp, int8_heads = cfg
-    want = {"ln_mlp_residual": 0 if int8_mlp else 54, "layer_norm_rows": 3,
-            "ln_mlp_residual_int8": 54 if int8_mlp else 0,
-            "matmul_wint8": 1 if int8_heads else 0}
+    name, pallas, int8_mlp, int8_heads = cfg
+    want = expected_launches(kcuda, pallas, int8_mlp, int8_heads)
     t0 = time.perf_counter()
     pred = Predictor(net="genconvit", device=dev, seed=0,
-                     kernel_plan=make_plan(int8_mlp, int8_heads))
+                     kernel_plan=make_plan(pallas, int8_mlp, int8_heads))
     torch.cuda.synchronize()
     log(f"slice [{name}]: Predictor (random init on device, bf16, "
-        f"{'int8 heads, ' if int8_heads else ''}folds) {time.perf_counter() - t0:.2f} s; "
+        f"{'int8 heads, ' if int8_heads else ''}{'packs' if pallas else 'folds'}) {time.perf_counter() - t0:.2f} s; "
         f"plan {pred.kernel_plan}; weights {torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB")
     torch.cuda.reset_peak_memory_stats(dev)
     rng = np.random.default_rng(0)
@@ -540,7 +715,7 @@ def phase_parity(torch, np, dev, card: str) -> dict:
     from genconvit_tpu_torch.models.convnext import Block
 
     base = Predictor(net="genconvit", device=dev, seed=1, dtype=torch.float32,
-                     deterministic_vae=True, kernel_plan=make_plan("", False))
+                     deterministic_vae=True, kernel_plan=make_plan("", "", False))
     g = torch.Generator(device=dev).manual_seed(7)
     with torch.no_grad():
         for m in base.model.modules():
@@ -580,9 +755,9 @@ def phase_parity(torch, np, dev, card: str) -> dict:
     y32, v32 = verdicts(m32)
     log(f"parity: f32 plain class means {np.round(m32, 5).tolist()}")
     out = {}
-    for name, int8_mlp, int8_heads in CONFIGS:
+    for name, pallas, int8_mlp, int8_heads in CONFIGS:
         p16 = Predictor(net="genconvit", device=dev, params=params, deterministic_vae=True,
-                        kernel_plan=make_plan(int8_mlp, int8_heads))
+                        kernel_plan=make_plan(pallas, int8_mlp, int8_heads))
         m16 = means(p16)
         del p16
         torch.cuda.empty_cache()
@@ -671,6 +846,10 @@ def phase_profile(torch, pred, dev, card: str, name: str, n: int = 3) -> None:
 
     def group(key):
         k = key.lower()
+        if "fused_block" in k:
+            return "K5 fused_block"
+        if "fused_stage" in k:
+            return "K6 fused_stage"
         if "ln_mlp_residual_int8" in k:
             return f"K4 {key}"
         if "wint8" in k:
@@ -688,8 +867,9 @@ def phase_profile(torch, pred, dev, card: str, name: str, n: int = 3) -> None:
         return "elementwise and other"
 
     groups: dict = {}
-    for e in events:  # device kernels, not the aten ops that launch them
-        if dev_ms(e) > 0 and not e.key.startswith("aten::"):
+    for e in events:  # device kernels, not the aten ops that launch them, nor the
+        # profiler's "Command Buffer Full" markers (launch back-pressure)
+        if dev_ms(e) > 0 and not e.key.startswith("aten::") and e.key != "Command Buffer Full":
             groups.setdefault(group(e.key), []).append((dev_ms(e), e.count // n, e.key))
     busy = sum(t for members in groups.values() for t, _, _ in members)
     if busy <= 0:
@@ -733,7 +913,7 @@ def main() -> int:
             log(f"  ptxas: {line.strip()}")
     log(f"K1 row tiles: {{C: rows}} = {{{', '.join(f'{c}: {km.row_tile(c)}' for c in DIMS)}}}")
     t = time.perf_counter()
-    kernels = phase_kernels(torch, dev, card)
+    kernels = phase_kernels(torch, dev, card) + phase_fused(torch, dev, card)
     log(f"phase 3: {time.perf_counter() - t:.1f} s")
     runs = {}
     for cfg in CONFIGS:
@@ -741,7 +921,7 @@ def main() -> int:
         pred, totals, peak = phase_slice(torch, np, dev, card, cfg)
         runs[cfg[0]] = dict(phase_throughput(torch, pred, dev, card, cfg[0]),
                             launches=totals, peak_forward_gib=peak)
-        if args.profile and cfg[0] in ("default", "int8_heads+full"):
+        if args.profile and cfg[0] in PROFILED:
             phase_profile(torch, pred, dev, card, cfg[0])
         del pred
         gc.collect()
@@ -762,7 +942,8 @@ def main() -> int:
     source_run = {"ln_mlp_residual": "default", "layer_norm_rows": "default",
                   "matmul_wint8": "int8_heads",
                   "ln_mlp_residual_int8[fc1]": "int8_mlp=fc1",
-                  "ln_mlp_residual_int8[full]": "int8_heads+full"}
+                  "ln_mlp_residual_int8[full]": "int8_heads+full",
+                  "fused_convnext_block": "pallas=1", "fused_convnext_stage": "pallas=stage"}
     for k in kernels:
         counter = k["name"].split("[")[0]
         k["launches"] = runs[source_run[k["name"]]]["launches"][counter]

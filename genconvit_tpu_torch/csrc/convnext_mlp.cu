@@ -37,7 +37,8 @@
 //     shared-memory stages in 32-row (fc1) and 16-row (fc2) slices with
 //     cp.async, several slices ahead of the tensor cores, and are shared by
 //     all warps of the block. Tensor cores run through WMMA (bf16 in, f32
-//     accumulate). Cutting the overhead named above (mma.sync/ldmatrix or
+//     accumulate). That loop is MlpTile (mlp_tile.cuh), shared with K5 and
+//     K6. Cutting the overhead named above (mma.sync/ldmatrix or
 //     wgmma warp tiles, TMA, fewer barriers per flop) is later work.
 //
 // K2  gcv_layer_norm_rows  replaces the Pallas kernel _ln_rows_kernel
@@ -48,23 +49,9 @@
 //
 // Every entry point returns cudaGetLastError() after its launch.
 
-#include <mma.h>
-
-#include "common.cuh"
-
-using namespace nvcuda;
+#include "mlp_tile.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kHidChunk = 128;    // hidden columns per chunk
-constexpr int kMaxNt = 6;         // fc2 accumulator 16x16 tiles per warp
-constexpr int kPadBf16 = 8;       // shared-row padding (bank spread)
-constexpr int kPadF32 = 4;
-constexpr int kScratchLd = 16;    // per-warp 16x16 f32 staging row stride
-constexpr int kKs1 = 32;          // rows of wg per fc1 weight slice
-constexpr int kKs2 = 16;          // rows of w2g per fc2 weight slice
 
 struct MlpArgs {
   const bf16* d;
@@ -81,105 +68,22 @@ struct MlpArgs {
   int hp;
 };
 
-// Row tile per width: the f32 fc2 accumulator [BM, C] is at most 6 WMMA
-// tiles per warp. BM=64 for C<=192, 32 for C<=384, 16 for C<=768; the 8
-// warps form a (BM/16) x (8*16/BM) grid over (row strips, column tiles).
-__host__ __device__ constexpr int mlp_row_tile(int c) {
-  return c <= 192 ? 64 : c <= 384 ? 32 : 16;
-}
-
-// Weight slices stream through a ring of shared-memory stages: fc1 reads
-// wg[k0:k0+32, chunk], fc2 reads w2g[chunk rows k0:k0+16, :]. Stages per
-// row tile, so that two blocks fit on an SM at every width.
-__host__ __device__ constexpr int mlp_stages(int bm) { return bm == 16 ? 3 : 4; }
-
-// Shared memory of one block (byte offsets; y rows start at 0): y rows
-// (bf16), the GELU'd hidden chunk (bf16), one 16x16 f32 staging tile per
-// warp, and the ring of weight-slice stages, which the f32 fc2 result
-// reuses at the end.
-struct MlpSmem {
-  size_t hs, scratch, ring, stage, total;
+// K1's GELU: the plan's rational tier with the fast reciprocal.
+struct GeluTier {
+  int hp;
+  __device__ __forceinline__ float operator()(float h) const { return gelu_rational(h, hp); }
 };
-
-__host__ __device__ __forceinline__ MlpSmem mlp_smem(int c, int bm) {
-  MlpSmem s;
-  s.hs = align128(static_cast<size_t>(bm) * (c + kPadBf16) * sizeof(bf16));
-  s.scratch = s.hs + align128(static_cast<size_t>(bm) * (kHidChunk + kPadBf16) * sizeof(bf16));
-  s.ring = s.scratch + align128(static_cast<size_t>(kWarps) * 16 * kScratchLd * sizeof(float));
-  const size_t w1 = static_cast<size_t>(kKs1) * (kHidChunk + kPadBf16) * sizeof(bf16);
-  const size_t w2 = static_cast<size_t>(kKs2) * (c + kPadBf16) * sizeof(bf16);
-  s.stage = align128(w1 > w2 ? w1 : w2);
-  const size_t ring = mlp_stages(bm) * s.stage;
-  const size_t os = align128(static_cast<size_t>(bm) * (c + kPadF32) * sizeof(float));
-  s.total = s.ring + (ring > os ? ring : os);
-  return s;
-}
 
 template <int BM>
 __global__ void __launch_bounds__(kThreads, 2)
 ln_mlp_residual_kernel(const MlpArgs a) {
-  constexpr int kWM = BM / 16;                  // warp rows (16-row strips)
-  constexpr int kWN = kWarps / kWM;             // warp columns
-  constexpr int kNj1 = kHidChunk / 16 / kWN;    // fc1 tiles per warp per chunk
-  constexpr int kS2 = kHidChunk / kKs2;         // fc2 slices per chunk
-  constexpr int kStages = mlp_stages(BM);
-  constexpr int ldw1 = kHidChunk + kPadBf16;
-  constexpr int ldh = kHidChunk + kPadBf16;
   extern __shared__ __align__(128) unsigned char smem[];
+  const MlpTile<BM> mlp(smem, a.c, a.wg, a.bw, a.w2g);
+  // the first slices are in flight during the LayerNorm pass
+  mlp.prefetch();
   const int c = a.c;
-  const int hidden = 4 * c;
-  const int s1 = c / kKs1;                      // fc1 slices per chunk
-  const int spc = s1 + kS2;
-  const int nslices = (hidden / kHidChunk) * spc;
-  const int ldy = c + kPadBf16;
-  const int ldw2 = c + kPadBf16;
-  const int ldo = c + kPadF32;
-  const int ctiles = c / 16;
-  const MlpSmem lay = mlp_smem(c, BM);
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int wm = warp / kWN;
-  const int wn = warp % kWN;
-  bf16* ys = reinterpret_cast<bf16*>(smem);
-  bf16* hs = reinterpret_cast<bf16*>(smem + lay.hs);
-  float* scratch = reinterpret_cast<float*>(smem + lay.scratch) + warp * 16 * kScratchLd;
-  bf16* ring = reinterpret_cast<bf16*>(smem + lay.ring);
-  float* os = reinterpret_cast<float*>(smem + lay.ring);
-  const size_t stage_elems = lay.stage / sizeof(bf16);
-
-  // Issue the copies of weight slice g (chunk g / spc; its fc1 slices
-  // first, then its fc2 slices) into ring stage g % kStages, 16 bytes per
-  // cp.async, as one copy group (empty past the last slice, which keeps
-  // the group count per loop step fixed).
-  auto load_slice = [&](int g) {
-    if (g < nslices) {
-      bf16* dst = ring + (g % kStages) * stage_elems;
-      const int h0 = (g / spc) * kHidChunk;
-      const int s = g % spc;
-      if (s < s1) {
-        const bf16* src = a.wg + static_cast<size_t>(s * kKs1) * hidden + h0;
-        constexpr int kPerRow = kHidChunk / 8;
-        for (int i = threadIdx.x; i < kKs1 * kPerRow; i += kThreads) {
-          const int r = i / kPerRow;
-          const int q = i % kPerRow;
-          cp_async16(dst + r * ldw1 + q * 8, src + static_cast<size_t>(r) * hidden + q * 8);
-        }
-      } else {
-        const bf16* src = a.w2g + static_cast<size_t>(h0 + (s - s1) * kKs2) * c;
-        const int per_row = c / 8;
-        for (int i = threadIdx.x; i < kKs2 * per_row; i += kThreads) {
-          const int r = i / per_row;
-          const int q = i % per_row;
-          cp_async16(dst + r * ldw2 + q * 8, src + static_cast<size_t>(r) * c + q * 8);
-        }
-      }
-    }
-    cp_async_commit();
-  };
-  // the first kStages-1 slices are in flight during the LayerNorm pass
-#pragma unroll
-  for (int g = 0; g < kStages - 1; ++g) load_slice(g);
-
   const long long row0 = static_cast<long long>(blockIdx.x) * BM;
   const int half_c = c / 2;
   const float inv_c = 1.0f / static_cast<float>(c);
@@ -188,7 +92,7 @@ ln_mlp_residual_kernel(const MlpArgs a) {
   //    ragged end are zero and never stored.
   for (int r = warp; r < BM; r += kWarps) {
     const long long g = row0 + r;
-    bf162* yrow = reinterpret_cast<bf162*>(ys + r * ldy);
+    bf162* yrow = reinterpret_cast<bf162*>(mlp.ys + r * mlp.ldy);
     if (g < a.rows) {
       const bf162* drow = reinterpret_cast<const bf162*>(a.d + g * c);
       float sum = 0.f, sumsq = 0.f;
@@ -210,96 +114,15 @@ ln_mlp_residual_kernel(const MlpArgs a) {
     }
   }
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[kMaxNt];
-#pragma unroll
-  for (int j = 0; j < kMaxNt; ++j) wmma::fill_fragment(acc[j], 0.0f);
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> z[kNj1];
-
-  // 2. The slice stream. Each step waits for slice g, then a barrier makes
-  //    it (and the y / h writes before it) visible and guarantees every
-  //    warp is done with slice g-1, whose stage slice g+kStages-1 then
-  //    overwrites while slice g is computed.
-  for (int g = 0; g < nslices; ++g) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();
-    load_slice(g + kStages - 1);
-    const bf16* w = ring + (g % kStages) * stage_elems;
-    const int s = g % spc;
-    if (s < s1) {
-      // fc1: z[strip wm, this warp's chunk columns] += y . wg slice
-      if (s == 0) {
-#pragma unroll
-        for (int j = 0; j < kNj1; ++j) wmma::fill_fragment(z[j], 0.0f);
-      }
-#pragma unroll
-      for (int kk = 0; kk < kKs1; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-        wmma::load_matrix_sync(fa, ys + wm * 16 * ldy + s * kKs1 + kk, ldy);
-#pragma unroll
-        for (int j = 0; j < kNj1; ++j) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-          wmma::load_matrix_sync(fb, w + kk * ldw1 + (wn + kWN * j) * 16, ldw1);
-          wmma::mma_sync(z[j], fa, fb, z[j]);
-        }
-      }
-      if (s == s1 - 1) {
-        // bias + GELU through the warp's staging tile into hs as bf16: the
-        // chunk of h lives only here
-        const int h0 = (g / spc) * kHidChunk;
-#pragma unroll
-        for (int j = 0; j < kNj1; ++j) {
-          const int nt = wn + kWN * j;
-          wmma::store_matrix_sync(scratch, z[j], kScratchLd, wmma::mem_row_major);
-          __syncwarp();
-          const float* bias = a.bw + h0 + nt * 16;
-          bf16* hrow = hs + wm * 16 * ldh + nt * 16;
-#pragma unroll
-          for (int e = lane; e < 256; e += 32) {
-            const int r = e / 16;
-            const int col = e % 16;
-            hrow[r * ldh + col] = __float2bfloat16_rn(
-                gelu_rational(scratch[r * kScratchLd + col] + bias[col], a.hp));
-          }
-          __syncwarp();
-        }
-      }
-    } else {
-      // fc2: acc[strip wm, this warp's output columns] += h . w2g slice
-      const int k0 = (s - s1) * kKs2;
-#pragma unroll
-      for (int kk = 0; kk < kKs2; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-        wmma::load_matrix_sync(fa, hs + wm * 16 * ldh + k0 + kk, ldh);
-#pragma unroll
-        for (int j = 0; j < kMaxNt; ++j) {
-          const int nt = wn + kWN * j;
-          if (nt < ctiles) {
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-            wmma::load_matrix_sync(fb, w + kk * ldw2 + nt * 16, ldw2);
-            wmma::mma_sync(acc[j], fa, fb, acc[j]);
-          }
-        }
-      }
-    }
-  }
-  cp_async_wait<0>();
-  __syncthreads();  // the ring becomes os
-
-#pragma unroll
-  for (int j = 0; j < kMaxNt; ++j) {
-    const int nt = wn + kWN * j;
-    if (nt < ctiles) {
-      wmma::store_matrix_sync(os + wm * 16 * ldo + nt * 16, acc[j], ldo, wmma::mem_row_major);
-    }
-  }
-  __syncthreads();
+  // 2. fc1 -> GELU -> fc2 into os
+  mlp.run(GeluTier{a.hp});
 
   // 3. epilogue, one warp per row: residual add, or residual + LayerNorm
   for (int r = warp; r < BM; r += kWarps) {
     const long long g = row0 + r;
     if (g >= a.rows) break;
     const bf16* xrow = a.x + g * c;
-    float* orow = os + r * ldo;
+    float* orow = mlp.os + r * mlp.ldo;
     bf16* out = a.out + g * c;
     if (a.lns == nullptr) {
       for (int j = lane; j < c; j += 32) {
@@ -329,13 +152,8 @@ template <int BM>
 int launch_mlp(const MlpArgs& a, cudaStream_t stream) {
   static size_t smem_configured = 0;  // per instantiation, on the current device
   const size_t smem = mlp_smem(a.c, BM).total;
-  if (smem > smem_configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        ln_mlp_residual_kernel<BM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    smem_configured = smem;
-  }
+  const int err = raise_smem_limit(ln_mlp_residual_kernel<BM>, smem, &smem_configured);
+  if (err) return err;
   const long long blocks = (a.rows + BM - 1) / BM;
   ln_mlp_residual_kernel<BM><<<static_cast<unsigned int>(blocks), kThreads, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());

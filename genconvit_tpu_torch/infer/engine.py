@@ -7,7 +7,9 @@ there. The Predictor runs on the GPU unless device="cpu" is passed: bfloat16
 on CUDA (the kernel backbone), float32 on the CPU. The plan's int8 switches
 (GENCONVIT_INT8_HEADS, GENCONVIT_INT8_MLP) apply as in the JAX engine
 (infer/engine.py:223-237 there): the latent heads quantize after the dtype
-cast, and the backbone folds follow plan.int8_mlp.
+cast, and the backbone folds follow plan.int8_mlp. GENCONVIT_PALLAS=1 or
+stage selects the fused-block (K5) or fused-stage (K6) backbone, whose
+weight packs are made at construction in place of the folds.
 """
 
 from __future__ import annotations
@@ -78,7 +80,7 @@ class Predictor:
             # from the weights the default path would multiply with
             model.quantize_heads_int8_()
         if self.dtype == torch.bfloat16:
-            model.prepare_kernels(self.kernel_plan)  # K1 or K4 folds, from bf16
+            model.prepare_kernels(self.kernel_plan)  # K1/K4 folds or K5/K6 packs, from bf16
         self.model = model
 
     # ------------------------------------------------------------- forward

@@ -5,17 +5,28 @@ LN), four stages of [LN + 2x2/2 downsample (stages 1-3); blocks of
 depthwise 7x7 -> LN -> MLP(4x, GELU) -> layer scale -> residual], head
 (global mean -> LN -> fc). Parameter names are timm's.
 
-Two paths, chosen per call as the JAX package chooses them
-(convnext.py:478-495):
+Four paths, chosen per call as the JAX package chooses them
+(convnext.py:182-198, 436-495); the first three need bfloat16 on CUDA:
 
-  * kernel backbone — bfloat16 on CUDA, plan.gelu != 'exact' and
-    plan.pallas != '0': stem conv -> K2 (the stem LN as `layer_norm_rows`);
-    per block the depthwise conv, then K1 (`ln_mlp_residual`) on the NHWC
-    rows, or K4 (`ln_mlp_residual_int8`) when plan.int8_mlp is 'fc1' or
-    'full'. The last block of stages 0-2 fuses the next downsample's LN
-    (`post_ln`), and the downsample then runs its conv directly;
-  * plain graph — everything else (float32, CPU, pallas '0', exact GELU):
-    the reference block with two-pass LayerNorm and the plan's GELU.
+  * kernel backbone — plan.pallas '' and plan.gelu != 'exact': stem conv ->
+    K2 (the stem LN as `layer_norm_rows`); per block the depthwise conv,
+    then K1 (`ln_mlp_residual`) on the NHWC rows, or K4
+    (`ln_mlp_residual_int8`) when plan.int8_mlp is 'fc1' or 'full'. The last
+    block of stages 0-2 fuses the next downsample's LN (`post_ln`), and the
+    downsample then runs its conv directly;
+  * fused-block backbone — plan.pallas '1': plain stem and downsample LNs;
+    K5 (`fused_convnext_block`, the whole block) on every block whose H
+    passes `block_kernel_applies`, the LN-folded block
+    (`Block.forward_folded`, the JAX package's bf16 block outside its
+    kernels) elsewhere;
+  * fused-stage backbone — plan.pallas 'stage': plain stem and downsample
+    LNs; K6 (`fused_convnext_stage`, one launch per stage's chain) on every
+    stage whose (H, C) pass `stage_kernel_applies`, the LN-folded block
+    elsewhere;
+  * plain graph — everything else (float32, CPU, pallas '0', exact GELU
+    with pallas ''): the reference block with two-pass LayerNorm in
+    float32 and the LN-folded block in bfloat16, each with the plan's GELU,
+    as the JAX package's _block chooses (convnext.py:193-198).
 
 Activations are NCHW in channels_last memory, so the NHWC view the kernels
 read as [N*H*W, C] rows is the tensor's own storage.
@@ -31,12 +42,16 @@ import torch.nn.functional as F
 
 from genconvit_tpu_torch.ops.act import gelu
 from genconvit_tpu_torch.ops.conv import conv2d
-from genconvit_tpu_torch.ops.cuda.convnext_mlp import (FoldedMLP,
+from genconvit_tpu_torch.ops.cuda.convnext_block import (FusedBlockWeights,
+                                                         fused_convnext_block,
+                                                         pack_block, stack_blocks)
+from genconvit_tpu_torch.ops.cuda.convnext_mlp import (FoldedMLP, _row_moments,
                                                        fold_block_mlp,
                                                        layer_norm_rows,
                                                        ln_mlp_residual)
 from genconvit_tpu_torch.ops.cuda.convnext_mlp_int8 import (
     FoldedMLPInt8, fold_block_mlp_int8, ln_mlp_residual_int8)
+from genconvit_tpu_torch.ops.cuda.convnext_stage import fused_convnext_stage
 from genconvit_tpu_torch.ops.kernel_plan import KernelPlan
 from genconvit_tpu_torch.ops.norm import layer_norm, layer_norm_2d
 
@@ -61,6 +76,17 @@ def _nchw(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 3, 1, 2)
 
 
+def f32_product(d: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """d [..., K] . w [K, N] with a float32 result from d's dtype (JAX's
+    preferred_element_type=float32): torch.mm's out_dtype for bf16 on CUDA,
+    the upcast product elsewhere. The same numbers up to summation order: a
+    bf16 product is exact in float32."""
+    if d.is_cuda and d.dtype == torch.bfloat16:
+        z = torch.mm(d.reshape(-1, d.shape[-1]), w, out_dtype=torch.float32)
+        return z.reshape(d.shape[:-1] + (w.shape[-1],))
+    return d.float() @ w.float()
+
+
 class LayerNorm2d(nn.LayerNorm):
     """LayerNorm over C of NCHW (timm LayerNorm2d), eps 1e-6."""
 
@@ -76,6 +102,14 @@ class Mlp(nn.Module):
         super().__init__()
         self.fc1 = nn.Linear(dim, 4 * dim)
         self.fc2 = nn.Linear(4 * dim, dim)
+
+
+class LNFold(NamedTuple):
+    """A block's LayerNorm folded into fc1, as the JAX package's
+    _block_xla_folded folds it (genconvit_tpu/models/convnext.py:144-150)."""
+    wg: torch.Tensor   # [C, 4C] weights' dtype: ln_scale[:, None] * W1
+    gw: torch.Tensor   # [4C] f32: ln_scale @ W1
+    bw: torch.Tensor   # [4C] f32: ln_bias @ W1 + b1
 
 
 class Block(nn.Module):
@@ -100,6 +134,32 @@ class Block(nn.Module):
         h = h * self.gamma.to(h.dtype)
         return x + _nchw(h)
 
+    def forward_folded(self, x: torch.Tensor, gelu_tier: str, fold: LNFold) -> torch.Tensor:
+        """The block with its LayerNorm folded into fc1, as the JAX package
+        runs a bf16 block outside its kernels (_block_xla_folded,
+        convnext.py:118-157): one-pass f32 moments of the depthwise output
+        d, z = d . wg in f32, y = ((z - mean * gw) * rsqrt(var + eps) + bw)
+        in the activations' dtype, then GELU, fc2 and the layer scale in it."""
+        d = _nhwc(self.dw(x))
+        mean, inv = _row_moments(d.float())
+        z = f32_product(d, fold.wg)
+        h = ((z - mean * fold.gw) * inv + fold.bw).to(x.dtype)
+        h = gelu(h, gelu_tier)
+        h = F.linear(h, self.mlp.fc2.weight, self.mlp.fc2.bias)
+        h = h * self.gamma.to(h.dtype)
+        return x + _nchw(h)
+
+    def fold_ln(self) -> LNFold:
+        """The LayerNorm fold of forward_folded, in f32 from the current
+        weights; wg in the weights' dtype. Differentiable, as the JAX
+        package's fold inside the block; prepare_kernels stores it without
+        a graph."""
+        w1 = self.mlp.fc1.weight.float().t()
+        s = self.norm.weight.float()
+        return LNFold(wg=(s[:, None] * w1).to(self.mlp.fc1.weight.dtype).contiguous(),
+                      gw=(s @ w1).contiguous(),
+                      bw=(self.norm.bias.float() @ w1 + self.mlp.fc1.bias.float()).contiguous())
+
     def _fold_args(self):
         return (self.norm.weight, self.norm.bias, self.mlp.fc1.weight,
                 self.mlp.fc1.bias, self.mlp.fc2.weight, self.mlp.fc2.bias,
@@ -114,6 +174,14 @@ class Block(nn.Module):
         """The MLP folds of int8 mode 'fc1' or 'full', quantized from the
         float32 folds of the current weights."""
         return fold_block_mlp_int8(*self._fold_args(), mode, self.mlp.fc1.weight.dtype)
+
+    def pack_fused(self) -> FusedBlockWeights:
+        """The block's weights as K5 and K6 read them (matrices in the
+        weights' dtype, bf16 on the kernel path)."""
+        return pack_block(self.conv_dw.weight, self.conv_dw.bias, self.norm.weight,
+                          self.norm.bias, self.mlp.fc1.weight, self.mlp.fc1.bias,
+                          self.mlp.fc2.weight, self.mlp.fc2.bias, self.gamma,
+                          self.mlp.fc1.weight.dtype)
 
 
 class Stage(nn.Module):
@@ -135,9 +203,37 @@ class KernelWeights(NamedTuple):
     int8_mlp: str = ""
 
 
-def uses_kernels(x: torch.Tensor, plan: KernelPlan) -> bool:
-    return (x.dtype == torch.bfloat16 and x.is_cuda
-            and plan.gelu != "exact" and plan.pallas != "0")
+class FusedWeights(NamedTuple):
+    """What the fused backbones read: per stage, K5's pack of each block
+    (pallas '1'), or K6's packs of the stage stacked (pallas 'stage'; None
+    for a stage whose width no H admits, C % 128 != 0); and every block's
+    LayerNorm fold, for the blocks the kernel's rule leaves out (which
+    depends on H, so on the input)."""
+    pallas: str
+    stages: List[Union[List[FusedBlockWeights], Optional[FusedBlockWeights]]]
+    ln_folds: List[List[LNFold]]
+
+
+def block_kernel_applies(h: int) -> bool:
+    """K5's rule (genconvit_tpu/models/convnext.py:194-195): a block of
+    height H runs K5 when H >= 28 and H % 14 == 0."""
+    return h >= 28 and h % 14 == 0
+
+
+def stage_kernel_applies(h: int, c: int) -> bool:
+    """K6's rule (convnext.py:452-454): a stage of height H and width C runs
+    K6 when H >= 7 and C % 128 == 0."""
+    return h >= 7 and c % 128 == 0
+
+
+def backbone_path(x: torch.Tensor, plan: KernelPlan) -> str:
+    """'kernels', '1', 'stage' or 'plain' (module docstring). The fused
+    paths ignore plan.gelu for their kernels, as the JAX package's do."""
+    if not (x.dtype == torch.bfloat16 and x.is_cuda) or plan.pallas == "0":
+        return "plain"
+    if plan.pallas in ("1", "stage"):
+        return plan.pallas
+    return "kernels" if plan.gelu != "exact" else "plain"
 
 
 class ConvNeXt(nn.Module):
@@ -154,6 +250,7 @@ class ConvNeXt(nn.Module):
         self.head.norm = nn.LayerNorm(dims[-1], eps=LN_EPS)
         self.head.fc = nn.Linear(dims[-1], num_classes)
         self._kernel_weights: Optional[KernelWeights] = None
+        self._fused_weights: Optional[FusedWeights] = None
 
     @classmethod
     def from_name(cls, name: str, num_classes: int = 1000) -> "ConvNeXt":
@@ -175,21 +272,92 @@ class ConvNeXt(nn.Module):
                      for blk in stage.blocks] for stage in self.stages],
             post_ln=post_ln, int8_mlp=int8_mlp)
 
+    @torch.no_grad()
+    def pack_fused_weights(self, pallas: str) -> FusedWeights:
+        """The fused backbones' packs from the module's current weights:
+        K5's for every block (pallas '1': the rule depends on H, which the
+        input sets), K6's stacked for every stage of a width K6 takes, and
+        every block's LayerNorm fold."""
+        ln_folds = [[blk.fold_ln() for blk in stage.blocks] for stage in self.stages]
+        if pallas == "1":
+            return FusedWeights("1", [[blk.pack_fused() for blk in stage.blocks]
+                                      for stage in self.stages], ln_folds)
+        stages = []
+        for stage in self.stages:
+            c = stage.blocks[0].gamma.shape[0]
+            stages.append(stack_blocks([blk.pack_fused() for blk in stage.blocks])
+                          if c % 128 == 0 else None)
+        return FusedWeights("stage", stages, ln_folds)
+
     def prepare_kernels(self, plan: KernelPlan = DEFAULT_PLAN) -> None:
-        """Fold once for the kernel backbone, after the final dtype cast,
-        in the plan's int8 mode. The kernel path reads only these folds:
-        call it again after any change to the weights."""
-        self._kernel_weights = self.fold_kernel_weights(plan.int8_mlp)
+        """Fold or pack once for the plan's kernel backbone, after the final
+        dtype cast: K1's or K4's folds (pallas ''), K5's or K6's packs and
+        the LayerNorm folds of the blocks around them (pallas '1' or
+        'stage'). The kernel paths read only these: call it
+        again after any change to the weights."""
+        if plan.pallas in ("1", "stage"):
+            self._kernel_weights = None
+            self._fused_weights = self.pack_fused_weights(plan.pallas)
+        else:
+            self._fused_weights = None
+            self._kernel_weights = self.fold_kernel_weights(plan.int8_mlp)
 
     def _features_plain(self, x: torch.Tensor, gelu_tier: str) -> torch.Tensor:
-        x = conv2d(x, self.stem[0].weight, self.stem[0].bias, stride=4)
-        x = self.stem[1](x)
+        x = self._stem_plain(x)
         for stage in self.stages:
-            if stage.downsample is not None:
-                ln, conv = stage.downsample
-                x = conv2d(ln(x), conv.weight, conv.bias, stride=2)
+            x = self._downsample_plain(stage, x)
             for blk in stage.blocks:
-                x = blk(x, gelu_tier)
+                if x.dtype == torch.bfloat16:
+                    x = blk.forward_folded(x, gelu_tier, blk.fold_ln())
+                else:
+                    x = blk(x, gelu_tier)
+        return x
+
+    def _fused(self, pallas: str) -> FusedWeights:
+        fw = self._fused_weights
+        if fw is None or fw.pallas != pallas:
+            raise RuntimeError(
+                f"fused backbone pallas={pallas!r} without its packs: call "
+                f"prepare_kernels(plan) with this plan")
+        return fw
+
+    def _stem_plain(self, x: torch.Tensor) -> torch.Tensor:
+        x = conv2d(x, self.stem[0].weight, self.stem[0].bias, stride=4)
+        return self.stem[1](x)
+
+    def _downsample_plain(self, stage: Stage, x: torch.Tensor) -> torch.Tensor:
+        if stage.downsample is None:
+            return x
+        ln, conv = stage.downsample
+        return conv2d(ln(x), conv.weight, conv.bias, stride=2)
+
+    def _features_block(self, x: torch.Tensor, gelu_tier: str) -> torch.Tensor:
+        """The fused-block backbone (pallas '1'): K5 where
+        block_kernel_applies(H), the LN-folded block (plan's GELU)
+        elsewhere."""
+        fw = self._fused("1")
+        x = self._stem_plain(x)
+        for si, stage in enumerate(self.stages):
+            x = self._downsample_plain(stage, x)
+            for bi, blk in enumerate(stage.blocks):
+                if block_kernel_applies(x.shape[2]):
+                    x = _nchw(fused_convnext_block(_nhwc(x), fw.stages[si][bi]))
+                else:
+                    x = blk.forward_folded(x, gelu_tier, fw.ln_folds[si][bi])
+        return x
+
+    def _features_stage(self, x: torch.Tensor, gelu_tier: str) -> torch.Tensor:
+        """The fused-stage backbone (pallas 'stage'): K6 on a stage where
+        stage_kernel_applies(H, C), the LN-folded blocks elsewhere."""
+        fw = self._fused("stage")
+        x = self._stem_plain(x)
+        for si, stage in enumerate(self.stages):
+            x = self._downsample_plain(stage, x)
+            if stage_kernel_applies(x.shape[2], x.shape[1]):
+                x = _nchw(fused_convnext_stage(_nhwc(x), fw.stages[si]))
+            else:
+                for bi, blk in enumerate(stage.blocks):
+                    x = blk.forward_folded(x, gelu_tier, fw.ln_folds[si][bi])
         return x
 
     def _features_kernels(self, x: torch.Tensor, gelu_tier: str,
@@ -219,8 +387,13 @@ class ConvNeXt(nn.Module):
 
     def features(self, x: torch.Tensor, plan: KernelPlan = DEFAULT_PLAN) -> torch.Tensor:
         """[N,3,H,W] -> [N,C,H/32,W/32] (pre-head)."""
-        if uses_kernels(x, plan):
+        path = backbone_path(x, plan)
+        if path == "kernels":
             return self._features_kernels(x, plan.gelu, plan.int8_mlp)
+        if path == "1":
+            return self._features_block(x, plan.gelu)
+        if path == "stage":
+            return self._features_stage(x, plan.gelu)
         return self._features_plain(x, plan.gelu)
 
     def forward(self, x: torch.Tensor, plan: KernelPlan = DEFAULT_PLAN) -> torch.Tensor:

@@ -8,7 +8,7 @@ one link:
     nvcc -gencode arch=compute_90a,code=sm_90a -shared
          -o build/genconvit_tpu_torch/libgcv_kernels_<hash>.so *.o
 
-The hash covers the sources' and the header's bytes and the flags, so an
+The hash covers the sources' and the headers' bytes and the flags, so an
 edited source builds anew. The library is written under a temporary name and renamed into
 place, so processes that build at once never load a partial file. Nothing
 builds at import: the first kernel launch (or `build()`) does.
@@ -28,8 +28,10 @@ from typing import Optional
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 SOURCES = tuple(os.path.join(_PKG_DIR, "csrc", f) for f in
-                ("convnext_mlp.cu", "convnext_mlp_int8.cu", "int8_matmul.cu"))
-HEADERS = (os.path.join(_PKG_DIR, "csrc", "common.cuh"),)
+                ("convnext_mlp.cu", "convnext_mlp_int8.cu", "int8_matmul.cu",
+                 "convnext_block.cu", "convnext_stage.cu"))
+HEADERS = tuple(os.path.join(_PKG_DIR, "csrc", f) for f in
+                ("common.cuh", "mlp_tile.cuh", "fused_block.cuh"))
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
                          "genconvit_tpu_torch")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -49,6 +51,10 @@ _SIGNATURES = {
                                  ctypes.c_int),
     # x, wq, scale, bias, work, out, m, k, n, out_f32, stream
     "gcv_matmul_wint8": ([_P] * 6 + [ctypes.c_int] * 4 + [_P], ctypes.c_int),
+    # x, wdw, bdw, lns, lnb, w1, b1, w2, b2, gamma, out, n, h, w, c, stream
+    "gcv_fused_block": ([_P] * 11 + [ctypes.c_int] * 4 + [_P], ctypes.c_int),
+    # x, wdw, bdw, lns, lnb, w1, b1, w2, b2, gamma, ws, out, n, h, w, c, nb, stream
+    "gcv_fused_stage": ([_P] * 12 + [ctypes.c_int] * 5 + [_P], ctypes.c_int),
     "gcv_wint8_splits": ([ctypes.c_int] * 3, ctypes.c_int),
     "gcv_mlp_row_tile": ([ctypes.c_int], ctypes.c_int),
     "gcv_error_string": ([ctypes.c_int], ctypes.c_char_p),

@@ -1,0 +1,169 @@
+"""K5: one whole ConvNeXt block as a hand-written CUDA kernel
+(csrc/convnext_block.cu), with its plain PyTorch version.
+
+  fused_convnext_block  replaces fused_convnext_block (_block_kernel) of
+                        genconvit_tpu/ops/pallas/convnext_block.py
+
+Per pixel of an NHWC activation x [N,H,W,C], in this order and with these
+roundings (convnext_block.py:71-98):
+
+  acc = b_dw + sum over (dy, dx) of x[., y+dy-3, x+dx-3, .] * w_dw[dy, dx]
+        float32 from the bias, taps in (dy, dx) order, zero padding 3
+  y   = bf16(((acc - mean) * rsqrt(var + 1e-6)) * ln_scale + ln_bias),
+        var = E[acc^2] - mean^2 (one pass; not folded into fc1)
+  h   = bf16(GELU(y . w1 + b1)), the erf form with the hp rational erf and
+        an exact divide, whatever the plan's GELU tier
+  out = bf16(x + ((h . w2 + b2) * gamma))   (gamma not folded into w2)
+
+The wrapper takes the JAX layout [N,H,W,C], which is the storage of the
+port's channels_last NCHW activations. On a CPU tensor it runs the plain
+version; on a CUDA tensor it launches the kernel or raises. It counts its
+kernel launches in its `launches` attribute.
+
+`pack_block` lays a block's weights out as K5 and K6 read them, once, in
+`ConvNeXt.prepare_kernels()`; `stack_blocks` stacks a chain's packs on a
+leading axis for K6 (ops/cuda/convnext_stage.py). `planted_faults` makes
+the wrong packs that the card checks must refuse.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, NamedTuple, Sequence
+
+import torch
+import torch.nn.functional as F
+
+from genconvit_tpu_torch.ops.act import _SQRT_HALF, erf_rational
+from genconvit_tpu_torch.ops.cuda import _build
+from genconvit_tpu_torch.ops.cuda.convnext_mlp import (LN_EPS, MAX_C, _check_vec,
+                                                       _require, _stream)
+
+ULP_TOL = 2.0  # kernel vs plain, elementwise, in bf16 ulps: one rounding of x + o, as K1
+
+
+class FusedBlockWeights(NamedTuple):
+    """A block's weights as K5 reads them; K6 reads the same fields stacked
+    on a leading axis of the chain's blocks."""
+    w_dw: torch.Tensor    # [49, C] bf16: w_dw[dy*7+dx, c] = conv_dw.weight[c, 0, dy, dx]
+    b_dw: torch.Tensor    # [C] f32
+    ln_scale: torch.Tensor  # [C] f32
+    ln_bias: torch.Tensor   # [C] f32
+    w1: torch.Tensor      # [C, 4C] bf16: fc1.weight^T
+    b1: torch.Tensor      # [4C] f32
+    w2: torch.Tensor      # [4C, C] bf16: fc2.weight^T
+    b2: torch.Tensor      # [C] f32
+    gamma: torch.Tensor   # [C] f32
+
+
+@torch.no_grad()
+def pack_block(conv_dw_weight, conv_dw_bias, ln_scale, ln_bias, fc1_weight, fc1_bias,
+               fc2_weight, fc2_bias, gamma, dtype: torch.dtype) -> FusedBlockWeights:
+    """The block's (torch-layout) weights as K5 reads them: the matrices in
+    `dtype`, the vectors in float32 (of the weights' own values)."""
+    c = conv_dw_weight.shape[0]
+
+    def vec(t):
+        return t.float().contiguous()
+
+    return FusedBlockWeights(
+        w_dw=conv_dw_weight[:, 0].permute(1, 2, 0).reshape(49, c).to(dtype).contiguous(),
+        b_dw=vec(conv_dw_bias), ln_scale=vec(ln_scale), ln_bias=vec(ln_bias),
+        w1=fc1_weight.t().to(dtype).contiguous(), b1=vec(fc1_bias),
+        w2=fc2_weight.t().to(dtype).contiguous(), b2=vec(fc2_bias), gamma=vec(gamma))
+
+
+@torch.no_grad()
+def stack_blocks(packs: Sequence[FusedBlockWeights]) -> FusedBlockWeights:
+    """A chain's packs stacked on a leading axis, as K6 reads them."""
+    return FusedBlockWeights(*(torch.stack(f).contiguous() for f in zip(*packs)))
+
+
+def planted_faults(p: FusedBlockWeights) -> Dict[str, FusedBlockWeights]:
+    """The pack p each missing one term of K5's math, as a kernel that
+    forgot it would read it: the check of a kernel against its plain
+    version must refuse every one."""
+    w_t = p.w_dw.reshape(7, 7, -1).transpose(0, 1).reshape(49, -1).contiguous()
+    return {"dw bias dropped": p._replace(b_dw=torch.zeros_like(p.b_dw)),
+            "dw kernel transposed": p._replace(w_dw=w_t),
+            "LN bias dropped": p._replace(ln_bias=torch.zeros_like(p.ln_bias)),
+            "layer scale 1": p._replace(gamma=torch.ones_like(p.gamma))}
+
+
+def gelu_erf_hp(h: torch.Tensor) -> torch.Tensor:
+    """K5's GELU: 0.5 * h * (1 + erf(h / sqrt(2))) with the hp rational erf,
+    e = zc * (P / Q) (convnext_block.py:35-41, :92)."""
+    return 0.5 * h * (1.0 + erf_rational(h * _SQRT_HALF, "hp"))
+
+
+def block_plain(x: torch.Tensor, p: FusedBlockWeights,
+                gelu: Callable[[torch.Tensor], torch.Tensor]) -> torch.Tensor:
+    """One block's math on NHWC x, rounded where the kernels round: K5 with
+    gelu_erf_hp, each block of K6 with its own GELU form. bf16 operands are
+    upcast before each product: a bf16 product is exact in float32."""
+    dtype = x.dtype
+    n, h, w, c = x.shape
+    xp = F.pad(x, (0, 0, 3, 3, 3, 3))
+    acc = p.b_dw.float().expand(n, h, w, c)
+    for dy in range(7):
+        for dx in range(7):
+            acc = acc + xp[:, dy:dy + h, dx:dx + w, :].float() * p.w_dw[dy * 7 + dx].float()
+    inv_c = 1.0 / c
+    mean = acc.sum(-1, keepdim=True) * inv_c
+    var = (acc * acc).sum(-1, keepdim=True) * inv_c - mean * mean
+    y = (acc - mean) * torch.rsqrt(var + LN_EPS)
+    y = (y * p.ln_scale.float() + p.ln_bias.float()).to(dtype)
+    hid = y.float() @ p.w1.float() + p.b1.float()
+    hid = gelu(hid).to(dtype)
+    o = (hid.float() @ p.w2.float() + p.b2.float()) * p.gamma.float()
+    return (x.float() + o).to(dtype)
+
+
+def fused_convnext_block_plain(x: torch.Tensor, p: FusedBlockWeights) -> torch.Tensor:
+    """K5's math in plain PyTorch."""
+    return block_plain(x, p, gelu_erf_hp)
+
+
+def check_activation(what: str, x: torch.Tensor) -> None:
+    """What K5 and K6 take: a contiguous 16-byte-aligned bf16 NHWC tensor
+    with C a multiple of 32 and at most MAX_C."""
+    _require(x.dim() == 4, what, f"expected [N,H,W,C], got shape {tuple(x.shape)}")
+    c = x.shape[-1]
+    _require(x.dtype == torch.bfloat16, what, f"x must be bfloat16, got {x.dtype}")
+    _require(c % 32 == 0, what, f"C={c} must be a multiple of 32")
+    _require(c <= MAX_C, what, f"C={c} exceeds {MAX_C}")
+    _require(x.is_contiguous(), what, "x must be contiguous (NHWC)")
+    _require(x.data_ptr() % 16 == 0, what, "x must be 16-byte aligned")
+
+
+def check_weights(what: str, p: FusedBlockWeights, c: int, device, lead=()) -> None:
+    """The packs' shapes, dtypes and placement (lead: K6's chain axis)."""
+    lead = tuple(lead)
+    bf, f32 = torch.bfloat16, torch.float32
+    for t, shape, dtype in ((p.w_dw, (49, c), bf), (p.b_dw, (c,), f32),
+                            (p.ln_scale, (c,), f32), (p.ln_bias, (c,), f32),
+                            (p.w1, (c, 4 * c), bf), (p.b1, (4 * c,), f32),
+                            (p.w2, (4 * c, c), bf), (p.b2, (c,), f32), (p.gamma, (c,), f32)):
+        _check_vec(what, t, lead + shape, dtype, device)
+
+
+def fused_convnext_block(x: torch.Tensor, p: FusedBlockWeights) -> torch.Tensor:
+    """K5: one ConvNeXt block on x [N,H,W,C]; returns [N,H,W,C]."""
+    if x.device.type == "cpu":
+        return fused_convnext_block_plain(x, p)
+    what = "fused_convnext_block"
+    _require(x.is_cuda, what, f"unsupported device {x.device}")
+    check_activation(what, x)
+    n, h, w, c = x.shape
+    check_weights(what, p, c, x.device)
+    out = torch.empty_like(x)
+    lib = _build.load()
+    with torch.cuda.device(x.device):
+        err = lib.gcv_fused_block(
+            x.data_ptr(), *(t.data_ptr() for t in p), out.data_ptr(), n, h, w, c,
+            _stream(x.device))
+    _build.check(err, what)
+    fused_convnext_block.launches += 1
+    return out
+
+
+fused_convnext_block.launches = 0

@@ -2,8 +2,18 @@
 genconvit_tpu/ops/kernel_plan.py:36-130 the scoring path reads).
 
   gelu        'default' (deg-3/2 rational) | 'hp' (deg-5/4) | 'exact' (erf)
-  pallas      ''  the hand-written CUDA kernels on a CUDA bfloat16 backbone
-              '0' the plain PyTorch graph everywhere
+  pallas      ''      the kernel backbone on a CUDA bfloat16 backbone: K2
+                      for the stem LN, K1 (or K4) for every block tail
+              '0'     the plain PyTorch graph everywhere
+              '1'     the fused-block backbone: K5 (a whole block in one
+                      kernel) on every block with H >= 28 and H % 14 == 0,
+                      the plain bf16 block elsewhere, plain LayerNorms
+              'stage' the fused-stage backbone: K6 (a stage's chain of
+                      blocks in one kernel) on every stage with H >= 7 and
+                      C % 128 == 0, the plain bf16 block elsewhere, plain
+                      LayerNorms
+              '1' and 'stage' run their kernels with the hp GELU whatever
+              `gelu` says, as the JAX package's A/B paths do.
   int8_mlp    ''     the block tails in bf16 (K1)
               'fc1'  int8 fc1 with a fixed activation scale, bf16 fc2 (K4)
               'full' W8A8: both MLP matmuls int8, per-row activation
@@ -23,7 +33,7 @@ import os
 
 from genconvit_tpu_torch.ops.act import GELU_TIERS
 
-_PALLAS_MODES = ("", "0")
+_PALLAS_MODES = ("", "0", "1", "stage")
 INT8_MLP_MODES = ("", "fc1", "full")
 
 

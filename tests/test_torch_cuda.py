@@ -223,3 +223,118 @@ def test_int8_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         k3.matmul_wint8(x, wq.cpu(), s, s)
     with pytest.raises(ValueError, match="bfloat16 or float32"):
         k3.matmul_wint8(x.half(), wq, s, s)
+
+
+# K5 and K6 (the fused-block and fused-stage backbones): rows ragged against
+# every row tile, H and W off each other; planted faults must fail the check.
+# K6 is held block by block, each block at K5's bound.
+
+def _fused_block_weights(c, dev, g):
+    """A block's K5 pack, made as chip_smoke.py makes it: a ConvNeXt block at
+    timm's init, layer scale U(0.1, 1), every bias non-trivial, in bf16."""
+    from chip_smoke import random_fused_block
+
+    with torch.no_grad():
+        return random_fused_block(torch, c, dev, g).pack_fused()
+
+
+def _fused_check(out, ref, x):
+    """rel <= TOL and within K5's ulps of max(|ref|, |x|), floored at the
+    ulp of the largest change the block made."""
+    from genconvit_tpu_torch.ops.cuda import convnext_block as k5
+
+    scale = (ref.float() - x.float()).abs().max().item()
+    return _rel(out, ref) <= TOL and km.bf16_ulp_error(out, ref, x, scale) <= k5.ULP_TOL
+
+
+def _stage_holds(x, stack, truth=None):
+    """K6 held block by block (convnext_stage.stage_steps): False at the
+    first block whose output is off its plain block on the same input."""
+    from genconvit_tpu_torch.ops.cuda import convnext_stage as k6
+
+    return all(_fused_check(out, ref, xin) for xin, out, ref
+               in k6.stage_steps(k6.fused_convnext_stage, x, stack, truth))
+
+
+@pytest.mark.parametrize("c", [96, 192, 384, 768])
+def test_k5_matches_plain(dev, c):
+    from genconvit_tpu_torch.ops.cuda import convnext_block as k5
+
+    g = torch.Generator(device=dev).manual_seed(200 + c)
+    x = torch.randn(3, 13, 11, c, device=dev, generator=g).to(torch.bfloat16)
+    p = _fused_block_weights(c, dev, g)
+    before = k5.fused_convnext_block.launches
+    out = k5.fused_convnext_block(x, p)
+    torch.cuda.synchronize()
+    assert k5.fused_convnext_block.launches == before + 1
+    ref = k5.fused_convnext_block_plain(x, p)
+    assert out.shape == x.shape and _fused_check(out, ref, x)
+    for name, bad in k5.planted_faults(p).items():
+        assert not _fused_check(k5.fused_convnext_block(x, bad), ref, x), name
+
+
+@pytest.mark.parametrize("n,h,w,c,nb", [(3, 7, 7, 384, 3), (2, 14, 14, 384, 2),
+                                        (2, 7, 7, 768, 2), (2, 9, 5, 128, 1),
+                                        (2, 7, 7, 384, 9)])  # 9: stage 2's chain
+def test_k6_matches_plain(dev, n, h, w, c, nb):
+    from genconvit_tpu_torch.ops.cuda import convnext_block as k5
+    from genconvit_tpu_torch.ops.cuda import convnext_stage as k6
+
+    g = torch.Generator(device=dev).manual_seed(300 + c + nb)
+    x = torch.randn(n, h, w, c, device=dev, generator=g).to(torch.bfloat16)
+    packs = [_fused_block_weights(c, dev, g) for _ in range(nb)]
+    stack = k5.stack_blocks(packs)
+    before = k6.fused_convnext_stage.launches
+    out = k6.fused_convnext_stage(x, stack)
+    torch.cuda.synchronize()
+    assert k6.fused_convnext_stage.launches == before + 1
+    assert out.shape == x.shape
+    assert torch.equal(out, k6.fused_convnext_stage(x, stack))   # deterministic
+    assert _stage_holds(x, stack)
+    # every fault refused, the one confined to the middle block too
+    for name, bad in k6.chain_faults(packs).items():
+        assert not _stage_holds(x, bad, stack), name
+
+
+def test_fused_wrappers_raise_on_what_the_kernels_do_not_take(dev):
+    from genconvit_tpu_torch.ops.cuda import convnext_block as k5
+    from genconvit_tpu_torch.ops.cuda import convnext_stage as k6
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    p = _fused_block_weights(96, dev, g)
+    x = torch.randn(1, 8, 8, 96, device=dev, generator=g).to(torch.bfloat16)
+    with pytest.raises(ValueError, match="bfloat16"):
+        k5.fused_convnext_block(x.float(), p)
+    with pytest.raises(ValueError, match="contiguous"):
+        k5.fused_convnext_block(x.permute(0, 2, 1, 3), p)
+    with pytest.raises(ValueError, match="N,H,W,C"):
+        k5.fused_convnext_block(x[0], p)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        k5.fused_convnext_block(x[..., :48].contiguous(), p)
+    wide = torch.zeros(1, 2, 2, 1536, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="exceeds"):
+        k5.fused_convnext_block(wide, p)
+    with pytest.raises(ValueError, match="expected shape"):
+        k5.fused_convnext_block(x, p._replace(w1=p.w2))
+    with pytest.raises(ValueError, match="another device"):
+        k5.fused_convnext_block(x, p._replace(gamma=p.gamma.cpu()))
+    with pytest.raises(ValueError, match="stacked"):
+        k6.fused_convnext_stage(x, p)
+    with pytest.raises(ValueError, match="float32"):
+        k6.fused_convnext_stage(x, k5.stack_blocks([p._replace(b1=p.b1.half())]))
+
+
+def test_f32_product_on_the_card_is_the_upcast_product(dev):
+    """The LN-folded block's z = d . wg (models/convnext.f32_product): the
+    bf16 product with a float32 result on the card, the upcast product on
+    the CPU; the same up to float32 summation order."""
+    from genconvit_tpu_torch.models.convnext import f32_product
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    d = (3 * torch.randn(2, 9, 7, 384, device=dev, generator=g) + 1).to(torch.bfloat16)
+    w = (0.05 * torch.randn(384, 1536, device=dev, generator=g)).to(torch.bfloat16)
+    z = f32_product(d, w)
+    assert z.dtype == torch.float32 and z.shape == (2, 9, 7, 1536)
+    ref = f32_product(d.cpu(), w.cpu())
+    mag = d.float().abs().cpu() @ w.float().abs().cpu()
+    assert ((z.cpu() - ref).abs() <= 1e-5 * mag + 1e-6).all()

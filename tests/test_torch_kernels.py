@@ -274,6 +274,8 @@ def test_kernel_plan_from_env(monkeypatch):
     monkeypatch.setenv("GENCONVIT_EXACT_GELU", "1")
     assert KernelPlan.from_env().gelu == "exact"
     monkeypatch.setenv("GENCONVIT_PALLAS", "stage")
+    assert KernelPlan.from_env().pallas == "stage"
+    monkeypatch.setenv("GENCONVIT_PALLAS", "bogus")
     with pytest.raises(ValueError, match="pallas"):
         KernelPlan.from_env()
     with pytest.raises(ValueError, match="gelu"):
