@@ -34,7 +34,13 @@ Phases (any failed check raises and the exit code is non-zero):
      blocks reversed), timed beside their plain versions, the cuDNN
      depthwise conv + K1 at the same shapes (the default path for those
      blocks) and the bound, which lets the tensor cores and the f32 cores
-     run at the same time;
+     run at the same time; K7 (Swin window attention) at the four stage
+     shapes of swin_tiny and of swin_large at N = 120 (masked at stages 0-2,
+     unmasked at all four), within 2 bf16 ulps of the window-head's largest
+     |out| (window_attn.ulp_error), with planted faults (relative bias
+     dropped, bias taken window-fastest, mask dropped, mask off by one
+     window, hd^-1/2 scale omitted), timed beside its plain version, the
+     one SDPA call with bias + mask as a float attn_mask, and the bound;
   4. the scoring path through the Predictor: net='genconvit',
      convnext_tiny, 224 px, 15 frames, random weights on the device from a
      seed, the real 25088x12544 VAE heads; V=1, V=2 with masked frames,
@@ -54,8 +60,18 @@ Phases (any failed check raises and the exit code is non-zero):
      per trial, and the V=1 latency of a synchronized call;
   7. only with --profile: torch.profiler over 3 V=8 forwards of the
      default, the int8 heads + 'full', the pallas='1' and the
-     pallas='stage' configuration, device time by kernel group and the
-     device's busy share of the wall time.
+     pallas='stage' configuration, and over 3 N=120 swin_tiny forwards with
+     K7, device time by kernel group and the device's busy share of the
+     wall time;
+  8. the Swin slice: swin_tiny at full width and depth, 224 px, random
+     weights from a seed with O(1) bias tables, through
+     SwinTransformer.features and forward and HybridEmbed.tokens
+     (feature_dim 768) at N = 120 and 15 (the V=8 and V=1 batches of face
+     crops), in bf16 with K7 (12 launches per forward, 5 with a mask) and
+     with pallas='0' (none); each against the float32 plain path on the
+     same weights (TF32 off) and K7 against pallas='0', max|diff| /
+     max|ref| <= 3e-2; images/s and ms per forward of both plans at both
+     N, peak device memory.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Without CUDA it exits non-zero at once.
@@ -91,6 +107,10 @@ CONFIGS = (("default", "", "", False), ("int8_heads", "", "", True),
 PROFILED = ("default", "int8_heads+full", "pallas=1", "pallas=stage")
 K5_PER_FORWARD = 15  # blocks with H >= 28, H % 14 == 0: ED 3+3, VAE x 3+3, x_hat 3
 K6_PER_FORWARD = 5   # stages with H >= 7, C % 128 == 0: ED s2, s3, VAE x s2, s3, x_hat s2
+SWIN_TINY = "swin_tiny_patch4_window7_224"
+SWIN_LARGE = "swin_large_patch4_window7_224"
+SWIN_BATCHES = (120, 15)   # the V=8 and V=1 batches of 15 face crops
+K7_PER_FORWARD = (12, 5)   # swin_tiny at 224 px: launches, of them with a mask
 
 
 def log(msg: str) -> None:
@@ -619,6 +639,119 @@ def phase_fused(torch, dev, card: str) -> list:
     return out
 
 
+def k7_shapes(name: str, n: int, px: int = IMG) -> list:
+    """(stage, grid, B, heads, hd, window, nW, blocks with a mask, blocks
+    without) of K7 in one Swin forward of n images, by the port's own rule
+    (swin.block_window)."""
+    from genconvit_tpu_torch.models.swin import SWIN_CFGS, block_window
+
+    cfg = SWIN_CFGS[name]
+    hw, dim, out = px // 4, cfg["embed_dim"], []
+    for si, (depth, heads) in enumerate(zip(cfg["depths"], cfg["num_heads"])):
+        geo = [block_window((hw, hw), cfg["window"], bi) for bi in range(depth)]
+        w, masked = geo[0][0], sum(shift > 0 for _, shift in geo)
+        nw = (hw // w) ** 2
+        out.append((si, hw, n * nw, heads, dim // heads, w, nw, masked, depth - masked))
+        hw, dim = hw // 2, dim * 2
+    return out
+
+
+def k7_bound(b: int, l: int, heads: int, hd: int, nw: int, masked: bool) -> tuple:
+    """Bound of one K7 launch: qkv in and the output out once (bf16), the
+    bias (and the mask) once (f32); 4*L^2*hd bf16 operations of the two
+    products per window-head on the tensor cores and, beside them, ~8 f32
+    operations per score of the softmax (scale, bias, mask, max, subtract,
+    exp, sum, divide)."""
+    g = b * heads
+    nbytes = 2 * b * l * 4 * heads * hd + 4 * l * l * (heads + (nw if masked else 0))
+    return bound(nbytes, {BF16: 4 * l * l * hd * g}, {FP32: 8 * l * l * g})
+
+
+def phase_k7(torch, dev, card: str) -> dict:
+    """K7 at the stage shapes of swin_tiny and swin_large at N=120 against its
+    plain version, with planted faults; times of kernel, plain version and
+    SDPA, the bound; per forward by the blocks of each shape."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from genconvit_tpu_torch.models.swin import relative_position_index, shifted_window_mask
+    from genconvit_tpu_torch.ops.cuda import window_attn as k7
+
+    g = torch.Generator(device=dev).manual_seed(3456)
+    rec = {"err": 0.0, "ulps": 0.0, "planted_min": float("inf")}
+    for name in (SWIN_TINY, SWIN_LARGE):
+        tot = {"ms": 0.0, "plain_ms": 0.0, "sdpa_ms": 0.0, "bound_ms": 0.0, "sides": []}
+        shapes = k7_shapes(name, SWIN_BATCHES[0])
+        for si, hw, b, heads, hd, w, nw, n_masked, n_plain in shapes:
+            l, c = w * w, heads * hd
+            qkv = torch.randn(b, l, 3 * c, device=dev, generator=g).to(torch.bfloat16)
+            table = torch.randn((2 * w - 1) ** 2, heads, device=dev, generator=g)  # O(1)
+            idx = torch.from_numpy(relative_position_index(w).reshape(-1).astype(np.int64))
+            bias = table[idx.to(dev)].view(l, l, heads).permute(2, 0, 1).contiguous()
+            variants = [(None, n_plain)]
+            if n_masked:
+                mask = torch.from_numpy(shifted_window_mask(hw, hw, w, w // 2)).to(dev)
+                variants.insert(0, (mask, n_masked))
+            q, k, v = qkv.view(b, l, 3, heads, hd).permute(2, 0, 3, 1, 4).unbind(0)
+            for m, per_fwd in variants:
+                wpm = 1 if m is None else nw
+                what = (f"K7 {name.split('_')[1]:5s} s{si} B={b:5d} heads={heads:2d} L={l} "
+                        f"mask={int(m is not None)}")
+                ref = k7.window_attention_plain(qkv, bias, m, heads, wpm)
+                out = k7.window_attention(qkv, bias, m, heads, wpm)
+                torch.cuda.synchronize()
+                err = (out.float() - ref.float()).abs().max().item()
+                rel = err / ref.float().abs().max().item()
+                ulps = k7.ulp_error(out, ref, heads)
+                if not (torch.isfinite(out).all() and rel <= REL_TOL and ulps <= k7.ULP_TOL):
+                    raise AssertionError(f"{what}: max|diff| {err:.3e}, /max|ref| {rel:.3e} "
+                                         f"(limit {REL_TOL}), {ulps} ulps (limit {k7.ULP_TOL})")
+                rec["err"], rec["ulps"] = max(rec["err"], err), max(rec["ulps"], ulps)
+                log(f"{what} max|diff|={err:.3e} rel={rel:.3e} ulps={ulps:.3f}")
+                for fname, bad in k7.planted_outputs(k7.window_attention, qkv, bias, m, heads,
+                                                     nw).items():
+                    bu = k7.ulp_error(bad, ref, heads)
+                    if bu <= k7.ULP_TOL:
+                        raise AssertionError(f"planted fault {fname} passed the check ({bu} ulps)")
+                    rec["planted_min"] = min(rec["planted_min"], bu)
+                    log(f"  K7 planted: {fname}: {bu:.1f} ulps -> refused")
+                del ref, out
+                # SDPA's operands, made outside the timing: the views of q, k,
+                # v and bias + mask of each window as one bf16 float mask
+                am = bias[None]
+                if m is not None:
+                    am = am + m[torch.arange(b, device=dev) % nw][:, None]
+                am = am.to(torch.bfloat16)
+                t_k = cuda_ms(torch, lambda: k7.window_attention(qkv, bias, m, heads, wpm), 20)
+                t_p = cuda_ms(torch, lambda: k7.window_attention_plain(qkv, bias, m, heads, wpm),
+                              5, 1)
+                t_s = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=am, scale=hd ** -0.5), 20)
+                bd, by = k7_bound(b, l, heads, hd, nw, m is not None)
+                log(f"K7 time {what}: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, SDPA {t_s:.4f} "
+                    f"ms, bound {bd:.4f} ms ({by}); x{per_fwd} per forward [{card}]")
+                for key, t in (("ms", t_k), ("plain_ms", t_p), ("sdpa_ms", t_s), ("bound_ms", bd)):
+                    tot[key] += per_fwd * t
+                tot["sides"].append((per_fwd * bd, by))
+                del am
+            del qkv, q, k, v, bias, variants
+        launches = sum(s[7] + s[8] for s in shapes)
+        log(f"K7 per {name} forward at N={SWIN_BATCHES[0]} ({launches} launches, "
+            f"{sum(s[7] for s in shapes)} with a mask): kernel {tot['ms']:.4f} ms, plain "
+            f"{tot['plain_ms']:.4f} ms, SDPA {tot['sdpa_ms']:.4f} ms, bound {tot['bound_ms']:.4f} "
+            f"ms ({side(tot['sides'])}) [{card}]")
+        rec[name] = tot
+    log(f"K7: max ulps {rec['ulps']:.3f} (limit {k7.ULP_TOL}); planted faults >= "
+        f"{rec['planted_min']:.1f} ulps [{card}]")
+    tiny = rec[SWIN_TINY]
+    return {"name": "window_attention", "route": "cuda",
+            "source": "genconvit_tpu_torch/csrc/window_attn.cu",
+            "replaces": "genconvit_tpu/ops/pallas/window_attn.py:25", "launches": 0,
+            "max_abs_err": rec["err"], "ms": tiny["ms"], "plain_ms": tiny["plain_ms"],
+            "bound_ms": tiny["bound_ms"], "bound_by": side(tiny["sides"]),
+            "library_ms": tiny["sdpa_ms"]}
+
+
 def side(parts) -> str:
     """A per-forward bound is a sum of per-launch bounds: the side that sets
     the larger part of it."""
@@ -822,20 +955,57 @@ def phase_throughput(torch, pred, dev, card: str, name: str) -> dict:
             "v1_sync_median_ms": lat[len(lat) // 2], "peak_v8_gib": peak8}
 
 
-def phase_profile(torch, pred, dev, card: str, name: str, n: int = 3) -> None:
+def convnext_group(key: str) -> str:
+    """The scoring path's kernel groups of the profile."""
+    k = key.lower()
+    if "fused_block" in k:
+        return "K5 fused_block"
+    if "fused_stage" in k:
+        return "K6 fused_stage"
+    if "ln_mlp_residual_int8" in k:
+        return f"K4 {key}"
+    if "wint8" in k:
+        return "K3 matmul_wint8 (split-K product, epilogue)"
+    if "ln_mlp_residual" in k:
+        return f"K1 {key}"  # one template instance per row tile
+    if "layer_norm_rows" in k:
+        return "K2 layer_norm_rows"
+    if ("gemm" in k or "nvjet" in k) and "conv" not in k:
+        return "GEMM (latent head, heads)"
+    if "conv2d_c1_k1" in k:
+        return "depthwise 7x7 (cuDNN)"
+    if any(s in k for s in ("conv", "xmma", "implicit", "cudnn", "fprop", "cutlass")):
+        return "other convolutions (cuDNN)"
+    return "elementwise and other"
+
+
+def swin_group(key: str) -> str:
+    """The Swin forward's kernel groups of the profile."""
+    k = key.lower()
+    if "window_attn" in k:
+        return "K7 window_attention"
+    if any(s in k for s in ("fprop", "conv", "implicit", "cudnn")):
+        return "patch-embed convolution (cuDNN)"
+    if any(s in k for s in ("gemm", "nvjet", "cutlass", "xmma")):
+        return "GEMMs (qkv, proj, fc1, fc2, reductions, head)"
+    if "roll" in k or "copy" in k:
+        return "copies (roll, window permutes, cat, dtype casts)"
+    return "LayerNorm and elementwise (LN statistics, GELU, residuals, bias gather)"
+
+
+def profile_step(torch, step, group, title: str, card: str, n: int = 3) -> None:
+    """torch.profiler over n calls of step(i) after 3 warm-up calls: device
+    time per call by group(kernel name), and the device's busy share of the
+    wall time."""
     from torch.profiler import ProfilerActivity, profile
 
-    g = torch.Generator(device=dev).manual_seed(5)
-    bufs = [torch.randint(0, 256, (8, FRAMES, IMG, IMG, 3), dtype=torch.uint8,
-                          device=dev, generator=g) for _ in range(2)]
-    mask = torch.ones(8, FRAMES, device=dev)
     for i in range(3):
-        pred.forward_batched(bufs[i % 2], mask)
+        step(i)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for i in range(n):
-            pred.forward_batched(bufs[i % 2], mask)
+            step(i)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / n * 1e3
     events = prof.key_averages()
@@ -843,28 +1013,6 @@ def phase_profile(torch, pred, dev, card: str, name: str, n: int = 3) -> None:
     def dev_ms(e):
         us = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
         return us / n / 1e3
-
-    def group(key):
-        k = key.lower()
-        if "fused_block" in k:
-            return "K5 fused_block"
-        if "fused_stage" in k:
-            return "K6 fused_stage"
-        if "ln_mlp_residual_int8" in k:
-            return f"K4 {key}"
-        if "wint8" in k:
-            return "K3 matmul_wint8 (split-K product, epilogue)"
-        if "ln_mlp_residual" in k:
-            return f"K1 {key}"  # one template instance per row tile
-        if "layer_norm_rows" in k:
-            return "K2 layer_norm_rows"
-        if ("gemm" in k or "nvjet" in k) and "conv" not in k:
-            return "GEMM (latent head, heads)"
-        if "conv2d_c1_k1" in k:
-            return "depthwise 7x7 (cuDNN)"
-        if any(s in k for s in ("conv", "xmma", "implicit", "cudnn", "fprop", "cutlass")):
-            return "other convolutions (cuDNN)"
-        return "elementwise and other"
 
     groups: dict = {}
     for e in events:  # device kernels, not the aten ops that launch them, nor the
@@ -874,14 +1022,144 @@ def phase_profile(torch, pred, dev, card: str, name: str, n: int = 3) -> None:
     busy = sum(t for members in groups.values() for t, _, _ in members)
     if busy <= 0:
         raise AssertionError("profiler recorded no device time")
-    log(f"profile [{name}] V=8 forward: {wall:.2f} ms/launch under the profiler, device "
+    log(f"profile {title}: {wall:.2f} ms/launch under the profiler, device "
         f"busy {busy:.2f} ms ({100 * busy / wall:.1f}%) [{card}]")
     for name, members in sorted(groups.items(), key=lambda kv: -sum(m[0] for m in kv[1])):
         t = sum(m[0] for m in members)
         log(f"  {t:9.3f} ms {100 * t / busy:5.1f}%  {sum(m[1] for m in members):4d} "
             f"launches  {name}")
-    for t, count, key in sorted(groups.get("elementwise and other", []), reverse=True)[:4]:
-        log(f"    of which {t:7.3f} ms {count:4d} launches  {key[:110]}")
+    for name in ("elementwise and other", swin_group("")):
+        for t, count, key in sorted(groups.get(name, []), reverse=True)[:4]:
+            log(f"    of which {t:7.3f} ms {count:4d} launches  {key[:110]}")
+
+
+def phase_profile(torch, pred, dev, card: str, name: str) -> None:
+    g = torch.Generator(device=dev).manual_seed(5)
+    bufs = [torch.randint(0, 256, (8, FRAMES, IMG, IMG, 3), dtype=torch.uint8,
+                          device=dev, generator=g) for _ in range(2)]
+    mask = torch.ones(8, FRAMES, device=dev)
+    profile_step(torch, lambda i: pred.forward_batched(bufs[i % 2], mask), convnext_group,
+                 f"[{name}] V=8 forward", card)
+
+
+def phase_swin(torch, dev, card: str, profile: bool) -> dict:
+    """The Swin slice (phase 8): swin_tiny through its three entry points at
+    N=120 and 15 in bf16, with K7 and with pallas='0', against the float32
+    plain path on the same weights; throughput and peak memory."""
+    import copy
+
+    from genconvit_tpu_torch.models.hybrid_embed import HybridEmbed
+    from genconvit_tpu_torch.models.init import init_hybrid_embed_
+    from genconvit_tpu_torch.models.swin import SWIN_CFGS, WindowAttention
+    from genconvit_tpu_torch.ops import cuda as kcuda
+    from genconvit_tpu_torch.ops.cuda import window_attn as k7
+    from genconvit_tpu_torch.ops.kernel_plan import KernelPlan
+
+    g = torch.Generator(device=dev).manual_seed(13)
+    cfg = SWIN_CFGS[SWIN_TINY]
+    width = cfg["embed_dim"] * 2 ** (len(cfg["depths"]) - 1)   # 768: the token width
+    hyb32 = HybridEmbed(SWIN_TINY, embed_dim=width, feature_dim=width).to(dev)
+    init_hybrid_embed_(hyb32, g)
+    with torch.no_grad():   # O(1) bias tables: the 0.02 init would make the bias path vacuous
+        for mod in hyb32.modules():
+            if isinstance(mod, WindowAttention):
+                mod.relative_position_bias_table.normal_(0.0, 1.0, generator=g)
+    hyb = copy.deepcopy(hyb32).to(torch.bfloat16).eval()
+    n_max = max(SWIN_BATCHES)
+    x32 = torch.randn(n_max, 3, IMG, IMG, device=dev, generator=g).contiguous(
+        memory_format=torch.channels_last)
+    x16 = x32.to(torch.bfloat16)
+    entries = {"features": lambda m, x, p: m.backbone.features(x, p),
+               "logits": lambda m, x, p: m.backbone(x, p),
+               "tokens": lambda m, x, p: m.tokens(x, p)}
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.inference_mode():
+            ref = {name: fn(hyb32, x32, KernelPlan()) for name, fn in entries.items()}
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    del hyb32
+    torch.cuda.empty_cache()
+
+    def rel(a, b):
+        return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+
+    plans = (("K7", KernelPlan()), ("pallas=0", KernelPlan(pallas="0")))
+    outs, main_counts = {}, None
+    kcuda.reset_launch_counts()   # the main path (K7) starts from 0
+    for pname, plan in plans:
+        want = K7_PER_FORWARD if pname == "K7" else (0, 0)
+        for n in SWIN_BATCHES:
+            for name, fn in entries.items():
+                before = (k7.window_attention.launches, k7.window_attention.masked_launches)
+                with torch.inference_mode():
+                    y = fn(hyb, x16[:n], plan)
+                torch.cuda.synchronize()
+                got = (k7.window_attention.launches - before[0],
+                       k7.window_attention.masked_launches - before[1])
+                r = ref[name][:n]
+                d = rel(y, r)
+                log(f"swin [{pname}] N={n} {name} {tuple(y.shape)}: max|diff|/max|ref| vs f32 "
+                    f"plain {d:.3e} (limit {REL_TOL}); K7 launches {got[0]}, {got[1]} with a "
+                    f"mask [{card}]")
+                if y.shape != r.shape or not torch.isfinite(y).all():
+                    raise AssertionError(f"swin [{pname}] N={n} {name}: shape {tuple(y.shape)} "
+                                         f"or non-finite values")
+                if got != want:
+                    raise AssertionError(f"swin [{pname}] N={n} {name}: K7 launches {got}, "
+                                         f"want {want}")
+                if not d <= REL_TOL:
+                    raise AssertionError(f"swin [{pname}] N={n} {name}: {d} > {REL_TOL}")
+                outs[(pname, n, name)] = y
+        if pname == "K7":
+            main_counts = kcuda.launch_counts()
+            others = {k: v for k, v in main_counts.items() if k != "window_attention" and v}
+            if others:
+                raise AssertionError(f"swin launched other kernels: {others}")
+    for n in SWIN_BATCHES:
+        for name in entries:
+            d = rel(outs[("K7", n, name)], outs[("pallas=0", n, name)])
+            log(f"swin N={n} {name}: K7 vs pallas=0 (both bf16) max|diff|/max|ref| {d:.3e} "
+                f"(limit {REL_TOL}) [{card}]")
+            if not d <= REL_TOL:
+                raise AssertionError(f"swin N={n} {name}: K7 vs pallas=0 {d} > {REL_TOL}")
+    del outs, ref
+
+    rates = {}
+    for pname, plan in plans:
+        for n in SWIN_BATCHES:
+            bufs = [torch.randn(n, 3, IMG, IMG, device=dev, generator=g).to(torch.bfloat16)
+                    .contiguous(memory_format=torch.channels_last) for _ in range(4)]
+            iters = 6 if n > 30 else 12
+            torch.cuda.reset_peak_memory_stats(dev)
+            with torch.inference_mode():
+                for i in range(2):
+                    hyb.backbone(bufs[i], plan)
+                torch.cuda.synchronize()
+                best = None
+                for _ in range(3):
+                    t0 = time.perf_counter()
+                    for i in range(iters):
+                        hyb.backbone(bufs[i % 4], plan)
+                    torch.cuda.synchronize()
+                    ms = (time.perf_counter() - t0) / iters * 1e3
+                    best = ms if best is None else min(best, ms)
+            peak = torch.cuda.max_memory_allocated(dev) / 2**30
+            rates[(pname, n)] = (n / best * 1e3, best, peak)
+            log(f"swin throughput [{pname}] N={n}: {n / best * 1e3:.2f} images/s, {best:.3f} "
+                f"ms/forward (best of 3 trials of {iters}); peak device memory {peak:.2f} GiB "
+                f"[{card}]")
+            del bufs
+    if profile:
+        pbufs = [torch.randn(n_max, 3, IMG, IMG, device=dev, generator=g).to(torch.bfloat16)
+                 .contiguous(memory_format=torch.channels_last) for _ in range(2)]
+        with torch.inference_mode():
+            profile_step(torch, lambda i: hyb.backbone(pbufs[i % 2], KernelPlan()), swin_group,
+                         f"[swin K7] N={n_max} forward", card)
+    return {"launches": main_counts, "rates": rates}
 
 
 def main() -> int:
@@ -892,7 +1170,7 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="add phase 7, the profiler's device-time breakdown")
+                    help="add phase 7, the profiler's device-time breakdowns")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
@@ -913,7 +1191,8 @@ def main() -> int:
             log(f"  ptxas: {line.strip()}")
     log(f"K1 row tiles: {{C: rows}} = {{{', '.join(f'{c}: {km.row_tile(c)}' for c in DIMS)}}}")
     t = time.perf_counter()
-    kernels = phase_kernels(torch, dev, card) + phase_fused(torch, dev, card)
+    kernels = (phase_kernels(torch, dev, card) + phase_fused(torch, dev, card)
+               + [phase_k7(torch, dev, card)])
     log(f"phase 3: {time.perf_counter() - t:.1f} s")
     runs = {}
     for cfg in CONFIGS:
@@ -930,23 +1209,31 @@ def main() -> int:
     t = time.perf_counter()
     parity = phase_parity(torch, np, dev, card)
     log(f"phase 5: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    swin = phase_swin(torch, dev, card, args.profile)
+    log(f"phase 8: {time.perf_counter() - t:.1f} s")
     for name, r in runs.items():
         log(f"summary [{name}]: V=8 {r['v8_videos_s']:.2f} videos/s ({r['v8_ms']:.2f} "
             f"ms/launch), V=1 {r['v1_ms']:.2f} ms/launch (synchronized median "
             f"{r['v1_sync_median_ms']:.2f} ms), peak device memory {r['peak_forward_gib']:.2f} "
             f"GiB over phase 4's forwards, {r['peak_v8_gib']:.2f} GiB at V=8; "
             f"max|dy_val| vs f32 plain {parity[name]:.3e} [{card}]")
+    for (pname, n), (rate, ms, peak) in swin["rates"].items():
+        log(f"summary [swin_tiny {pname}] N={n}: {rate:.2f} images/s ({ms:.3f} ms/forward), "
+            f"peak device memory {peak:.2f} GiB [{card}]")
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_all:.1f} s [{card}]")
-    # each kernel's launches: the count of the configuration whose main path
-    # runs it (the counts were set to 0 just before its requests)
+    # each kernel's launches: the count of the run whose main path runs it
+    # (the counts were set to 0 just before its requests)
     source_run = {"ln_mlp_residual": "default", "layer_norm_rows": "default",
                   "matmul_wint8": "int8_heads",
                   "ln_mlp_residual_int8[fc1]": "int8_mlp=fc1",
                   "ln_mlp_residual_int8[full]": "int8_heads+full",
-                  "fused_convnext_block": "pallas=1", "fused_convnext_stage": "pallas=stage"}
+                  "fused_convnext_block": "pallas=1", "fused_convnext_stage": "pallas=stage",
+                  "window_attention": "swin"}
+    counts = {name: r["launches"] for name, r in runs.items()}
+    counts["swin"] = swin["launches"]
     for k in kernels:
-        counter = k["name"].split("[")[0]
-        k["launches"] = runs[source_run[k["name"]]]["launches"][counter]
+        k["launches"] = counts[source_run[k["name"]]][k["name"].split("[")[0]]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

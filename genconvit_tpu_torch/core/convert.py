@@ -2,8 +2,8 @@
 port's reference-keyed state_dict.
 
 The inverse of genconvit_tpu/core/convert.py `_conv`/`_convT`/`_linear`/
-`_norm`/`_bn` (:70-99) and of `convert_convnext`/`convert_ed`/`convert_vae`
-(:158-281):
+`_norm`/`_bn` (:70-99) and of `convert_convnext`/`convert_swin`/`convert_ed`/
+`convert_vae` (:158-281):
 
   conv   HWIO -> OIHW                  transpose(3, 2, 0, 1)
          (depthwise (7,7,1,C) -> (C,1,7,7) is the same map)
@@ -11,9 +11,14 @@ The inverse of genconvit_tpu/core/convert.py `_conv`/`_convT`/`_linear`/
   linear (in, out) -> (out, in)
   LN/BN  scale/bias(/mean/var) -> weight/bias(/running_mean/running_var)
 
-The dead parameter groups of the reference checkpoints (`embedder`,
-`hybrid_proj`, `fc3`, VAE `encoder.fc1/fc2`) are never read here, so the
-result loads into the port's modules with `load_state_dict(strict=True)`.
+Branches: 'ed', 'vae' (the original variant), 'convnext', 'swin' (a Swin
+tree, timm's keys) and 'hybrid_embed' (the {"backbone", "proj"} tree of
+`init_hybrid_embed`: `backbone.*` and `proj.*`). The 'ed' and 'vae' branches
+never read the dead parameter groups of the reference checkpoints
+(`embedder`, `hybrid_proj`, `fc3`, VAE `encoder.fc1/fc2`), so their result
+loads into the port's branch modules with `load_state_dict(strict=True)`; a
+converted checkpoint's embedder comes across on its own with
+`state_dict_from_jax(tree["embedder"], "swin")`.
 """
 
 from __future__ import annotations
@@ -79,11 +84,41 @@ def _convnext(sd: StateDict, prefix: str, tree: Mapping[str, Any]) -> None:
     _linear(sd, f"{prefix}head.fc", tree["head"]["fc"])
 
 
+def _swin(sd: StateDict, prefix: str, tree: Mapping[str, Any]) -> None:
+    _conv(sd, f"{prefix}patch_embed.proj", tree["patch_embed"]["proj"])
+    _norm(sd, f"{prefix}patch_embed.norm", tree["patch_embed"]["norm"])
+    for li, layer in enumerate(tree["layers"]):
+        s = f"{prefix}layers.{li}"
+        for bi, blk in enumerate(layer["blocks"]):
+            b = f"{s}.blocks.{bi}"
+            _norm(sd, f"{b}.norm1", blk["norm1"])
+            _linear(sd, f"{b}.attn.qkv", blk["attn"]["qkv"])
+            _linear(sd, f"{b}.attn.proj", blk["attn"]["proj"])
+            sd[f"{b}.attn.relative_position_bias_table"] = _t(
+                blk["attn"]["relative_position_bias_table"])
+            _norm(sd, f"{b}.norm2", blk["norm2"])
+            _linear(sd, f"{b}.mlp.fc1", blk["mlp"]["fc1"])
+            _linear(sd, f"{b}.mlp.fc2", blk["mlp"]["fc2"])
+        if "downsample" in layer:
+            _norm(sd, f"{s}.downsample.norm", layer["downsample"]["norm"])
+            _linear(sd, f"{s}.downsample.reduction", layer["downsample"]["reduction"])
+    _norm(sd, f"{prefix}norm", tree["norm"])
+    _linear(sd, f"{prefix}head", tree["head"])
+
+
 def state_dict_from_jax(tree: Mapping[str, Any], branch: str) -> StateDict:
-    """branch: 'ed' | 'vae' (original variant) | 'convnext'."""
+    """branch: 'ed' | 'vae' (original variant) | 'convnext' | 'swin' |
+    'hybrid_embed'."""
     sd: StateDict = {}
     if branch == "convnext":
         _convnext(sd, "", tree)
+        return sd
+    if branch == "swin":
+        _swin(sd, "", tree)
+        return sd
+    if branch == "hybrid_embed":
+        _swin(sd, "backbone.", tree["backbone"])
+        _conv(sd, "proj", tree["proj"])
         return sd
     if branch == "ed":
         for p, i in zip(tree["encoder"], (0, 3, 6, 9, 12)):

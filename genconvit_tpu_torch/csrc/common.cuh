@@ -86,6 +86,20 @@ __host__ __device__ __forceinline__ constexpr size_t align128(size_t n) {
   return (n + 127) & ~static_cast<size_t>(127);
 }
 
+// Raise a kernel's dynamic shared-memory limit to `bytes` once per
+// instantiation (kernel is that instantiation's function; `configured` its
+// own static).
+template <class Kernel>
+__host__ int raise_smem_limit(Kernel kernel, size_t bytes, size_t* configured) {
+  if (bytes > *configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    *configured = bytes;
+  }
+  return 0;
+}
+
 __device__ __forceinline__ void cp_async16(void* smem_dst, const void* gmem_src) {
   const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem_src));

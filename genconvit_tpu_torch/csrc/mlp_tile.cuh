@@ -240,18 +240,4 @@ struct MlpTile {
   }
 };
 
-// Raise a kernel's dynamic shared-memory limit to `bytes` once per
-// instantiation (kernel is that instantiation's function; `configured` its
-// own static).
-template <class Kernel>
-__host__ int raise_smem_limit(Kernel kernel, size_t bytes, size_t* configured) {
-  if (bytes > *configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    *configured = bytes;
-  }
-  return 0;
-}
-
 }  // namespace

@@ -7,7 +7,12 @@ module lives on (port of the JAX package's init_* functions).
     U(+-1/sqrt(fan_in)) for weight and bias (fan_in of a transposed conv is
     Cout*kH*kW, as torch computes it);
   * the VAE latent heads: the same torch Linear bound, flat ** -0.5;
-  * BatchNorm: unit scale, zero shift, running mean 0 and variance 1.
+  * BatchNorm: unit scale, zero shift, running mean 0 and variance 1;
+  * Swin (init_swin, genconvit_tpu/models/swin.py:97-126): torch's default
+    bound for the patch conv and every linear (weight and bias), trunc_normal
+    (std 0.02) for the relative position bias tables and the bias-free
+    patch-merging reductions, unit LayerNorms; the HybridEmbed proj (a 1x1
+    conv) at torch's default bound.
 
 Random weights carry no parity contract with the JAX package (the two
 generators differ); tests inject weights through core/convert.py.
@@ -21,6 +26,8 @@ import torch
 import torch.nn as nn
 
 from genconvit_tpu_torch.models.convnext import Block, ConvNeXt
+from genconvit_tpu_torch.models.hybrid_embed import HybridEmbed
+from genconvit_tpu_torch.models.swin import PatchMerging, SwinTransformer, WindowAttention
 
 LS_INIT = 1e-6  # timm ls_init_value
 
@@ -50,6 +57,34 @@ def init_convnext_(m: ConvNeXt, generator: torch.Generator) -> None:
             mod.bias.zero_()
         elif isinstance(mod, Block):
             mod.gamma.fill_(LS_INIT)
+
+
+@torch.no_grad()
+def _torch_default_(mod: nn.Module, generator: torch.Generator) -> None:
+    """U(+-1/sqrt(fan_in)) for weight and bias: torch's Linear and Conv2d."""
+    bound = mod.weight[0].numel() ** -0.5
+    uniform_(mod.weight, bound, generator)
+    uniform_(mod.bias, bound, generator)
+
+
+@torch.no_grad()
+def init_swin_(m: SwinTransformer, generator: torch.Generator) -> None:
+    for mod in m.modules():
+        if isinstance(mod, PatchMerging):
+            trunc_normal_(mod.reduction.weight, 0.02, generator)
+        elif isinstance(mod, WindowAttention):
+            trunc_normal_(mod.relative_position_bias_table, 0.02, generator)
+        elif isinstance(mod, nn.LayerNorm):
+            mod.weight.fill_(1.0)
+            mod.bias.zero_()
+        elif isinstance(mod, (nn.Conv2d, nn.Linear)) and mod.bias is not None:
+            _torch_default_(mod, generator)
+
+
+@torch.no_grad()
+def init_hybrid_embed_(m: HybridEmbed, generator: torch.Generator) -> None:
+    init_swin_(m.backbone, generator)
+    _torch_default_(m.proj, generator)
 
 
 @torch.no_grad()

@@ -4,21 +4,24 @@ the kernel wrappers with their plain PyTorch versions."""
 
 def _wrappers():
     from genconvit_tpu_torch.ops.cuda import (convnext_block, convnext_mlp, convnext_mlp_int8,
-                                              convnext_stage, int8_matmul)
+                                              convnext_stage, int8_matmul, window_attn)
 
     return {"ln_mlp_residual": convnext_mlp.ln_mlp_residual,
             "layer_norm_rows": convnext_mlp.layer_norm_rows,
             "ln_mlp_residual_int8": convnext_mlp_int8.ln_mlp_residual_int8,
             "matmul_wint8": int8_matmul.matmul_wint8,
             "fused_convnext_block": convnext_block.fused_convnext_block,
-            "fused_convnext_stage": convnext_stage.fused_convnext_stage}
+            "fused_convnext_stage": convnext_stage.fused_convnext_stage,
+            "window_attention": window_attn.window_attention}
 
 
 def launch_counts() -> dict:
-    """Kernel launches of every wrapper (K1-K6) since the last reset."""
+    """Kernel launches of every wrapper (K1-K7) since the last reset."""
     return {name: fn.launches for name, fn in _wrappers().items()}
 
 
 def reset_launch_counts() -> None:
     for fn in _wrappers().values():
         fn.launches = 0
+        if hasattr(fn, "masked_launches"):   # K7's launches with a mask
+            fn.masked_launches = 0

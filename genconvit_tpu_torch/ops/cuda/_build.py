@@ -29,7 +29,7 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 SOURCES = tuple(os.path.join(_PKG_DIR, "csrc", f) for f in
                 ("convnext_mlp.cu", "convnext_mlp_int8.cu", "int8_matmul.cu",
-                 "convnext_block.cu", "convnext_stage.cu"))
+                 "convnext_block.cu", "convnext_stage.cu", "window_attn.cu"))
 HEADERS = tuple(os.path.join(_PKG_DIR, "csrc", f) for f in
                 ("common.cuh", "mlp_tile.cuh", "fused_block.cuh"))
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
@@ -55,6 +55,9 @@ _SIGNATURES = {
     "gcv_fused_block": ([_P] * 11 + [ctypes.c_int] * 4 + [_P], ctypes.c_int),
     # x, wdw, bdw, lns, lnb, w1, b1, w2, b2, gamma, ws, out, n, h, w, c, nb, stream
     "gcv_fused_stage": ([_P] * 12 + [ctypes.c_int] * 5 + [_P], ctypes.c_int),
+    # qkv, bias, mask, out, windows, l, heads, hd, nw, scale, stream
+    "gcv_window_attention": ([_P] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 4
+                             + [ctypes.c_float, _P], ctypes.c_int),
     "gcv_wint8_splits": ([ctypes.c_int] * 3, ctypes.c_int),
     "gcv_mlp_row_tile": ([ctypes.c_int], ctypes.c_int),
     "gcv_error_string": ([ctypes.c_int], ctypes.c_char_p),

@@ -14,6 +14,14 @@ genconvit_tpu/ops/kernel_plan.py:36-130 the scoring path reads).
                       LayerNorms
               '1' and 'stage' run their kernels with the hp GELU whatever
               `gelu` says, as the JAX package's A/B paths do.
+              Swin (models/swin.py): K7 (`window_attention`) runs the
+              attention of every block of a CUDA bfloat16 Swin unless
+              pallas is '0', for '', '1' and 'stage' alike, as the JAX
+              package enables its Pallas kernel on the TPU for every value
+              but '0' (genconvit_tpu/ops/pallas/__init__.py:17-29);
+              float32, and every CPU tensor, run the JAX package's XLA
+              attention graph (swin.py:170-179), as the ConvNeXt kernels
+              leave float32 and the CPU to the plain graph.
   int8_mlp    ''     the block tails in bf16 (K1)
               'fc1'  int8 fc1 with a fixed activation scale, bf16 fc2 (K4)
               'full' W8A8: both MLP matmuls int8, per-row activation

@@ -338,3 +338,92 @@ def test_f32_product_on_the_card_is_the_upcast_product(dev):
     ref = f32_product(d.cpu(), w.cpu())
     mag = d.float().abs().cpu() @ w.float().abs().cpu()
     assert ((z.cpu() - ref).abs() <= 1e-5 * mag + 1e-6).all()
+
+
+# K7 (Swin window attention): held within k7.ULP_TOL bf16 ulps of the largest
+# |out| of the same window-head (window_attn.ulp_error); G = B * heads ragged
+# against the 4 window-heads of a thread block; the bias table O(1), not the
+# 0.02 init, so that the bias path carries weight.
+
+def _k7_inputs(dev, g, b, l, heads, hd, nw):
+    """qkv [B, L, 3C] bf16, a bias gathered from a random O(1) table as the
+    model gathers it, and a shifted-window mask of nw windows (or None)."""
+    import numpy as np
+
+    from genconvit_tpu_torch.models.swin import relative_position_index, shifted_window_mask
+
+    w = int(round(l ** 0.5))
+    qkv = torch.randn(b, l, 3 * heads * hd, device=dev, generator=g).to(torch.bfloat16)
+    table = torch.randn((2 * w - 1) ** 2, heads, device=dev, generator=g)
+    idx = torch.from_numpy(relative_position_index(w).reshape(-1).astype(np.int64)).to(dev)
+    bias = table[idx].view(l, l, heads).permute(2, 0, 1).contiguous()
+    mask = None
+    if nw > 1:
+        side = w * int(round(nw ** 0.5))
+        mask = torch.from_numpy(shifted_window_mask(side, side, w, w // 2)).to(dev)
+    return qkv, bias, mask
+
+
+@pytest.mark.parametrize("l,hd,nw", [(49, 32, 4), (49, 32, 1), (16, 32, 16), (16, 16, 1),
+                                     (49, 64, 4)])
+def test_k7_matches_plain(dev, l, hd, nw):
+    from genconvit_tpu_torch.ops.cuda import window_attn as k7
+
+    g = torch.Generator(device=dev).manual_seed(400 + l + hd + nw)
+    heads, b = 3, 4 * nw + 1 if nw > 1 else 37     # G = 3B: ragged against 4
+    qkv, bias, mask = _k7_inputs(dev, g, b, l, heads, hd, nw)
+    before = (k7.window_attention.launches, k7.window_attention.masked_launches)
+    out = k7.window_attention(qkv, bias, mask, heads, nw)
+    torch.cuda.synchronize()
+    assert (k7.window_attention.launches, k7.window_attention.masked_launches) == (
+        before[0] + 1, before[1] + int(mask is not None))
+    ref = k7.window_attention_plain(qkv, bias, mask, heads, nw)
+    assert out.shape == ref.shape == (b, l, heads * hd)
+    assert _rel(out, ref) <= TOL and k7.ulp_error(out, ref, heads) <= k7.ULP_TOL
+    windows = max(nw, 4)   # the unmasked calls of a stage with 4 windows per image
+    for name, bad in k7.planted_outputs(k7.window_attention, qkv, bias, mask, heads,
+                                        windows).items():
+        assert k7.ulp_error(bad, ref, heads) > k7.ULP_TOL, name
+
+
+def test_k7_wrapper_raises_on_what_the_kernel_does_not_take(dev):
+    from genconvit_tpu_torch.ops.cuda import window_attn as k7
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    qkv, bias, mask = _k7_inputs(dev, g, 8, 49, 3, 32, 4)
+    with pytest.raises(ValueError, match="L=81"):
+        k7.window_attention(torch.zeros(2, 81, 288, device=dev, dtype=torch.bfloat16),
+                            torch.zeros(3, 81, 81, device=dev), None, 3)
+    with pytest.raises(ValueError, match="head dim"):
+        k7.window_attention(qkv[..., :3 * 3 * 24].contiguous(), bias, mask, 3, 4)
+    with pytest.raises(ValueError, match="bfloat16"):
+        k7.window_attention(qkv.float(), bias, mask, 3, 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        k7.window_attention(qkv.transpose(0, 1).contiguous().transpose(0, 1), bias, mask, 3, 4)
+    with pytest.raises(ValueError, match="float32"):
+        k7.window_attention(qkv, bias.to(torch.bfloat16), mask, 3, 4)
+    with pytest.raises(ValueError, match="fewer than"):
+        k7.window_attention(qkv, bias, mask, 3, 5)
+    with pytest.raises(ValueError, match="another device"):
+        k7.window_attention(qkv, bias.cpu(), mask, 3, 4)
+
+
+def test_swin_tiny_forward_launches_k7_12_times(dev):
+    """One swin_tiny forward at 224 px in bf16: 12 K7 launches, 5 with a
+    mask (the blocks with a shift: one in stages 0-1, three in stage 2)."""
+    from genconvit_tpu_torch.models.init import init_swin_
+    from genconvit_tpu_torch.models.swin import SwinTransformer
+    from genconvit_tpu_torch.ops.cuda import window_attn as k7
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    model = SwinTransformer("swin_tiny_patch4_window7_224").to(dev)
+    init_swin_(model, g)
+    model = model.to(torch.bfloat16)
+    x = torch.randn(2, 3, 224, 224, device=dev, generator=g).to(torch.bfloat16)
+    before = (k7.window_attention.launches, k7.window_attention.masked_launches)
+    with torch.inference_mode():
+        out = model(x)
+    torch.cuda.synchronize()
+    assert out.shape == (2, 1000) and torch.isfinite(out).all()
+    assert (k7.window_attention.launches - before[0],
+            k7.window_attention.masked_launches - before[1]) == (12, 5)

@@ -40,6 +40,8 @@ def test_importing_every_module_loads_nothing_forbidden():
     rec = json.loads(out.stdout.strip().splitlines()[-1])
     assert "genconvit_tpu_torch.ops.cuda.convnext_mlp" in rec["modules"]
     assert "genconvit_tpu_torch.infer.engine" in rec["modules"]
+    for name in ("models.swin", "models.hybrid_embed", "ops.cuda.window_attn"):
+        assert f"genconvit_tpu_torch.{name}" in rec["modules"]
     assert rec["bad"] == []
     assert rec["built"] is False
 
@@ -47,7 +49,9 @@ def test_importing_every_module_loads_nothing_forbidden():
 def test_sources_import_no_jax_and_compile_nothing():
     pattern = re.compile(r"^\s*(import|from)\s+(jax|flax|yaml|genconvit_tpu)\b"
                          r"|torch\.compile", re.M)
-    for path in PKG.rglob("*.py"):
+    paths = list(PKG.rglob("*.py"))
+    assert {"swin.py", "hybrid_embed.py", "window_attn.py"} <= {p.name for p in paths}
+    for path in paths + [ROOT / "chip_smoke.py"]:
         assert not pattern.search(path.read_text()), path
 
 
