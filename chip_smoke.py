@@ -71,7 +71,27 @@ Phases (any failed check raises and the exit code is non-zero):
      with pallas='0' (none); each against the float32 plain path on the
      same weights (TF32 off) and K7 against pallas='0', max|diff| /
      max|ref| <= 3e-2; images/s and ms per forward of both plans at both
-     N, peak device memory.
+     N, peak device memory;
+  9. the probes M1-M3 (ops/cuda int8_dot, block_parts, dw_moments; the
+     port's microbenchmark tools, which no model path runs), each against
+     its plain version: M1 in both variants at the JAX tool's default shape
+     and at K4's 12 block-tail shapes (hid = 4C), M2 at its 7 phases at K5's
+     5 path shapes, M3 at the JAX tool's default shape and at the 7 shapes
+     of the LN-folded blocks under pallas='1'; pass: max|diff| / max|ref|
+     <= 3e-2 and every element within 2 bf16 ulps (M1 int8: 1 ulp of the
+     exact integer sums; M3's mean and var within dw_moments.MOMENT_TOL of
+     their scales); planted faults (M1: z's add dropped, s1 by its mean, w2
+     transposed; M2 from 'dw' on: dw bias dropped, dw kernel transposed,
+     from 'ln' on: LN bias dropped; M3: bias dropped, kernel transposed, var
+     without - mean^2) must fail; CUDA-event times of kernel, plain version
+     and library yardstick (M1: two torch.matmul or torch._int_mm calls and
+     the epilogue; M2 'dw': cuDNN's depthwise conv, 'full': cuDNN's
+     depthwise conv + K1; M3: cuDNN's depthwise conv + the two reductions)
+     beside the bound and the term that sets it; M2's per-phase deltas;
+     M3's gap between the moments of the f32 sums and of the rounded dw;
+     the HMMA/IMMA count of M1's SASS. Then the three tools' main() at
+     their default shapes with every count at 0 before: the M kernels'
+     launches in the kernels' record come from that run.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Without CUDA it exits non-zero at once.
@@ -111,6 +131,8 @@ SWIN_TINY = "swin_tiny_patch4_window7_224"
 SWIN_LARGE = "swin_large_patch4_window7_224"
 SWIN_BATCHES = (120, 15)   # the V=8 and V=1 batches of 15 face crops
 K7_PER_FORWARD = (12, 5)   # swin_tiny at 224 px: launches, of them with a mask
+M1_TOOL_SHAPE = (240, 56, 128)   # the JAX tools' default n, h, c: M1 (hid 3c) ...
+M3_TOOL_SHAPE = (240, 56, 96)    # ... and M3 (C unpadded)
 
 
 def log(msg: str) -> None:
@@ -1162,6 +1184,303 @@ def phase_swin(torch, dev, card: str, profile: bool) -> dict:
     return {"launches": main_counts, "rates": rates}
 
 
+def folded_shapes() -> list:
+    """(call, n, H, C, blocks per forward) of the LN-folded bf16 blocks
+    under pallas='1': the blocks K5's rule leaves out (M3's card shapes)."""
+    from genconvit_tpu_torch.models.convnext import block_kernel_applies
+
+    return [(call, n, (px // 4) >> si, c, DEPTHS[si]) for call, n, px in CALLS
+            for si, c in enumerate(DIMS) if not block_kernel_applies((px // 4) >> si)]
+
+
+def sass_mma_counts(path: str) -> dict:
+    """HMMA and IMMA instructions per M1 kernel in the built library's SASS
+    (cuobjdump): the products of z's columns past c must be there."""
+    import os
+
+    from genconvit_tpu_torch.ops.cuda._build import nvcc_path
+
+    tool = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
+    if not os.path.isfile(tool):
+        return {}
+    sass = subprocess.run([tool, "-sass", path], capture_output=True, text=True,
+                          timeout=300).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            fn = fn if "dots_kernel" in fn else None
+        elif fn is not None and ("HMMA" in line or "IMMA" in line):
+            counts[fn] = counts.get(fn, 0) + 1
+    return counts
+
+
+def probe_m1(torch, dev, card: str, g) -> list:
+    """M1 in both variants at the JAX tool's default shape and K4's 12
+    block-tail shapes."""
+    from genconvit_tpu_torch.ops.cuda import convnext_mlp as km
+    from genconvit_tpu_torch.ops.cuda import int8_dot as m1
+    from genconvit_tpu_torch.tools.microbench_int8_dot import dots_bound, make_inputs
+
+    n, h, c = M1_TOOL_SHAPE
+    shapes = [(f"the JAX tool's default {n} x {h}^2", n * h * h, c, 3 * c, 0)]
+    for call, n, px in CALLS:
+        for si, c in enumerate(DIMS):
+            h = (px // 4) >> si
+            shapes.append((f"K4 {call} s{si}", n * h * h, c, 4 * c, DEPTHS[si]))
+    recs = []
+    for kind in ("bf16", "int8"):
+        fn, plain, tol = ((m1.dots_bf16, m1.dots_bf16_plain, m1.ULP_TOL) if kind == "bf16"
+                          else (m1.dots_int8, m1.dots_int8_plain, m1.ULP_TOL_INT8))
+        rec = {"err": 0.0, "ulps": 0.0, "planted_min": float("inf"), "ms": 0.0, "plain_ms": 0.0,
+               "lib_ms": 0.0, "bound_ms": 0.0, "sides": []}
+        for tag, rows, c, hid, depth in shapes:
+            ops = list(make_inputs(kind, rows, c, hid, dev, g))
+            if kind == "int8":   # scales off 1: a scale on the wrong column must show
+                ops[3] = torch.rand(hid, device=dev, generator=g) + 0.5
+                ops[5] = torch.rand(c, device=dev, generator=g) + 0.5
+            what = f"M1 {kind} {tag:36s} R={rows:6d} C={c:3d} hid={hid:4d}"
+            ref = plain(*ops)
+            err, rel, ulps = compare(torch, km, what, fn(*ops), ref, tol=tol)
+            rec["err"], rec["ulps"] = max(rec["err"], err), max(rec["ulps"], ulps)
+            log(f"{what} max|diff|={err:.3e} rel={rel:.3e} ulps={ulps:g} (limit {tol:g})")
+            s1, w2 = (ops[3], ops[4]) if kind == "int8" else (None, ops[3])
+            for name, (b1, bs1, b2) in m1.planted_faults(kind, ops[2], s1, w2).items():
+                bad = fn(*ops[:2], *([b1, bs1, b2, ops[5]] if kind == "int8" else [b1, b2]))
+                rec["planted_min"] = min(rec["planted_min"], m1.ulp_error(bad, ref))
+                log(f"  M1 {kind} planted: " + must_fail(torch, km, name, bad, ref, tol=tol))
+            del ref, bad
+            if kind == "bf16":
+                y, hh, w1, w2 = ops
+
+                def lib():
+                    z = torch.matmul(y, w1.t())
+                    return torch.matmul(hh, w2.t()) + z[:, :c]
+            else:
+                yq, hq, w1q, s1, w2q, s2 = ops
+
+                def lib():
+                    z = torch._int_mm(yq, w1q.t())
+                    o = torch._int_mm(hq, w2q.t())
+                    return (o.float() * s2 + z[:, :c].float() * s1[:c]).to(torch.bfloat16)
+            iters = 20 if rows * hid < 5e7 else 10
+            t_k = cuda_ms(torch, lambda: fn(*ops), iters)
+            t_p = cuda_ms(torch, lambda: plain(*ops), 1, 1)
+            t_l = cuda_ms(torch, lib, iters)
+            bd, by = dots_bound(kind, rows, c, hid)
+            log(f"M1 time {kind} {tag} R={rows} C={c} hid={hid}: kernel {t_k:.4f} ms, plain "
+                f"{t_p:.4f} ms, library ({'2 matmul + add' if kind == 'bf16' else '2 _int_mm + scales'}) "
+                f"{t_l:.4f} ms, bound {bd:.4f} ms ({by}); x{depth} per forward [{card}]")
+            for key, t in (("ms", t_k), ("plain_ms", t_p), ("lib_ms", t_l), ("bound_ms", bd)):
+                rec[key] += depth * t
+            if depth:
+                rec["sides"].append((depth * bd, by))
+            del ops
+        log(f"M1 {kind} per V=8 forward at K4's shapes (54 block tails, depth-weighted): kernel "
+            f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, library {rec['lib_ms']:.4f} ms, "
+            f"bound {rec['bound_ms']:.4f} ms ({side(rec['sides'])}); max ulps {rec['ulps']:g}; "
+            f"planted faults >= {rec['planted_min']:.1f} ulps [{card}]")
+        recs.append({"name": f"dots_{kind}", "route": "cuda",
+                     "source": "genconvit_tpu_torch/csrc/int8_dot.cu",
+                     "replaces": f"tools/microbench_int8_dot.py:{51 if kind == 'bf16' else 58}",
+                     "launches": 0, "max_abs_err": rec["err"], "ms": rec["ms"],
+                     "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+                     "bound_by": side(rec["sides"]), "library_ms": rec["lib_ms"]})
+    return recs
+
+
+def parts_bound(phase: str, rows: int, c: int) -> tuple:
+    """Bound of one M2 launch cut after `phase`: x in and the output out
+    once (bf16) and the weights the phase reads once; on the f32 cores the
+    taps (98*R*C), the LayerNorm (~8*R*C) and the GELU (~25 operations an
+    element of the [R, 4C] hidden), beside the tensor cores' fc1 and fc2
+    (8*R*C^2 each)."""
+    from genconvit_tpu_torch.ops.cuda.block_parts import PHASES
+
+    k = PHASES.index(phase)
+    nbytes = 2 * rows * c * 2 + (49 * c * 2 + 4 * c if k >= 1 else 0) \
+        + (8 * c if k >= 3 else 0) + (8 * c * c + 16 * c if k >= 4 else 0) \
+        + (8 * c * c + 8 * c if k >= 6 else 0)
+    f32 = (98 * rows * c if k >= 1 else 0) + (8 * rows * c if k >= 3 else 0) \
+        + (25 * rows * 4 * c if k >= 5 else 0)
+    tc = (8 * rows * c * c if k >= 4 else 0) + (8 * rows * c * c if k >= 6 else 0)
+    return bound(nbytes, {BF16: tc}, {FP32: f32})
+
+
+def probe_m2(torch, dev, card: str, g) -> dict:
+    """M2 at its 7 phases at K5's 5 path shapes, with the per-phase deltas."""
+    from genconvit_tpu_torch.models.convnext import _nhwc
+    from genconvit_tpu_torch.ops.cuda import block_parts as m2
+    from genconvit_tpu_torch.ops.cuda import convnext_mlp as km
+
+    k5_shapes, _ = fused_shapes()
+    rec = {"err": 0.0, "ulps": 0.0, "planted_min": float("inf"), "ms": 0.0, "plain_ms": 0.0,
+           "lib_ms": 0.0, "bound_ms": 0.0, "sides": []}
+    for call, n, h, c, depth in k5_shapes:
+        blk = random_fused_block(torch, c, dev, g)
+        x = torch.randn(n, h, h, c, device=dev, generator=g).to(torch.bfloat16)
+        with torch.inference_mode():
+            p = blk.pack_fused()
+            times = {}
+            for phase in m2.PHASES:
+                what = f"M2 {call:8s} N={n} H={h:2d} C={c:3d} {phase:10s}"
+                ref = m2.block_parts_plain(x, p, phase)
+                floor = m2.ulp_floor(ref, x, phase)
+                err, rel, ulps = compare(torch, km, what, m2.block_parts(x, p, phase), ref,
+                                         *floor, m2.ULP_TOL)
+                rec["err"], rec["ulps"] = max(rec["err"], err), max(rec["ulps"], ulps)
+                log(f"{what} max|diff|={err:.3e} rel={rel:.3e} ulps={ulps:g}")
+                for name, bad in m2.planted_faults(p, phase).items():
+                    out = m2.block_parts(x, bad, phase)
+                    rec["planted_min"] = min(rec["planted_min"], m2.ulp_error(out, ref, x, phase))
+                    log(f"  M2 {phase} planted: "
+                        + must_fail(torch, km, name, out, ref, *floor, m2.ULP_TOL))
+                del ref
+                iters = 10 if n * h * h * c < 5e7 else 5
+                t_k = cuda_ms(torch, lambda: m2.block_parts(x, p, phase), iters)
+                t_p = cuda_ms(torch, lambda: m2.block_parts_plain(x, p, phase), 1, 1)
+                times[phase] = (t_k, t_p)
+            xc = x.permute(0, 3, 1, 2)   # the NCHW channels_last view
+            folded = blk.fold()
+            t_dw = cuda_ms(torch, lambda: blk.dw(xc), 10)
+            t_full = cuda_ms(torch, lambda: km.ln_mlp_residual(_nhwc(blk.dw(xc)), x, folded), 10)
+        prev = 0.0
+        for phase in m2.PHASES:
+            t_k, t_p = times[phase]
+            bd, by = parts_bound(phase, n * h * h, c)
+            delta = "" if phase == "dw_bf16acc" else f" (+{t_k - prev:.4f})"
+            lib = {"dw": f", cuDNN dw {t_dw:.4f} ms", "full": f", cuDNN dw + K1 {t_full:.4f} ms"}
+            log(f"M2 time {call:8s} N={n} H={h:2d} C={c:3d} {phase:10s}: kernel {t_k:.4f} ms"
+                f"{delta}, plain {t_p:.4f} ms{lib.get(phase, '')}, bound {bd:.4f} ms ({by}) "
+                f"[{card}]")
+            if phase != "dw_bf16acc":
+                prev = t_k
+        bd, by = fused_bound(n * h * h, c, 1)
+        for key, t in (("ms", times["full"][0]), ("plain_ms", times["full"][1]),
+                       ("lib_ms", t_full), ("bound_ms", bd)):
+            rec[key] += depth * t
+        rec["sides"].append((depth * bd, by))
+        del blk, x, p, folded
+    log(f"M2 'full' per V=8 forward at K5's shapes ({K5_PER_FORWARD} launches): kernel "
+        f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, cuDNN dw + K1 {rec['lib_ms']:.4f} "
+        f"ms, bound {rec['bound_ms']:.4f} ms ({side(rec['sides'])}); max ulps {rec['ulps']:g}; "
+        f"planted faults >= {rec['planted_min']:.1f} ulps [{card}]")
+    return {"name": "block_parts", "route": "cuda",
+            "source": "genconvit_tpu_torch/csrc/block_parts.cu",
+            "replaces": "tools/microbench_kernel_parts.py:44", "launches": 0,
+            "max_abs_err": rec["err"], "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound_ms"], "bound_by": side(rec["sides"]),
+            "library_ms": rec["lib_ms"]}
+
+
+def probe_m3(torch, dev, card: str, g) -> dict:
+    """M3 at the JAX tool's default shape and the 7 LN-folded block shapes
+    under pallas='1'."""
+    from genconvit_tpu_torch.ops.cuda import dw_moments as m3
+    from genconvit_tpu_torch.tools.microbench_dwshift import dw_bound, make_inputs
+
+    shapes = [("tool",) + M3_TOOL_SHAPE + (0,)] + folded_shapes()
+    rec = {"err": 0.0, "worst": {}, "planted": [], "ms": 0.0, "plain_ms": 0.0, "lib_ms": 0.0,
+           "bound_ms": 0.0, "sides": []}
+    for call, n, h, c, depth in shapes:
+        x, k, b = make_inputs(n, h, c, dev, g)
+        what = f"M3 {call:8s} N={n} H={h:2d} C={c:3d}"
+        ref = m3.dw_moments_plain(x, k, b)
+        out = m3.dw_moments(x, k, b)
+        torch.cuda.synchronize()
+        err = m3.ulp_error(out, ref)
+        dw_abs = (out[0].float() - ref[0].float()).abs().max().item()
+        rel = dw_abs / ref[0].float().abs().max().item()
+        finite = all(torch.isfinite(t).all() for t in out)
+        if not (finite and rel <= REL_TOL and m3.agrees(err)):
+            raise AssertionError(f"{what}: {err}, dw /max|ref| {rel:.3e} (limits "
+                                 f"{m3.ULP_TOL} ulps, {m3.MOMENT_TOL}, {REL_TOL})")
+        rec["err"] = max(rec["err"], dw_abs)
+        for key, v in err.items():
+            rec["worst"][key] = max(rec["worst"].get(key, 0.0), v)
+        gap = m3.moments_rounding_gap(*out)
+        log(f"{what} dw max|diff|={dw_abs:.3e} rel={rel:.3e} ulps={err['dw_ulps']:g}; mean "
+            f"{err['mean_rel']:.2e}, var {err['var_rel']:.2e} (limit {m3.MOMENT_TOL:g}); moments "
+            f"of the rounded dw (the yardstick's) vs the f32 sums': mean {gap[0]:.2e}, var "
+            f"{gap[1]:.2e}")
+        faults = {name: m3.dw_moments(x, *args) for name, args in m3.planted_faults(k, b).items()}
+        faults["var without - mean^2"] = (out[0], out[1], m3.var_without_mean_sq(out[1], out[2]))
+        for name, bad in faults.items():
+            e = m3.ulp_error(bad, ref)
+            if m3.agrees(e):
+                raise AssertionError(f"planted fault {name} passed the check ({e})")
+            rec["planted"].append(max(e["dw_ulps"] / m3.ULP_TOL, e["mean_rel"] / m3.MOMENT_TOL,
+                                      e["var_rel"] / m3.MOMENT_TOL))
+            log(f"  M3 planted: {name}: dw {e['dw_ulps']:.1f} ulps, mean {e['mean_rel']:.2e}, "
+                f"var {e['var_rel']:.2e} -> refused")
+        del out, ref, faults
+        iters = 20 if n * h * h * c < 2e7 else 10
+        t_k = cuda_ms(torch, lambda: m3.dw_moments(x, k, b), iters)
+        t_p = cuda_ms(torch, lambda: m3.dw_moments_plain(x, k, b), 1, 1)
+        t_l = cuda_ms(torch, lambda: m3.dw_moments_library(x, k, b), iters)
+        bd, by = dw_bound(n, h, h, c)
+        log(f"M3 time {call:8s} N={n} H={h:2d} C={c:3d}: kernel {t_k:.4f} ms, plain {t_p:.4f} "
+            f"ms, cuDNN dw + 2 reductions {t_l:.4f} ms, bound {bd:.4f} ms ({by}); x{depth} per "
+            f"forward [{card}]")
+        rec["ms"] += depth * t_k
+        rec["plain_ms"] += depth * t_p
+        rec["lib_ms"] += depth * t_l
+        rec["bound_ms"] += depth * bd
+        if depth:
+            rec["sides"].append((depth * bd, by))
+        del x, k, b
+    w = rec["worst"]
+    log(f"M3 per V=8 forward at the LN-folded blocks of pallas='1' (39 blocks): kernel "
+        f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, cuDNN dw + 2 reductions "
+        f"{rec['lib_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms ({side(rec['sides'])}); worst dw "
+        f"{w['dw_ulps']:g} ulps, mean {w['mean_rel']:.2e}, var {w['var_rel']:.2e}; planted faults "
+        f">= {min(rec['planted']):.1f}x their limit [{card}]")
+    return {"name": "dw_moments", "route": "cuda", "source": "genconvit_tpu_torch/csrc/dw_moments.cu",
+            "replaces": "tools/microbench_dwshift.py:70", "launches": 0,
+            "max_abs_err": rec["err"], "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound_ms"], "bound_by": side(rec["sides"]),
+            "library_ms": rec["lib_ms"]}
+
+
+def phase_probes(torch, dev, card: str, lib_path: str) -> tuple:
+    """Phase 9: M1-M3 against their plain versions and timed at their card
+    shapes; then the three tools at their defaults, with every count at 0
+    before, whose launches are the probes' main-path counts."""
+    import contextlib
+    import io
+
+    from genconvit_tpu_torch.ops import cuda as kcuda
+    from genconvit_tpu_torch.tools import (microbench_dwshift, microbench_int8_dot,
+                                           microbench_kernel_parts)
+
+    counts = sass_mma_counts(lib_path)
+    log("M1 SASS, mma instructions per kernel: " + (", ".join(
+        f"{k.split('dots_kernel')[1][:14]} {v}" for k, v in sorted(counts.items()))
+        or "cuobjdump not found"))
+    g = torch.Generator(device=dev).manual_seed(5678)
+    recs = probe_m1(torch, dev, card, g) + [probe_m2(torch, dev, card, g),
+                                            probe_m3(torch, dev, card, g)]
+    torch.cuda.empty_cache()
+    kcuda.reset_launch_counts()
+    for tool, argv in ((microbench_int8_dot, ["--trials", "3"]),
+                       (microbench_kernel_parts, ["--iters", "2"]),
+                       (microbench_dwshift, ["--iters", "3"])):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = tool.main(argv)
+        for line in buf.getvalue().splitlines():
+            log(f"  {tool.__name__.rsplit('.', 1)[1]}: {line}")
+        if rc != 0:
+            raise AssertionError(f"{tool.__name__} exited {rc}")
+    got = kcuda.launch_counts()
+    probes = ("dots_bf16", "dots_int8", "block_parts", "dw_moments")
+    others = {k: v for k, v in got.items() if k not in probes and v}
+    if others or not all(got[k] > 0 for k in probes):
+        raise AssertionError(f"the tools launched {got}: every probe, and nothing else")
+    log(f"phase 9 tools: launches {({k: got[k] for k in probes})}")
+    return recs, got
+
+
 def main() -> int:
     import argparse
     import gc
@@ -1212,6 +1531,10 @@ def main() -> int:
     t = time.perf_counter()
     swin = phase_swin(torch, dev, card, args.profile)
     log(f"phase 8: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    probe_recs, probe_counts = phase_probes(torch, dev, card, info.path)
+    kernels += probe_recs
+    log(f"phase 9: {time.perf_counter() - t:.1f} s")
     for name, r in runs.items():
         log(f"summary [{name}]: V=8 {r['v8_videos_s']:.2f} videos/s ({r['v8_ms']:.2f} "
             f"ms/launch), V=1 {r['v1_ms']:.2f} ms/launch (synchronized median "
@@ -1229,9 +1552,11 @@ def main() -> int:
                   "ln_mlp_residual_int8[fc1]": "int8_mlp=fc1",
                   "ln_mlp_residual_int8[full]": "int8_heads+full",
                   "fused_convnext_block": "pallas=1", "fused_convnext_stage": "pallas=stage",
-                  "window_attention": "swin"}
+                  "window_attention": "swin", "dots_bf16": "probes", "dots_int8": "probes",
+                  "block_parts": "probes", "dw_moments": "probes"}
     counts = {name: r["launches"] for name, r in runs.items()}
     counts["swin"] = swin["launches"]
+    counts["probes"] = probe_counts
     for k in kernels:
         k["launches"] = counts[source_run[k["name"]]][k["name"].split("[")[0]]
     print(json.dumps({"kernels": kernels}))

@@ -151,4 +151,22 @@ __device__ __forceinline__ void mma_s8_16832(int* d, uint32_t a0, uint32_t a1, u
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
+// bf16x2 product and sum, each rounded once to bf16 (sm_90 mul.rn / add.rn:
+// an explicit rounding modifier is never fused into a multiply-add).
+__device__ __forceinline__ uint32_t bf162_bits(bf162 v) { return *reinterpret_cast<uint32_t*>(&v); }
+
+__device__ __forceinline__ bf162 bf162_from_bits(uint32_t u) { return *reinterpret_cast<bf162*>(&u); }
+
+__device__ __forceinline__ bf162 bf16x2_mul_rn(bf162 a, bf162 b) {
+  uint32_t d;
+  asm("mul.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(bf162_bits(a)), "r"(bf162_bits(b)));
+  return bf162_from_bits(d);
+}
+
+__device__ __forceinline__ bf162 bf16x2_add_rn(bf162 a, bf162 b) {
+  uint32_t d;
+  asm("add.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(bf162_bits(a)), "r"(bf162_bits(b)));
+  return bf162_from_bits(d);
+}
+
 }  // namespace

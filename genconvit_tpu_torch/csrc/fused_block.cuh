@@ -15,6 +15,11 @@
 // the plain version's product and sum do, and rows need not be a rectangle
 // of pixels: a tile is BM consecutive rows, so
 // only the last tile of the tensor (K5) or of an image (K6) is ragged.
+//
+// Stop (a template argument, the whole block by default) cuts the tile
+// after one of its steps for the block-phase probe (block_parts.cu), which
+// then writes that step's [rows, C] bf16 result to dst; K5 and K6 compile
+// the whole block, to the same code as without the argument.
 #pragma once
 
 #include "mlp_tile.cuh"
@@ -24,6 +29,14 @@ namespace {
 // Channel pairs per lane at row tile BM: C <= 192 / 384 / 768 for BM =
 // 64 / 32 / 16 (mlp_row_tile), so C / 64 pairs at most.
 __host__ __device__ constexpr int max_pairs(int bm) { return bm == 64 ? 3 : bm == 32 ? 6 : 12; }
+
+// Where the tile stops: x copied through shared memory (dma); bf16 of the
+// depthwise f32 sums (dw) or of sums kept in bf16 (dw_bf16acc: bias, every
+// product and every sum rounded to bf16, no fused multiply-add); the bf16
+// LayerNorm output (ln); the first C columns of bf16(y . w1 + b1) (fc1,
+// with the identity as act) or of bf16(act(y . w1 + b1)) (gelu), the whole
+// 4C hidden computed in both; the block output (full).
+enum TileStop : int { kStopDma, kStopDw, kStopDwBf16, kStopLn, kStopFc1, kStopGelu, kStopFull };
 
 struct BlockWeights {   // one block's, or block 0's of a stacked chain
   const bf16* wdw;     // [49, C]: wdw[(dy * 7 + dx) * C + c] = conv_dw.weight[c, 0, dy, dx]
@@ -52,13 +65,14 @@ struct GeluRecip {
 // read with plain loads (never the read-only path): in K6 it was written
 // earlier in the same launch by this thread block. Ends with a barrier, so
 // the caller may start the next tile.
-template <int BM, class Act>
+template <int BM, class Act, int Stop = kStopFull>
 __device__ __forceinline__ void fused_block_tile(unsigned char* smem, const BlockWeights& p,
                                                  int blk, const bf16* src, bf16* dst,
                                                  long long row0, long long row_end, int h,
                                                  int w, int c, const Act& act) {
+  constexpr bool kFc2 = Stop == kStopFull;
   const size_t vb = static_cast<size_t>(blk) * c;   // a [C] vector's offset
-  const MlpTile<BM> mlp(smem, c, p.w1 + 4 * vb * c, p.b1 + 4 * vb, p.w2 + 4 * vb * c);
+  const MlpTile<BM, kFc2> mlp(smem, c, p.w1 + 4 * vb * c, p.b1 + 4 * vb, p.w2 + 4 * vb * c);
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int half_c = c / 2;
@@ -91,7 +105,49 @@ __device__ __forceinline__ void fused_block_tile(unsigned char* smem, const Bloc
     py0 = rem / w;
     px0 = rem - py0 * w;
   }
-  if (g0 + kRows <= row_end && px0 + kRows <= w) {
+  if constexpr (Stop == kStopDma) {
+    // each warp copies its rows through ys
+    for (int i = 0; i < kRows && g0 + i < row_end; ++i) {
+      bf162* yrow = reinterpret_cast<bf162*>(mlp.ys + (r0 + i) * mlp.ldy);
+      const bf162* xrow = reinterpret_cast<const bf162*>(src + (g0 + i) * c);
+      for (int j = lane; j < half_c; j += 32) yrow[j] = xrow[j];
+      __syncwarp();
+      bf162* out = reinterpret_cast<bf162*>(dst + (g0 + i) * c);
+      for (int j = lane; j < half_c; j += 32) out[j] = yrow[j];
+    }
+    __syncthreads();
+    return;
+  } else if constexpr (Stop == kStopDwBf16) {
+    // every row walks its 49 taps in (dy, dx) order, each product and sum
+    // rounded to bf16 (mul.rn / add.rn, never fused)
+    for (int i = 0; i < kRows; ++i) {
+      const long long g = g0 + i;
+      if (g >= row_end) break;
+      const long long n = g / hw;
+      const int rem = static_cast<int>(g - n * hw);
+      const int py = rem / w;
+      const int px = rem - py * w;
+      for (int j = lane; j < half_c; j += 32) {
+        bf162 acc = __floats2bfloat162_rn(p.bdw[vb + 2 * j], p.bdw[vb + 2 * j + 1]);
+        for (int dy = 0; dy < 7; ++dy) {
+          const int yy = py + dy - 3;
+          if (yy < 0 || yy >= h) continue;
+          for (int dx = 0; dx < 7; ++dx) {
+            const int xx = px + dx - 3;
+            if (xx < 0 || xx >= w) continue;
+            const bf162 v = reinterpret_cast<const bf162*>(
+                src + ((n * h + yy) * w + xx) * static_cast<long long>(c))[j];
+            const bf162 wt =
+                reinterpret_cast<const bf162*>(p.wdw + 49 * vb + (dy * 7 + dx) * c)[j];
+            acc = bf16x2_add_rn(acc, bf16x2_mul_rn(v, wt));
+          }
+        }
+        reinterpret_cast<bf162*>(dst + g * c)[j] = acc;
+      }
+    }
+    __syncthreads();
+    return;
+  } else if (g0 + kRows <= row_end && px0 + kRows <= w) {
     for (int j = lane; j < half_c; j += 32) {
       float2 acc[kRows];
       const float* bdw = p.bdw + vb;
@@ -170,6 +226,15 @@ __device__ __forceinline__ void fused_block_tile(unsigned char* smem, const Bloc
     }
   }
   __syncwarp();
+  if constexpr (Stop == kStopDw) {
+    for (int i = 0; i < kRows && g0 + i < row_end; ++i) {
+      const float2* arow = os2 + (r0 + i) * ldo2;
+      bf162* out = reinterpret_cast<bf162*>(dst + (g0 + i) * c);
+      for (int j = lane; j < half_c; j += 32) out[j] = __float22bfloat162_rn(arow[j]);
+    }
+    __syncthreads();
+    return;
+  }
 
   // 2. LayerNorm and its affine, os -> ys (bf16); rows past a ragged end
   //    are zero and never stored
@@ -199,14 +264,19 @@ __device__ __forceinline__ void fused_block_tile(unsigned char* smem, const Bloc
                                            lns[2 * j]), lnb[2 * j]);
       const float y1 = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(a.y, mean), rstd),
                                            lns[2 * j + 1]), lnb[2 * j + 1]);
-      yrow[j] = __floats2bfloat162_rn(y0, y1);
+      const bf162 v = __floats2bfloat162_rn(y0, y1);
+      yrow[j] = v;
+      if constexpr (Stop == kStopLn) reinterpret_cast<bf162*>(dst + (g0 + i) * c)[j] = v;
     }
   }
   __syncthreads();   // every warp is done with os before the slices overwrite it
+  if constexpr (Stop == kStopLn) return;
   mlp.prefetch();
 
-  // 3. fc1 -> GELU -> fc2 into os
-  mlp.run(act);
+  // 3. fc1 -> GELU -> fc2 into os (or, cut at fc1 / gelu, the first C
+  //    columns of the hidden into dst)
+  mlp.run(act, dst, row0, row_end);
+  if constexpr (!kFc2) return;
 
   // 4. epilogue, one warp per row: out = bf16(x + (o + b2) * gamma)
   for (int r = warp; r < BM; r += kWarps) {

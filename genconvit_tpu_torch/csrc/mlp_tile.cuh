@@ -13,6 +13,9 @@
 // tensor cores, shared by all 8 warps; WMMA, bf16 in, f32 accumulate. BM
 // (64/32/16 rows for C up to 192/384/768) keeps the fc2 accumulator at 6
 // WMMA tiles per warp at most; the warps tile (row strips) x (column tiles).
+// kFc2 = false (the block-phase probe, block_parts.cu) stops after act: the
+// slice stream carries no fc2 slices, and run() writes the first C columns
+// of bf16(act(hidden)) to device memory instead of computing os.
 #pragma once
 
 #include <mma.h>
@@ -66,7 +69,7 @@ __host__ __device__ __forceinline__ MlpSmem mlp_smem(int c, int bm) {
 // prologue; a prologue that uses os as scratch syncs before it), write ys
 // rows [0, BM) (zeros past a ragged end), run(act), read os rows; the
 // caller syncs before the ring is reused.
-template <int BM>
+template <int BM, bool kFc2 = true>
 struct MlpTile {
   static constexpr int kWM = BM / 16;                 // warp rows (16-row strips)
   static constexpr int kWN = kWarps / kWM;            // warp columns
@@ -100,7 +103,11 @@ struct MlpTile {
     stage_elems = lay.stage / sizeof(bf16);
   }
 
-  __device__ __forceinline__ int slices() const { return (4 * c / kHidChunk) * (c / kKs1 + kS2); }
+  static constexpr int kFc2Slices = kFc2 ? kS2 : 0;   // fc2 slices per chunk
+
+  __device__ __forceinline__ int slices() const {
+    return (4 * c / kHidChunk) * (c / kKs1 + kFc2Slices);
+  }
 
   // Issue the copies of weight slice g (chunk g / spc; its fc1 slices
   // first, then its fc2 slices) into ring stage g % kStages, 16 bytes per
@@ -109,7 +116,7 @@ struct MlpTile {
   __device__ __forceinline__ void load_slice(int g) const {
     const int hidden = 4 * c;
     const int s1 = c / kKs1;
-    const int spc = s1 + kS2;
+    const int spc = s1 + kFc2Slices;
     if (g < slices()) {
       bf16* dst = ring + (g % kStages) * stage_elems;
       const int h0 = (g / spc) * kHidChunk;
@@ -145,11 +152,14 @@ struct MlpTile {
   // (and the ys / hs writes before it) visible and guarantees every warp is
   // done with slice g-1, whose stage slice g+kStages-1 then overwrites while
   // slice g is computed. Ends with os holding the f32 fc2 sums, visible to
-  // every thread.
+  // every thread. Without kFc2, ends with rows [row0, row_end) of hid_out
+  // [., C] holding the first C columns of the act'ed hidden (the tile's
+  // row r at row0 + r).
   template <class Act>
-  __device__ __forceinline__ void run(const Act& act) const {
+  __device__ __forceinline__ void run(const Act& act, bf16* hid_out = nullptr,
+                                      long long row0 = 0, long long row_end = 0) const {
     const int s1 = c / kKs1;
-    const int spc = s1 + kS2;
+    const int spc = s1 + kFc2Slices;
     const int nslices = slices();
     const int ldw2 = c + kPadBf16;
     const int ctiles = c / 16;
@@ -201,13 +211,17 @@ struct MlpTile {
             for (int e = lane; e < 256; e += 32) {
               const int r = e / 16;
               const int col = e % 16;
-              hrow[r * ldh + col] =
-                  __float2bfloat16_rn(act(scratch[r * kScratchLd + col] + bias[col]));
+              const bf16 v = __float2bfloat16_rn(act(scratch[r * kScratchLd + col] + bias[col]));
+              hrow[r * ldh + col] = v;
+              if constexpr (!kFc2) {
+                const long long row = row0 + wm * 16 + r;
+                if (h0 + nt * 16 < c && row < row_end) hid_out[row * c + h0 + nt * 16 + col] = v;
+              }
             }
             __syncwarp();
           }
         }
-      } else {
+      } else if constexpr (kFc2) {
         // fc2: acc[strip wm, this warp's output columns] += h . w2 slice
         const int k0 = (s - s1) * kKs2;
 #pragma unroll
@@ -228,15 +242,16 @@ struct MlpTile {
     }
     cp_async_wait<0>();
     __syncthreads();  // the ring becomes os
-
+    if constexpr (kFc2) {
 #pragma unroll
-    for (int j = 0; j < kMaxNt; ++j) {
-      const int nt = wn + kWN * j;
-      if (nt < ctiles) {
-        wmma::store_matrix_sync(os + wm * 16 * ldo + nt * 16, acc[j], ldo, wmma::mem_row_major);
+      for (int j = 0; j < kMaxNt; ++j) {
+        const int nt = wn + kWN * j;
+        if (nt < ctiles) {
+          wmma::store_matrix_sync(os + wm * 16 * ldo + nt * 16, acc[j], ldo, wmma::mem_row_major);
+        }
       }
+      __syncthreads();
     }
-    __syncthreads();
   }
 };
 

@@ -29,7 +29,8 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 SOURCES = tuple(os.path.join(_PKG_DIR, "csrc", f) for f in
                 ("convnext_mlp.cu", "convnext_mlp_int8.cu", "int8_matmul.cu",
-                 "convnext_block.cu", "convnext_stage.cu", "window_attn.cu"))
+                 "convnext_block.cu", "convnext_stage.cu", "window_attn.cu",
+                 "int8_dot.cu", "dw_moments.cu", "block_parts.cu"))
 HEADERS = tuple(os.path.join(_PKG_DIR, "csrc", f) for f in
                 ("common.cuh", "mlp_tile.cuh", "fused_block.cuh"))
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
@@ -58,6 +59,14 @@ _SIGNATURES = {
     # qkv, bias, mask, out, windows, l, heads, hd, nw, scale, stream
     "gcv_window_attention": ([_P] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 4
                              + [ctypes.c_float, _P], ctypes.c_int),
+    # M1: y, h, w1, w2, out, rows, c, hid, stream
+    "gcv_dots_bf16": ([_P] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 2 + [_P], ctypes.c_int),
+    # M1: yq, hq, w1q, s1, w2q, s2, out, rows, c, hid, stream
+    "gcv_dots_int8": ([_P] * 7 + [ctypes.c_longlong] + [ctypes.c_int] * 2 + [_P], ctypes.c_int),
+    # M3: x, k, b, dw, mu, var, n, h, w, c, stream
+    "gcv_dw_moments": ([_P] * 6 + [ctypes.c_int] * 4 + [_P], ctypes.c_int),
+    # M2: x, wdw, bdw, lns, lnb, w1, b1, w2, b2, gamma, out, n, h, w, c, phase, stream
+    "gcv_block_parts": ([_P] * 11 + [ctypes.c_int] * 5 + [_P], ctypes.c_int),
     "gcv_wint8_splits": ([ctypes.c_int] * 3, ctypes.c_int),
     "gcv_mlp_row_tile": ([ctypes.c_int], ctypes.c_int),
     "gcv_error_string": ([ctypes.c_int], ctypes.c_char_p),

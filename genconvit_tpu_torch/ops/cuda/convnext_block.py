@@ -96,10 +96,13 @@ def gelu_erf_hp(h: torch.Tensor) -> torch.Tensor:
 
 
 def block_plain(x: torch.Tensor, p: FusedBlockWeights,
-                gelu: Callable[[torch.Tensor], torch.Tensor]) -> torch.Tensor:
+                gelu: Callable[[torch.Tensor], torch.Tensor], stop: str = "full") -> torch.Tensor:
     """One block's math on NHWC x, rounded where the kernels round: K5 with
     gelu_erf_hp, each block of K6 with its own GELU form. bf16 operands are
-    upcast before each product: a bf16 product is exact in float32."""
+    upcast before each product: a bf16 product is exact in float32. `stop`
+    cuts it after a step, as the block-phase probe (ops/cuda/block_parts.py)
+    does: 'dw', 'ln', 'fc1' or 'gelu' return that step's output in x's
+    dtype (the hidden's first C columns for 'fc1' and 'gelu')."""
     dtype = x.dtype
     n, h, w, c = x.shape
     xp = F.pad(x, (0, 0, 3, 3, 3, 3))
@@ -107,13 +110,21 @@ def block_plain(x: torch.Tensor, p: FusedBlockWeights,
     for dy in range(7):
         for dx in range(7):
             acc = acc + xp[:, dy:dy + h, dx:dx + w, :].float() * p.w_dw[dy * 7 + dx].float()
+    if stop == "dw":
+        return acc.to(dtype)
     inv_c = 1.0 / c
     mean = acc.sum(-1, keepdim=True) * inv_c
     var = (acc * acc).sum(-1, keepdim=True) * inv_c - mean * mean
     y = (acc - mean) * torch.rsqrt(var + LN_EPS)
     y = (y * p.ln_scale.float() + p.ln_bias.float()).to(dtype)
+    if stop == "ln":
+        return y
     hid = y.float() @ p.w1.float() + p.b1.float()
+    if stop == "fc1":
+        return hid[..., :c].to(dtype)
     hid = gelu(hid).to(dtype)
+    if stop == "gelu":
+        return hid[..., :c]
     o = (hid.float() @ p.w2.float() + p.b2.float()) * p.gamma.float()
     return (x.float() + o).to(dtype)
 

@@ -31,13 +31,20 @@ genconvit_tpu/ops/kernel_plan.py:36-130 the scoring path reads).
 
 The names and the environment variables are the JAX package's, so one
 setting selects the same path in both. `from_env()` is the one place the
-environment is read; the Predictor calls it once at construction.
+environment is read; the Predictor calls it once at construction. It
+layers them as the JAX package does (genconvit_tpu/ops/kernel_plan.py:97-140):
+defaults, then a plan file named by GENCONVIT_KERNEL_PLAN, then each
+variable that is set. The JAX plan's `dw_rank` (the SVD-separable
+depthwise approximation) is not in the port yet: a non-zero dw_rank from
+the file or from GENCONVIT_DW_RANK raises instead of being ignored.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
+from typing import Any, Dict
 
 from genconvit_tpu_torch.ops.act import GELU_TIERS
 
@@ -67,16 +74,56 @@ class KernelPlan:
 
     @staticmethod
     def from_env() -> "KernelPlan":
-        """GENCONVIT_EXACT_GELU=1 -> gelu 'exact'; GENCONVIT_GELU=hp -> 'hp';
-        GENCONVIT_PALLAS -> pallas; GENCONVIT_INT8_MLP -> int8_mlp ('0' and
-        '' mean off, '1' means 'full'); GENCONVIT_INT8_HEADS=1 -> int8_heads."""
-        gelu = "default"
-        if os.environ.get("GENCONVIT_EXACT_GELU", "0") == "1":
-            gelu = "exact"
-        elif os.environ.get("GENCONVIT_GELU", "") == "hp":
-            gelu = "hp"
-        raw = os.environ.get("GENCONVIT_INT8_MLP", "")
-        return KernelPlan(pallas=os.environ.get("GENCONVIT_PALLAS", ""),
-                          gelu=gelu,
-                          int8_mlp={"0": "", "": "", "1": "full"}.get(raw, raw),
-                          int8_heads=os.environ.get("GENCONVIT_INT8_HEADS") == "1")
+        """The plan the environment selects, layered as the JAX package's
+        KernelPlan.from_env (most specific wins):
+
+          1. defaults;
+          2. the plan file named by GENCONVIT_KERNEL_PLAN (`read_plan_file`);
+          3. each variable that is set, and only those, so that an unset
+             variable never masks a field of the file:
+             GENCONVIT_EXACT_GELU=1 -> gelu 'exact', GENCONVIT_GELU=hp ->
+             'hp'; GENCONVIT_PALLAS -> pallas; GENCONVIT_INT8_MLP ->
+             int8_mlp ('0' and '' mean off, '1' means 'full');
+             GENCONVIT_DW_RANK -> dw_rank ('' means 0).
+          A non-zero dw_rank at the end raises (not ported yet).
+
+        GENCONVIT_INT8_HEADS=1 -> int8_heads, as before: it is not a field
+        of the JAX plan. The JAX package's per-chip asset layer
+        (default_plan_asset, GENCONVIT_KERNEL_PLAN_ASSET) is left out: the
+        one asset that ships, kernel_plan.TPU_v5_lite.json, is for that TPU
+        alone, and no plan asset exists for this card."""
+        env = os.environ
+        fields: Dict[str, Any] = {}
+        dw_rank: Any = 0
+        if env.get("GENCONVIT_KERNEL_PLAN", ""):
+            fields, dw_rank = read_plan_file(env["GENCONVIT_KERNEL_PLAN"])
+        if env.get("GENCONVIT_EXACT_GELU", "0") == "1":
+            fields["gelu"] = "exact"
+        elif env.get("GENCONVIT_GELU", "") == "hp":
+            fields["gelu"] = "hp"
+        if "GENCONVIT_PALLAS" in env:
+            fields["pallas"] = env["GENCONVIT_PALLAS"]
+        if "GENCONVIT_INT8_MLP" in env:
+            raw = env["GENCONVIT_INT8_MLP"]
+            fields["int8_mlp"] = {"0": "", "": "", "1": "full"}.get(raw, raw)
+        if "GENCONVIT_DW_RANK" in env:
+            raw = env["GENCONVIT_DW_RANK"] or "0"
+            dw_rank = raw if raw.startswith("auto") else int(raw)
+        if dw_rank not in (0, "0", ""):
+            raise ValueError(f"dw_rank (the separable depthwise approximation) is not ported "
+                             f"yet (ROADMAP.md, queue 1 item 3); got dw_rank={dw_rank!r}")
+        return KernelPlan(int8_heads=env.get("GENCONVIT_INT8_HEADS") == "1", **fields)
+
+
+def read_plan_file(path: str):
+    """(fields, dw_rank) of a plan file, read as the JAX package's
+    KernelPlan.load reads it (kernel_plan.py:132-140): the fields pallas,
+    gelu and int8_mlp; mlp_panel_mb and mlp_split (TPU layout that computes
+    the same function), `_meta` and unknown keys are ignored. dw_rank is
+    returned apart, for from_env to refuse when non-zero."""
+    with open(path) as f:
+        data = json.load(f)
+    if not isinstance(data, dict):
+        raise ValueError(f"plan file {path}: expected a JSON object")
+    fields = {k: data[k] for k in ("pallas", "gelu", "int8_mlp") if k in data}
+    return fields, data.get("dw_rank", 0)

@@ -427,3 +427,100 @@ def test_swin_tiny_forward_launches_k7_12_times(dev):
     assert out.shape == (2, 1000) and torch.isfinite(out).all()
     assert (k7.window_attention.launches - before[0],
             k7.window_attention.masked_launches - before[1]) == (12, 5)
+
+
+# The probes M1-M3 (their tools launch them; no model path does): each
+# against its plain version at one small and one scoring-path shape, and one
+# planted fault each that the check must refuse.
+
+def _m1_inputs(kind, rows, c, hid, dev, g):
+    from genconvit_tpu_torch.tools.microbench_int8_dot import make_inputs
+
+    ops = list(make_inputs(kind, rows, c, hid, dev, g))
+    if kind == "int8":   # scales off 1, as chip_smoke.py sets them
+        ops[3] = torch.rand(hid, device=dev, generator=g) + 0.5
+        ops[5] = torch.rand(c, device=dev, generator=g) + 0.5
+    return ops
+
+
+@pytest.mark.parametrize("rows,c,hid", [(1037, 96, 288), (188160, 192, 768)])
+@pytest.mark.parametrize("kind", ["bf16", "int8"])
+def test_m1_matches_plain(dev, kind, rows, c, hid):
+    from genconvit_tpu_torch.ops.cuda import int8_dot as m1
+
+    g = torch.Generator(device=dev).manual_seed(rows + c)
+    ops = _m1_inputs(kind, rows, c, hid, dev, g)
+    fn, plain, tol = ((m1.dots_bf16, m1.dots_bf16_plain, m1.ULP_TOL) if kind == "bf16"
+                      else (m1.dots_int8, m1.dots_int8_plain, m1.ULP_TOL_INT8))
+    before = fn.launches
+    out = fn(*ops)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    ref = plain(*ops)
+    assert _rel(out, ref) <= TOL and m1.ulp_error(out, ref) <= tol
+    s1, w2 = (ops[3], ops[4]) if kind == "int8" else (None, ops[3])
+    b1, bs1, b2 = m1.planted_faults(kind, ops[2], s1, w2)["w2 transposed"]
+    bad = ops[:2] + ([b1, bs1, b2, ops[5]] if kind == "int8" else [b1, b2])
+    assert m1.ulp_error(fn(*bad), ref) > tol
+
+
+@pytest.mark.parametrize("n,h,c", [(2, 15, 96), (120, 28, 96)])   # 15: ragged row tiles
+@pytest.mark.parametrize("phase", ["dma", "dw", "dw_bf16acc", "ln", "fc1", "gelu", "full"])
+def test_m2_matches_plain(dev, phase, n, h, c):
+    from genconvit_tpu_torch.ops.cuda import block_parts as m2
+
+    g = torch.Generator(device=dev).manual_seed(n + h + c)
+    p = _fused_block_weights(c, dev, g)
+    x = torch.randn(n, h, h, c, device=dev, generator=g).to(torch.bfloat16)
+    before = m2.block_parts.launches
+    out = m2.block_parts(x, p, phase)
+    torch.cuda.synchronize()
+    assert m2.block_parts.launches == before + 1
+    ref = m2.block_parts_plain(x, p, phase)
+    assert _rel(out, ref) <= TOL and m2.ulp_error(out, ref, x, phase) <= m2.ULP_TOL
+    for name, bad in m2.planted_faults(p, phase).items():
+        assert m2.ulp_error(m2.block_parts(x, bad, phase), ref, x, phase) > m2.ULP_TOL, name
+
+
+@pytest.mark.parametrize("n,h,c", [(2, 13, 96), (240, 14, 384)])   # 13: a ragged last run
+def test_m3_matches_plain(dev, n, h, c):
+    from genconvit_tpu_torch.ops.cuda import dw_moments as m3
+    from genconvit_tpu_torch.tools.microbench_dwshift import make_inputs
+
+    g = torch.Generator(device=dev).manual_seed(n + h + c)
+    x, k, b = make_inputs(n, h, c, dev, g)
+    before = m3.dw_moments.launches
+    out = m3.dw_moments(x, k, b)
+    torch.cuda.synchronize()
+    assert m3.dw_moments.launches == before + 1
+    ref = m3.dw_moments_plain(x, k, b)
+    assert _rel(out[0], ref[0]) <= TOL and m3.agrees(m3.ulp_error(out, ref))
+    bk, bb = m3.planted_faults(k, b)["kernel transposed"]
+    assert not m3.agrees(m3.ulp_error(m3.dw_moments(x, bk, bb), ref))
+
+
+def test_probe_wrappers_raise_on_what_the_kernels_do_not_take(dev):
+    from genconvit_tpu_torch.ops.cuda import block_parts as m2
+    from genconvit_tpu_torch.ops.cuda import dw_moments as m3
+    from genconvit_tpu_torch.ops.cuda import int8_dot as m1
+
+    bf = torch.bfloat16
+    y, h = torch.zeros(64, 96, dtype=bf, device=dev), torch.zeros(64, 288, dtype=bf, device=dev)
+    w1, w2 = torch.zeros(288, 96, dtype=bf, device=dev), torch.zeros(96, 288, dtype=bf, device=dev)
+    with pytest.raises(ValueError, match="hid"):
+        m1.dots_bf16(y, torch.zeros(64, 416, dtype=bf, device=dev), w1, w2)
+    with pytest.raises(ValueError, match="expected"):
+        m1.dots_bf16(y, h, w2, w2)
+    with pytest.raises(ValueError, match="int8"):
+        m1.dots_int8(y, h, w1, torch.ones(288, device=dev), w2, torch.ones(96, device=dev))
+    with pytest.raises(ValueError, match="contiguous"):
+        m1.dots_bf16(torch.zeros(96, 64, dtype=bf, device=dev).t(), h, w1, w2)
+    x = torch.zeros(2, 7, 7, 96, dtype=bf, device=dev)
+    with pytest.raises(ValueError, match="bfloat16"):
+        m3.dw_moments(x.float(), torch.zeros(7, 7, 96, device=dev), torch.zeros(96, device=dev))
+    with pytest.raises(ValueError, match="expected shape"):
+        m3.dw_moments(x, torch.zeros(49, 96, device=dev), torch.zeros(96, device=dev))
+    g = torch.Generator(device=dev).manual_seed(0)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        m2.block_parts(torch.zeros(2, 7, 7, 80, dtype=bf, device=dev),
+                       _fused_block_weights(96, dev, g), "ln")

@@ -266,7 +266,8 @@ def test_int8_wrappers_take_plain_path_on_cpu_and_refuse_what_they_do_not_take()
     assert kcuda.launch_counts() == {"ln_mlp_residual": 0, "layer_norm_rows": 0,
                                      "ln_mlp_residual_int8": 0, "matmul_wint8": 0,
                                      "fused_convnext_block": 0, "fused_convnext_stage": 0,
-                                     "window_attention": 0}
+                                     "window_attention": 0, "dots_bf16": 0, "dots_int8": 0,
+                                     "block_parts": 0, "dw_moments": 0}
     assert not _build.is_loaded()
     with pytest.raises(ValueError, match="mode"):
         k4.ln_mlp_residual_int8(dw, x, f._replace(mode="w4a8"))

@@ -40,7 +40,10 @@ def test_importing_every_module_loads_nothing_forbidden():
     rec = json.loads(out.stdout.strip().splitlines()[-1])
     assert "genconvit_tpu_torch.ops.cuda.convnext_mlp" in rec["modules"]
     assert "genconvit_tpu_torch.infer.engine" in rec["modules"]
-    for name in ("models.swin", "models.hybrid_embed", "ops.cuda.window_attn"):
+    for name in ("models.swin", "models.hybrid_embed", "ops.cuda.window_attn",
+                 "ops.cuda.int8_dot", "ops.cuda.block_parts", "ops.cuda.dw_moments",
+                 "tools.microbench_int8_dot", "tools.microbench_kernel_parts",
+                 "tools.microbench_dwshift"):
         assert f"genconvit_tpu_torch.{name}" in rec["modules"]
     assert rec["bad"] == []
     assert rec["built"] is False
@@ -50,7 +53,9 @@ def test_sources_import_no_jax_and_compile_nothing():
     pattern = re.compile(r"^\s*(import|from)\s+(jax|flax|yaml|genconvit_tpu)\b"
                          r"|torch\.compile", re.M)
     paths = list(PKG.rglob("*.py"))
-    assert {"swin.py", "hybrid_embed.py", "window_attn.py"} <= {p.name for p in paths}
+    assert {"swin.py", "hybrid_embed.py", "window_attn.py", "int8_dot.py", "block_parts.py",
+            "dw_moments.py", "microbench_int8_dot.py", "microbench_kernel_parts.py",
+            "microbench_dwshift.py"} <= {p.name for p in paths}
     for path in paths + [ROOT / "chip_smoke.py"]:
         assert not pattern.search(path.read_text()), path
 

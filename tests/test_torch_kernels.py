@@ -280,3 +280,56 @@ def test_kernel_plan_from_env(monkeypatch):
         KernelPlan.from_env()
     with pytest.raises(ValueError, match="gelu"):
         KernelPlan(gelu="tanh")
+
+
+_PLAN_VARS = ("GENCONVIT_GELU", "GENCONVIT_EXACT_GELU", "GENCONVIT_PALLAS", "GENCONVIT_INT8_MLP",
+              "GENCONVIT_INT8_HEADS", "GENCONVIT_DW_RANK", "GENCONVIT_KERNEL_PLAN",
+              "GENCONVIT_MLP_PANEL", "GENCONVIT_MLP_SPLIT")
+_TUNED = {"pallas": "stage", "gelu": "hp", "int8_mlp": "fc1", "mlp_panel_mb": 16,
+          "mlp_split": 2, "_meta": {"chip": "TPU v5 lite"}, "unknown_knob": 1}
+
+
+# (plan file or None, variables set, whether the port must refuse)
+@pytest.mark.parametrize("plan,env,refused", [
+    (None, {"GENCONVIT_DW_RANK": "1"}, True),
+    (None, {"GENCONVIT_DW_RANK": "auto:0.8"}, True),
+    (None, {"GENCONVIT_DW_RANK": "0", "GENCONVIT_PALLAS": "1"}, False),
+    (None, {"GENCONVIT_DW_RANK": ""}, False),
+    (_TUNED, {}, False),                                   # the file sets the fields
+    (_TUNED, {"GENCONVIT_PALLAS": "0", "GENCONVIT_INT8_MLP": "0"}, False),  # set vars win
+    (_TUNED, {"GENCONVIT_EXACT_GELU": "1", "GENCONVIT_MLP_PANEL": "4"}, False),
+    ({"gelu": "hp", "dw_rank": 0}, {}, False),
+    ({"pallas": "1", "dw_rank": 1}, {}, True),
+    ({"dw_rank": "auto:0.8:2"}, {}, True),
+    ({"dw_rank": 2}, {"GENCONVIT_DW_RANK": "0"}, False),   # a set variable overrides the file
+], ids=["env-rank-1", "env-rank-auto", "env-rank-0", "env-rank-empty", "file-fields",
+        "file-overridden", "file-gelu-exact", "file-rank-0", "file-rank-1", "file-rank-auto",
+        "file-rank-env-0"])
+def test_kernel_plan_layers_the_plan_file_and_refuses_dw_rank(monkeypatch, tmp_path, plan,
+                                                               env, refused):
+    """from_env layers defaults, the GENCONVIT_KERNEL_PLAN file and the set
+    variables as the JAX package's from_env does, field for field; a
+    non-zero dw_rank (not ported) raises instead of being ignored."""
+    import json
+
+    from genconvit_tpu.ops.kernel_plan import KernelPlan as JaxPlan
+
+    for var in _PLAN_VARS:
+        monkeypatch.delenv(var, raising=False)
+    monkeypatch.setenv("GENCONVIT_KERNEL_PLAN_ASSET", "0")   # no per-chip asset in JAX
+    if plan is not None:
+        path = tmp_path / "plan.json"
+        path.write_text(json.dumps(plan))
+        monkeypatch.setenv("GENCONVIT_KERNEL_PLAN", str(path))
+    for var, value in env.items():
+        monkeypatch.setenv(var, value)
+    ref = JaxPlan.from_env()
+    if refused:
+        assert ref.dw_rank not in (0, "0")
+        with pytest.raises(ValueError, match="queue 1 item 3"):
+            KernelPlan.from_env()
+        return
+    assert ref.dw_rank == 0
+    got = KernelPlan.from_env()
+    assert (got.pallas, got.gelu, got.int8_mlp) == (ref.pallas, ref.gelu, ref.int8_mlp)
+    assert got.int8_heads is False
