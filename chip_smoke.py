@@ -13,9 +13,11 @@ Phases (any failed check raises and the exit code is non-zero):
   3. kernels vs their plain PyTorch versions in bf16, at every shape the
      scoring path gives them (K1 and K4 in both int8 modes at the 12
      backbone-call x stage shapes, with the post-LN variant at stages 0-2,
-     and with x = 0, where the output is the MLP branch alone; K2 at the
-     three stem LNs; K3 at M = 15, 30, 120 on the 25088x12544 head and at
-     one odd shape); pass: max|diff| / max|ref| <= 3e-2 and every element
+     and with x = 0, where the output is the MLP branch alone; K1 also at
+     the widths past convnext_tiny's: convnext_large's 192, 384, 768 and
+     1536 and convnext_base's 1024, at the ED call's rows; K2 at the three
+     stem LNs; K3 at M = 1, 15, 30, 120 and 240 on the 25088x12544 head and
+     at one odd shape); pass: max|diff| / max|ref| <= 3e-2 and every element
      within 2 bf16 ulps (3 for K4: one int8 step, see convnext_mlp_int8),
      since both versions round at the same points; planted faults (K1:
      fc2 bias, LN-bias fold, layer scale dropped; K2: bias dropped; K3:
@@ -24,7 +26,9 @@ Phases (any failed check raises and the exit code is non-zero):
      event times of kernel and plain version, of the plain bf16 graph (K1),
      of K1 at K4's shapes, and of the one PyTorch call that computes the
      same function where there is one (F.layer_norm for K2, F.linear on
-     the bf16 head for K3), beside the bound at the H100's published peaks;
+     the bf16 head for K3, cuBLAS's two bf16 products at hid = 4C for K1),
+     beside the bound at the H100's published peaks; K1's tile plan as the
+     library computes it against its Python mirror, at every width;
      K5 at its five path shapes and K6 at its five chains (pallas '1' and
      'stage'), held the same way, K6 block by block (the chain cut after
      block k against the plain block k on the kernel's own input, each
@@ -93,6 +97,14 @@ Phases (any failed check raises and the exit code is non-zero):
      their default shapes with every count at 0 before: the M kernels'
      launches in the kernels' record come from that run.
 
+  10. convnext_large (the JAX package's `--s large` backbone: dims
+     192/384/768/1536, depths 3/3/27/3) at full width and depth, 224 px,
+     random weights from a seed, through the default plan: the requests of
+     phase 4 with 108 K1 and 3 K2 launches per forward, throughput as in
+     phase 6 (with --profile, its breakdown too), and parity against its
+     float32 plain path as in phase 5 (max|dy_val| <= 2e-2). It runs after
+     phase 5.
+
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Without CUDA it exits non-zero at once.
 """
@@ -131,6 +143,12 @@ SWIN_TINY = "swin_tiny_patch4_window7_224"
 SWIN_LARGE = "swin_large_patch4_window7_224"
 SWIN_BATCHES = (120, 15)   # the V=8 and V=1 batches of 15 face crops
 K7_PER_FORWARD = (12, 5)   # swin_tiny at 224 px: launches, of them with a mask
+# K1 at the widths the tiny backbone never reaches: convnext_large's four
+# stages and convnext_base's last, at their ED-call rows (240 x 56^2 >> 2s)
+K1_WIDE = (("large", 0, 192), ("large", 1, 384), ("large", 2, 768), ("large", 3, 1536),
+           ("base", 3, 1024))
+LARGE = "convnext_large"
+LARGE_K1_PER_FORWARD = 108   # 36 blocks x 3 backbone calls
 M1_TOOL_SHAPE = (240, 56, 128)   # the JAX tools' default n, h, c: M1 (hid 3c) ...
 M3_TOOL_SHAPE = (240, 56, 96)    # ... and M3 (C unpadded)
 
@@ -230,6 +248,48 @@ def mlp_bound(rows: int, c: int, mode: str, post: bool = False) -> tuple:
     return bound(3 * rows * c * 2 + w + vec, ops)
 
 
+def two_products(torch, blk):
+    """cuBLAS's two bf16 products of a block tail at hid = 4C, as one
+    PyTorch call each (the [R, 4C] hidden through device memory): K1's
+    library yardstick."""
+    w1 = blk.mlp.fc1.weight.t().contiguous()
+    w2 = blk.mlp.fc2.weight.t().contiguous()
+    return lambda y: torch.matmul(torch.matmul(y, w1), w2)
+
+
+def check_k1_shape(torch, km, what, blk, dr, xr, posts, tiers, planted) -> float:
+    """K1 against its plain version at one shape: every post-LN variant and
+    GELU tier, with x and with x = 0 (the MLP branch alone), and the planted
+    faults when asked. Returns the largest max|diff|."""
+    c = xr.shape[-1]
+    folded = blk.fold()
+    zero = torch.zeros_like(xr)
+    o_max = km.ln_mlp_residual_plain(dr, zero, folded).float().abs().max().item()
+    worst = 0.0
+    for post in posts:
+        for tier in tiers:
+            for xin in (xr, zero):
+                tag = (f"{what} post_ln={int(post is not None)} gelu={tier:7s} "
+                       f"x={'0' if xin is zero else 'randn'}")
+                ref = km.ln_mlp_residual_plain(dr, xin, folded, post, tier)
+                out = km.ln_mlp_residual(dr, xin, folded, post, tier)
+                if post is None:   # out = x + bf16(o)
+                    err, rel, ulps = compare(torch, km, tag, out, ref, xin, o_max)
+                else:              # out = LN(x + o): the output's own scale
+                    err, rel, ulps = compare(torch, km, tag, out, ref, None,
+                                             ref.float().abs().max().item())
+                worst = max(worst, err)
+                log(f"{tag} max|diff|={err:.3e} rel={rel:.3e} ulps={ulps:.3f}")
+    if planted:   # the check refuses a wrong MLP
+        for xin in (xr, zero):
+            ref = km.ln_mlp_residual_plain(dr, xin, folded)
+            for name, bad in planted_folds(torch, km, blk).items():
+                out = km.ln_mlp_residual(dr, xin, bad)
+                log(f"  C={c} planted, x={'0' if xin is zero else 'randn'}: "
+                    + must_fail(torch, km, name, out, ref, xin, o_max))
+    return worst
+
+
 def planted_folds(torch, km, blk) -> dict:
     """The block's folds, each missing one term of K1's math, as a kernel
     that forgot it would compute."""
@@ -300,8 +360,52 @@ def check_k4_shape(torch, km, k4, tag, blk, dr, xr, posts, tiers, planted, acc) 
         del folded, f1
 
 
+def phase_k1_wide(torch, km, dev, card: str, g) -> float:
+    """K1 at the widths past convnext_tiny's (K1_WIDE), at the ED call's rows
+    for each: held as at the tiny shapes (post-LN where the stage has one,
+    x = 0, the planted faults) and timed beside its plain version, cuBLAS's
+    two products and the bound. Returns the largest max|diff|."""
+    from genconvit_tpu_torch.models.convnext import CONVNEXT_CFGS, _nhwc
+
+    worst = 0.0
+    for name, si, c in K1_WIDE:
+        if CONVNEXT_CFGS[f"convnext_{name}"]["dims"][si] != c:
+            raise AssertionError(f"convnext_{name} stage {si} is not C={c}")
+        n, px = CALLS[0][1], CALLS[0][2]
+        h = (px // 4) >> si
+        blk = random_block(torch, c, dev, g)
+        x = torch.randn(n, c, h, h, device=dev, generator=g).to(
+            torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        with torch.inference_mode():
+            dr, xr = _nhwc(blk.dw(x)), _nhwc(x)
+            rows = dr.numel() // c
+            plan = km.mlp_plan(c)
+            posts = [None]
+            if si < 3:
+                posts.append(((1 + 0.1 * torch.randn(c, device=dev, generator=g)).float(),
+                              (0.1 * torch.randn(c, device=dev, generator=g)).float()))
+            worst = max(worst, check_k1_shape(
+                torch, km, f"K1 {name:5s} s{si} R={rows:7d} C={c:4d} ragged="
+                f"{int(rows % plan.rows != 0)}", blk, dr, xr, posts, ("default",), True))
+            folded = blk.fold()
+            yb = torch.randn(rows, c, device=dev, generator=g).to(torch.bfloat16)
+            prods = two_products(torch, blk)
+            t_k = cuda_ms(torch, lambda: km.ln_mlp_residual(dr, xr, folded), 5)
+            t_p = cuda_ms(torch, lambda: km.ln_mlp_residual_plain(dr, xr, folded), 3, 1)
+            t_l = cuda_ms(torch, lambda: prods(yb), 5)
+        bd, by = mlp_bound(rows, c, "")
+        log(f"K1 time {name:5s} s{si} R={rows:7d} C={c:4d} (plan {tuple(plan)}, "
+            f"{plan.passes(c)} pass(es){', streamed' if plan.streams(c) else ''}): kernel "
+            f"{t_k:.4f} ms, plain {t_p:.4f} ms, cuBLAS's two products {t_l:.4f} ms, bound "
+            f"{bd:.4f} ms ({by}) [{card}]")
+        del blk, x, dr, xr, folded, yb, prods
+        torch.cuda.empty_cache()
+    return worst
+
+
 def phase_k3(torch, km, k3, dev, card: str) -> dict:
-    """K3 at the slice's shapes on the full latent head, and one odd shape."""
+    """K3 at M = 1, 15, 30, 120 and 240 on the full latent head, and one odd
+    shape; planted faults at each."""
     import torch.nn.functional as F
 
     from genconvit_tpu_torch.ops.quant import quantize_wint8
@@ -316,8 +420,10 @@ def phase_k3(torch, km, k3, dev, card: str) -> dict:
     odd = 0.01 * torch.randn(300, 1000, device=dev, generator=g)
     oq, osc = quantize_wint8(odd, dim=1)
     ob = 0.1 * torch.randn(300, device=dev, generator=g)
-    for m, (wq_, sc_, b_) in ((7, (oq, osc, ob)), (15, (wq, sc, b)), (30, (wq, sc, b)),
-                              (120, (wq, sc, b))):
+    # the odd shape, then the head at V = 1/15, 1, 2 and 8 videos and at 240
+    # rows (two x tiles' worth: the widest tile)
+    for m, (wq_, sc_, b_) in ((7, (oq, osc, ob)), (1, (wq, sc, b)), (15, (wq, sc, b)),
+                              (30, (wq, sc, b)), (120, (wq, sc, b)), (240, (wq, sc, b))):
         kk = wq_.shape[1]
         x = torch.randn(m, kk, device=dev, generator=g).to(torch.bfloat16)
         what = f"K3 M={m:3d} K={kk:5d} N={wq_.shape[0]:5d}"
@@ -359,7 +465,7 @@ def phase_kernels(torch, dev, card: str) -> list:
     from genconvit_tpu_torch.ops.norm import layer_norm
 
     g = torch.Generator(device=dev).manual_seed(1234)
-    k1_ms = k1_plain_ms = k1_graph_ms = k1_bound = 0.0
+    k1_ms = k1_plain_ms = k1_graph_ms = k1_lib_ms = k1_bound = 0.0
     k1_sides = []
     k1_err = 0.0
     k4acc = {m: {"err": 0.0, "ulps": 0.0, "planted_min": float("inf"), "shapes": []}
@@ -376,39 +482,15 @@ def phase_kernels(torch, dev, card: str) -> list:
                 folded = blk.fold()
                 rows = dr.numel() // c
                 ragged = int(rows % km.row_tile(c) != 0)
-                # x = 0: the output is bf16(o), the MLP branch alone
-                zero = torch.zeros_like(xr)
-                o_max = km.ln_mlp_residual_plain(dr, zero, folded).float().abs().max().item()
                 post_variants = [None]
                 if si < 3:
                     post_variants.append((
                         (1 + 0.1 * torch.randn(c, device=dev, generator=g)).float(),
                         (0.1 * torch.randn(c, device=dev, generator=g)).float()))
                 tiers = ("default", "hp") if (call, si) == ("ed", 1) else ("default",)
-                for post in post_variants:
-                    for tier in tiers:
-                        for xin in (xr, zero):
-                            what = (f"K1 {call:8s} s{si} R={rows:7d} C={c:3d} "
-                                    f"post_ln={int(post is not None)} gelu={tier:7s} "
-                                    f"x={'0' if xin is zero else 'randn'}")
-                            ref = km.ln_mlp_residual_plain(dr, xin, folded, post, tier)
-                            out = km.ln_mlp_residual(dr, xin, folded, post, tier)
-                            if post is None:   # out = x + bf16(o)
-                                err, rel, ulps = compare(torch, km, what, out, ref, xin, o_max)
-                            else:              # out = LN(x + o): the output's own scale
-                                err, rel, ulps = compare(torch, km, what, out, ref, None,
-                                                         ref.float().abs().max().item())
-                            k1_err = max(k1_err, err)
-                            log(f"{what} ragged={ragged} max|diff|={err:.3e} "
-                                f"rel={rel:.3e} ulps={ulps:.3f}")
-                if call == "ed":  # once per width: the check refuses a wrong MLP
-                    for xin in (xr, zero):
-                        ref = km.ln_mlp_residual_plain(dr, xin, folded)
-                        for name, bad in planted_folds(torch, km, blk).items():
-                            out = km.ln_mlp_residual(dr, xin, bad)
-                            log(f"  C={c} planted, x={'0' if xin is zero else 'randn'}: "
-                                + must_fail(torch, km, name, out, ref, xin, o_max))
-                del ref, out, zero
+                k1_err = max(k1_err, check_k1_shape(
+                    torch, km, f"K1 {call:8s} s{si} R={rows:7d} C={c:3d} ragged={ragged}", blk,
+                    dr, xr, post_variants, tiers, call == "ed"))
                 check_k4_shape(torch, km, k4, f"{call:8s} s{si} R={rows:7d} C={c:3d}", blk,
                                dr, xr, post_variants, tiers, call == "ed", k4acc)
 
@@ -419,22 +501,29 @@ def phase_kernels(torch, dev, card: str) -> list:
                     return xr + t * blk.gamma
 
                 iters = 20 if rows * c < 2e7 else 10
+                yb = torch.randn(rows, c, device=dev, generator=g).to(torch.bfloat16)
+                prods = two_products(torch, blk)
                 t_k = cuda_ms(torch, lambda: km.ln_mlp_residual(dr, xr, folded), iters)
                 t_p = cuda_ms(torch, lambda: km.ln_mlp_residual_plain(dr, xr, folded), iters)
                 t_g = cuda_ms(torch, graph_tail, iters)
+                t_l = cuda_ms(torch, lambda: prods(yb), iters)
+                del yb, prods
             bd, by = mlp_bound(rows, c, "")
             log(f"K1 time {call:8s} s{si} R={rows:7d} C={c:3d}: kernel {t_k:.4f} ms, "
-                f"plain {t_p:.4f} ms, plain bf16 graph {t_g:.4f} ms, bound {bd:.4f} ms "
-                f"({by}) [{card}]")
+                f"plain {t_p:.4f} ms, plain bf16 graph {t_g:.4f} ms, cuBLAS's two products "
+                f"{t_l:.4f} ms, bound {bd:.4f} ms ({by}) [{card}]")
             k1_bound += DEPTHS[si] * bd
             k1_sides.append((DEPTHS[si] * bd, by))
             k1_ms += DEPTHS[si] * t_k
             k1_plain_ms += DEPTHS[si] * t_p
             k1_graph_ms += DEPTHS[si] * t_g
+            k1_lib_ms += DEPTHS[si] * t_l
             del blk, x, d, dr, xr, folded
     log(f"K1 per V=8 ensemble forward (54 launches, depth-weighted): kernel "
         f"{k1_ms:.4f} ms, plain {k1_plain_ms:.4f} ms, plain bf16 graph "
-        f"{k1_graph_ms:.4f} ms, bound {k1_bound:.4f} ms [{card}]")
+        f"{k1_graph_ms:.4f} ms, cuBLAS's two products {k1_lib_ms:.4f} ms, bound "
+        f"{k1_bound:.4f} ms [{card}]")
+    k1_err = max(k1_err, phase_k1_wide(torch, km, dev, card, g))
     k4tot = {}
     for mode, rec in k4acc.items():
         tot = {"ms": 0.0, "plain_ms": 0.0, "k1_ms": 0.0, "bound_ms": 0.0}
@@ -492,7 +581,7 @@ def phase_kernels(torch, dev, card: str) -> list:
         {"name": "ln_mlp_residual", "route": "cuda",
          "source": "genconvit_tpu_torch/csrc/convnext_mlp.cu", "replaces": f"{mlp}:74",
          "launches": 0, "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms,
-         "bound_ms": k1_bound, "bound_by": "bytes", "library_ms": None},
+         "bound_ms": k1_bound, "bound_by": "bytes", "library_ms": k1_lib_ms},
         {"name": "layer_norm_rows", "route": "cuda",
          "source": "genconvit_tpu_torch/csrc/convnext_mlp.cu", "replaces": f"{mlp}:244",
          "launches": 0, "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms,
@@ -796,8 +885,10 @@ def make_plan(pallas: str, int8_mlp: str, int8_heads: bool):
     return KernelPlan(pallas=pallas, int8_mlp=int8_mlp, int8_heads=int8_heads)
 
 
-def expected_launches(kcuda, pallas: str, int8_mlp: str, int8_heads: bool) -> dict:
-    """Every kernel's launches in one ensemble forward of a configuration."""
+def expected_launches(kcuda, pallas: str, int8_mlp: str, int8_heads: bool,
+                       tails: int = 54) -> dict:
+    """Every kernel's launches in one ensemble forward of a configuration
+    (tails: block tails per forward, 54 for convnext_tiny)."""
     want = dict.fromkeys(kcuda.launch_counts(), 0)
     if pallas == "1":
         want["fused_convnext_block"] = K5_PER_FORWARD
@@ -805,21 +896,28 @@ def expected_launches(kcuda, pallas: str, int8_mlp: str, int8_heads: bool) -> di
         want["fused_convnext_stage"] = K6_PER_FORWARD
     else:
         want["layer_norm_rows"] = 3
-        want["ln_mlp_residual_int8" if int8_mlp else "ln_mlp_residual"] = 54
+        want["ln_mlp_residual_int8" if int8_mlp else "ln_mlp_residual"] = tails
     want["matmul_wint8"] = int(int8_heads)
     return want
 
 
-def phase_slice(torch, np, dev, card: str, cfg) -> tuple:
+def backbone_config(backbone: str):
+    from genconvit_tpu_torch.config import Config, ModelConfig
+
+    return Config(model=ModelConfig(backbone=backbone))
+
+
+def phase_slice(torch, np, dev, card: str, cfg, backbone: str = "convnext_tiny",
+                tails: int = 54) -> tuple:
     """The slice's requests through one Predictor of configuration cfg;
     every forward must launch exactly the kernels of its plan."""
     from genconvit_tpu_torch.infer.engine import Predictor
     from genconvit_tpu_torch.ops import cuda as kcuda
 
     name, pallas, int8_mlp, int8_heads = cfg
-    want = expected_launches(kcuda, pallas, int8_mlp, int8_heads)
+    want = expected_launches(kcuda, pallas, int8_mlp, int8_heads, tails)
     t0 = time.perf_counter()
-    pred = Predictor(net="genconvit", device=dev, seed=0,
+    pred = Predictor(backbone_config(backbone), net="genconvit", device=dev, seed=0,
                      kernel_plan=make_plan(pallas, int8_mlp, int8_heads))
     torch.cuda.synchronize()
     log(f"slice [{name}]: Predictor (random init on device, bf16, "
@@ -863,13 +961,15 @@ def phase_slice(torch, np, dev, card: str, cfg) -> tuple:
     return pred, totals, peak
 
 
-def phase_parity(torch, np, dev, card: str) -> dict:
+def phase_parity(torch, np, dev, card: str, configs=CONFIGS,
+                 backbone: str = "convnext_tiny") -> dict:
     """Each configuration vs the float32 plain path on the same weights."""
     from genconvit_tpu_torch.infer.aggregate import masked_prob_sums
     from genconvit_tpu_torch.infer.engine import Predictor
     from genconvit_tpu_torch.models.convnext import Block
 
-    base = Predictor(net="genconvit", device=dev, seed=1, dtype=torch.float32,
+    config = backbone_config(backbone)
+    base = Predictor(config, net="genconvit", device=dev, seed=1, dtype=torch.float32,
                      deterministic_vae=True, kernel_plan=make_plan("", "", False))
     g = torch.Generator(device=dev).manual_seed(7)
     with torch.no_grad():
@@ -908,10 +1008,11 @@ def phase_parity(torch, np, dev, card: str) -> dict:
     del base
     torch.cuda.empty_cache()
     y32, v32 = verdicts(m32)
-    log(f"parity: f32 plain class means {np.round(m32, 5).tolist()}")
+    log(f"parity [{backbone}]: f32 plain class means {np.round(m32, 5).tolist()}")
     out = {}
-    for name, pallas, int8_mlp, int8_heads in CONFIGS:
-        p16 = Predictor(net="genconvit", device=dev, params=params, deterministic_vae=True,
+    for name, pallas, int8_mlp, int8_heads in configs:
+        p16 = Predictor(config, net="genconvit", device=dev, params=params,
+                        deterministic_vae=True,
                         kernel_plan=make_plan(pallas, int8_mlp, int8_heads))
         m16 = means(p16)
         del p16
@@ -920,7 +1021,7 @@ def phase_parity(torch, np, dev, card: str) -> dict:
         tol = YVAL_TOL_INT8 if int8_mlp else YVAL_TOL
         dyv = float(np.abs(v16 - v32).max())
         decisive = np.abs(m32[:, 0] - m32[:, 1]) > 2 * tol
-        log(f"parity [{name}] vs f32 plain: class means {np.round(m16, 5).tolist()}; "
+        log(f"parity [{name}, {backbone}] vs f32 plain: class means {np.round(m16, 5).tolist()}; "
             f"max|dy_val| = {dyv:.3e} (limit {tol}); decisive videos "
             f"{int(decisive.sum())}/{v}, y {y16.tolist()} f32 {y32.tolist()} [{card}]")
         if not dyv <= tol:
@@ -931,6 +1032,22 @@ def phase_parity(torch, np, dev, card: str) -> dict:
             raise AssertionError(f"[{name}] y differs on a decisive video")
         out[name] = dyv
     return out
+
+
+def phase_large(torch, np, dev, card: str, profile: bool) -> dict:
+    """Phase 10: convnext_large (the JAX package's `--s large` backbone) at
+    full width and depth through the default plan: the requests with 108 K1
+    and 3 K2 launches per forward, parity against its float32 plain path,
+    throughput."""
+    cfg = CONFIGS[0]
+    pred, totals, peak = phase_slice(torch, np, dev, card, cfg, LARGE, LARGE_K1_PER_FORWARD)
+    rates = phase_throughput(torch, pred, dev, card, f"{cfg[0]}, {LARGE}")
+    if profile:
+        phase_profile(torch, pred, dev, card, f"{cfg[0]}, {LARGE}")
+    del pred
+    torch.cuda.empty_cache()
+    dyv = phase_parity(torch, np, dev, card, (cfg,), LARGE)[cfg[0]]
+    return dict(rates, launches=totals, peak_forward_gib=peak, dy_val=dyv)
 
 
 def phase_throughput(torch, pred, dev, card: str, name: str) -> dict:
@@ -1508,7 +1625,12 @@ def main() -> int:
     for line in info.log.splitlines():
         if "registers" in line or "spill" in line or "error" in line or "Compiling" in line:
             log(f"  ptxas: {line.strip()}")
-    log(f"K1 row tiles: {{C: rows}} = {{{', '.join(f'{c}: {km.row_tile(c)}' for c in DIMS)}}}")
+    for c in sorted({c for c in DIMS} | {c for _, _, c in K1_WIDE}):
+        plan, lib = km.mlp_plan(c), km.library_plan(c)
+        if plan != lib:
+            raise AssertionError(f"K1's plan mirror at C={c}: {plan}, the library's {lib}")
+        log(f"K1 plan C={c}: {tuple(plan)} (rows, group columns, stages, shared bytes), "
+            f"{plan.passes(c)} pass(es){', streamed' if plan.streams(c) else ', in turns'}")
     t = time.perf_counter()
     kernels = (phase_kernels(torch, dev, card) + phase_fused(torch, dev, card)
                + [phase_k7(torch, dev, card)])
@@ -1529,6 +1651,11 @@ def main() -> int:
     parity = phase_parity(torch, np, dev, card)
     log(f"phase 5: {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
+    large = phase_large(torch, np, dev, card, args.profile)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 10: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
     swin = phase_swin(torch, dev, card, args.profile)
     log(f"phase 8: {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
@@ -1541,6 +1668,10 @@ def main() -> int:
             f"{r['v1_sync_median_ms']:.2f} ms), peak device memory {r['peak_forward_gib']:.2f} "
             f"GiB over phase 4's forwards, {r['peak_v8_gib']:.2f} GiB at V=8; "
             f"max|dy_val| vs f32 plain {parity[name]:.3e} [{card}]")
+    log(f"summary [default, {LARGE}]: V=8 {large['v8_videos_s']:.2f} videos/s "
+        f"({large['v8_ms']:.2f} ms/launch), V=1 {large['v1_ms']:.2f} ms/launch, peak device "
+        f"memory {large['peak_v8_gib']:.2f} GiB at V=8; launches {large['launches']}; "
+        f"max|dy_val| vs f32 plain {large['dy_val']:.3e} [{card}]")
     for (pname, n), (rate, ms, peak) in swin["rates"].items():
         log(f"summary [swin_tiny {pname}] N={n}: {rate:.2f} images/s ({ms:.3f} ms/forward), "
             f"peak device memory {peak:.2f} GiB [{card}]")

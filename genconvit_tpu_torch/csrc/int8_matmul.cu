@@ -10,61 +10,112 @@
 // scales; the int8 -> bf16 conversion is exact.
 //
 // What bounds it on the card: the weight read. On the scoring path x is
-// [V*F, 25088] bf16 (M = 15..120) and wq is 25088 x 12544 int8 (315 MB):
-// at M = 120 the call moves 324 MB (0.097 ms at 3.35 TB/s) for 75.5 GFLOP
+// [V*F, 25088] (M = 15..120) and wq is 25088 x 12544 int8 (315 MB): at
+// M = 120 the call moves 324 MB (0.097 ms at 3.35 TB/s) for 75.5 GFLOP
 // (0.076 ms at the bf16 peak), and fewer rows only lower the flops.
 //
-// What the design does: every weight byte is read from device memory
-// exactly once, straight into the registers of the one warp that uses it.
-// A block owns 128 output columns (16 per warp) and one of S slices of K
-// (split-K, so that 12544 / 128 = 98 column strips still give every SM
-// blocks to stream with); each lane loads 16 contiguous weight bytes of its
-// column per 64-k block, 4 blocks ahead of the tensor cores (streaming
-// loads, so the weights do not evict x from L2). The k order inside a
-// 64-k block is permuted so that those 16 bytes are exactly the lane's
-// B fragments of four m16n8k16 steps, and x's A fragments are read with
-// the same permutation. x (at most 6 MB at M = 120, L2-resident) goes
-// through a 4-stage cp.async ring in shared memory shared by the 8 warps.
-// A block holds up to 64 rows; at M = 120 two blocks, launched side by
-// side, share each weight strip, the second reading it from L2. int8 converts to bf16 in registers and the
-// products run on mma.sync m16n8k16 (bf16 in, f32 sum). The S partial
-// sums go to an f32 workspace; a second, small kernel adds them in a fixed
-// order and applies scale and bias (deterministic). M, K and N need not
-// divide any tile: rows, columns and k past the ends are zero-filled or
-// masked; K % 16 != 0 takes a scalar-load variant.
+// What the design does: the operands are swapped, out^T = wq . x^T, so the
+// weights are wgmma's A operand, taken from registers, and x is its B
+// operand in shared memory with N = the rows of x rounded up to 16, 32, 64,
+// 128 or 256 (more rows tile over M). A block has three consumer warpgroups
+// (two at N = 256) of 64 weight rows each and a producer warpgroup, which
+// streams x while setmaxnreg moves most of its registers to the consumers.
+// Each consumer thread loads 16 contiguous weight bytes of each of its two
+// rows per 64-k block, 4 blocks ahead, with streaming loads, and converts
+// them in registers straight into the A fragments of four k16 steps: every
+// weight byte is read from device memory once and converted once for any
+// M <= 256. The conversion is exact and uses no float conversion
+// instruction: for a byte b, L = bf16 bits 0x4300 | (b & 0x7F) is
+// 128 + (b & 0x7F) and C = 0x4300 | (b & 0x80) is 128 or 256, and L - C = b
+// exactly; two bytes of one 32-bit word (bytes 0 and 2, or 1 and 3 after one
+// shift) sit in the two bf16 halves, so a pair costs two LOP3 and one
+// sub.bf16x2, plus half a shift: 3.5 instructions (a conversion through f32
+// spends two int-to-float conversions, shifts and a pack). Taking bytes 0
+// and 2 as one fragment pair permutes k inside each 64-k block; a small
+// first kernel writes x in that order, rounded to bf16 and zero-padded to
+// [M tiles, 64-k blocks], so the product kernel's x loads need no masks. The
+// producer warpgroup streams x's 64-k blocks (L2-resident, 6 MB at M = 120)
+// with cp.async into a 4-stage ring in the 128-byte-swizzled layout wgmma
+// reads, shared by the consumers under full / empty mbarriers; no
+// block-wide barrier in the loop. Split-K (sized from the occupancy to fill
+// the SMs' last wave) writes f32 partial sums; a last small kernel adds them
+// in split order and applies scale and bias (deterministic). M, K and N need
+// not divide any tile: weight rows past N and k past K read as zero
+// (K % 16 != 0 takes a scalar-load variant).
 
-#include "common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kBN = 16 * kWarps;   // output columns per block
-constexpr int kKB = 64;            // k per block step
-constexpr int kStages = 4;         // x ring in shared memory
-constexpr int kAhead = 4;          // weight k-blocks in registers ahead
-constexpr int kXld = kKB + 8;      // x row stride in shared memory (bf16)
+constexpr int kKB = 64;                      // k per block step
+constexpr int kStages = 4;                   // x ring in shared memory
+constexpr int kAhead = 4;                    // weight k-blocks in registers ahead
+constexpr int kMaxNw = 256;                  // x rows per tile at most
 
 struct W8Args {
-  const bf16* x;       // [M, K]
+  const bf16* xp;      // [m tiles * nw, kpad], permuted, zero-padded
   const int8_t* wq;    // [N, K]
   float* part;         // [S, M, N]
-  int m, k, n;
+  int m, k, n, kpad;
   int kb_per_split;    // 64-k blocks per split
 };
 
-__device__ __forceinline__ uint32_t s8x2_to_bf16x2(uint32_t w, int byte) {
-  const float lo = static_cast<float>(static_cast<int8_t>((w >> (8 * byte)) & 0xffu));
-  const float hi = static_cast<float>(static_cast<int8_t>((w >> (8 * byte + 8)) & 0xffu));
-  const bf162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
+// Consumer warpgroups per block: three, and two at the widest tile (128
+// accumulators a thread). A producer warpgroup follows them: it streams x,
+// and setmaxnreg hands most of its registers to the consumers.
+__host__ __device__ constexpr int wint8_wgs(int nw) { return nw == 256 ? 2 : 3; }
+__host__ __device__ constexpr int wint8_threads(int nw) { return 128 * wint8_wgs(nw) + 128; }
+
+// x rows per tile (wgmma N) for M rows.
+__host__ __device__ constexpr int wint8_nw(int m) {
+  return m <= 16 ? 16 : m <= 32 ? 32 : m <= 64 ? 64 : m <= 128 ? 128 : kMaxNw;
 }
 
-// 16 weight bytes of column row `wrow` from k0 on, zero past K or past N.
+// Position inside a 64-k block of the x element that k16 step s of the
+// product pairs with the weight in fragment position j (0..15): the
+// fragment's pair (2t, 2t+1) is bytes 0 and 2 of the lane's word s, the
+// pair (2t+8, 2t+9) bytes 1 and 3; the lane's 16 bytes start at 16t.
+__device__ __forceinline__ int wint8_phys(int s, int j) {
+  const int t = (j & 7) >> 1;
+  return 16 * t + 4 * s + (j >> 3) + 2 * (j & 1);
+}
+
+// xp[m, 64 kb + 16 s + j] = bf16(x[m, 64 kb + phys(s, j)]), zero outside x.
+template <typename T>
+__global__ void __launch_bounds__(256)
+wint8_prep_kernel(const T* __restrict__ x, bf16* __restrict__ xp, int m, int k, int mpad,
+                  int kpad) {
+  const long long q = static_cast<long long>(blockIdx.x) * 256 + threadIdx.x;
+  const int per_row = kpad / 8;
+  if (q >= static_cast<long long>(mpad) * per_row) return;
+  const int row = static_cast<int>(q / per_row);
+  const int c8 = static_cast<int>(q % per_row);
+  const int kb = c8 / 8;
+  const int s = (c8 % 8) / 2;
+  const int j0 = (c8 % 2) * 8;
+  __align__(16) bf16 v[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    const int kk = kb * kKB + wint8_phys(s, j0 + e);
+    float f = 0.0f;
+    if (row < m && kk < k) {
+      if constexpr (sizeof(T) == 4) {
+        f = x[static_cast<size_t>(row) * k + kk];
+      } else {
+        f = __bfloat162float(x[static_cast<size_t>(row) * k + kk]);
+      }
+    }
+    v[e] = __float2bfloat16_rn(f);
+  }
+  *reinterpret_cast<uint4*>(xp + static_cast<size_t>(row) * kpad + c8 * 8) =
+      *reinterpret_cast<const uint4*>(v);
+}
+
+// 16 weight bytes of row `wrow` from k0 on, zero past K or past N.
 template <bool VEC>
-__device__ __forceinline__ uint4 load_w16(const int8_t* wrow, bool col_ok, int k0, int k) {
+__device__ __forceinline__ uint4 load_w16(const int8_t* wrow, bool row_ok, int k0, int k) {
   uint4 v = make_uint4(0u, 0u, 0u, 0u);
-  if (!col_ok || k0 >= k) return v;
+  if (!row_ok || k0 >= k) return v;
   if (VEC) return __ldcs(reinterpret_cast<const uint4*>(wrow + k0));
   uint32_t w[4] = {0u, 0u, 0u, 0u};
 #pragma unroll
@@ -76,63 +127,78 @@ __device__ __forceinline__ uint4 load_w16(const int8_t* wrow, bool col_ok, int k
   return make_uint4(w[0], w[1], w[2], w[3]);
 }
 
-template <int MT, bool VEC>
-__global__ void __launch_bounds__(kThreads, 2)
+// bf16x2 of the int8 bytes 0 and 2 of w (low half from byte 0), exact.
+__device__ __forceinline__ uint32_t s8_even_to_bf16x2(uint32_t w) {
+  const uint32_t lo = (w & 0x007F007Fu) | 0x43004300u;   // 128 + (b & 127)
+  const uint32_t hi = (w & 0x00800080u) | 0x43004300u;   // 128, or 256 if b < 0
+  uint32_t d;
+  asm("sub.rn.bf16x2 %0, %1, %2;\n" : "=r"(d) : "r"(lo), "r"(hi));
+  return d;
+}
+
+template <int NW, bool VEC>
+__global__ void __launch_bounds__(wint8_threads(NW), 1)
 wint8_kernel(const W8Args a) {
-  constexpr int kRows = 16 * MT;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* xs = reinterpret_cast<bf16*>(smem);
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;
-  const int t = lane % 4;
-  const int m0 = blockIdx.x * kRows;
-  const int nkb_total = (a.k + kKB - 1) / kKB;
+  constexpr int kWgs = wint8_wgs(NW);
+  constexpr int kRows = 64 * kWgs;   // weight rows (outputs) per block
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  constexpr int kStageBytes = NW * 128;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kStages * kStageBytes);
+  uint64_t* empty = full + kStages;
+  const int nkb_total = a.kpad / kKB;
   const int kb0 = blockIdx.y * a.kb_per_split;
   const int nkb = min(a.kb_per_split, nkb_total - kb0);
   if (nkb <= 0) return;
-
-  // x k-block i of this split -> ring stage i % kStages, one copy group
-  auto load_x = [&](int i) {
-    if (i < nkb) {
-      bf16* dst = xs + (i % kStages) * kRows * kXld;
-      const int kbase = (kb0 + i) * kKB;
-      if (VEC) {
-        for (int c = threadIdx.x; c < kRows * (kKB / 8); c += kThreads) {
-          const int r = c / (kKB / 8);
-          const int q = c % (kKB / 8);
-          const int row = m0 + r;
-          const int kk = kbase + q * 8;
-          const bool ok = row < a.m && kk < a.k;
-          const bf16* src = ok ? a.x + static_cast<size_t>(row) * a.k + kk : a.x;
-          cp_async16_zfill(dst + r * kXld + q * 8, src, ok ? 16 : 0);
-        }
-      } else {
-        for (int c = threadIdx.x; c < kRows * kKB; c += kThreads) {
-          const int r = c / kKB;
-          const int q = c % kKB;
-          const int row = m0 + r;
-          const int kk = kbase + q;
-          dst[r * kXld + q] = (row < a.m && kk < a.k)
-                                  ? a.x[static_cast<size_t>(row) * a.k + kk]
-                                  : __float2bfloat16_rn(0.0f);
-        }
-      }
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 128);   // every producer thread
+      mbar_init(&empty[s], 4 * kWgs);
     }
-    cp_async_commit();
-  };
-#pragma unroll
-  for (int i = 0; i < kStages - 1; ++i) load_x(i);
+  }
+  __syncthreads();
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int m0 = blockIdx.z * NW;
 
-  // this lane's two weight columns (one per n8 tile) and its k offset
-  const int ncol0 = blockIdx.z * kBN + warp * 16 + g;
+  if (warp >= 4 * kWgs) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    // producer: x k-block i of this split -> ring stage i % kStages
+    const int pt = threadIdx.x - 128 * kWgs;
+    const bf16* src0 = a.xp + static_cast<size_t>(m0) * a.kpad + static_cast<size_t>(kb0) * kKB;
+    for (int i = 0; i < nkb; ++i) {
+      const int slot = i % kStages;
+      mbar_wait(&empty[slot], ((i / kStages) & 1) ^ 1);
+      unsigned char* dst = smem + slot * kStageBytes;
+      for (int c = pt; c < NW * 8; c += 128) {
+        const int r = c / 8;
+        const int ch = c % 8;
+        cp_async16(dst + r * 128 + ((ch ^ (r & 7)) << 4),
+                   src0 + static_cast<size_t>(r) * a.kpad + i * kKB + ch * 8);
+      }
+      mbar_arrive_cp_async(&full[slot]);
+    }
+    cp_async_wait<0>();
+    return;
+  }
+
+  // 2 x 128 x 232 + 128 x 40 and 3 x 128 x 152 + 128 x 40 registers fit the
+  // block's 65536 (168 and 128 a thread at launch)
+  if constexpr (NW == kMaxNw) {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 152;\n" ::: "memory");
+  }
+  // consumer: this thread's two weight rows (g and g + 8 of its warp's 16)
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int na = blockIdx.x * kRows + warp * 16 + g;
   const int8_t* wrow[2];
-  bool col_ok[2];
+  bool row_ok[2];
 #pragma unroll
   for (int j = 0; j < 2; ++j) {
-    const int n = ncol0 + 8 * j;
-    col_ok[j] = n < a.n;
-    wrow[j] = a.wq + static_cast<size_t>(col_ok[j] ? n : 0) * a.k;
+    row_ok[j] = na + 8 * j < a.n;
+    wrow[j] = a.wq + static_cast<size_t>(row_ok[j] ? na + 8 * j : 0) * a.k;
   }
   const int klane = t * 16;
   uint4 wbuf[kAhead][2];
@@ -140,86 +206,67 @@ wint8_kernel(const W8Args a) {
   for (int d = 0; d < kAhead; ++d) {
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
-      wbuf[d][j] = d < nkb ? load_w16<VEC>(wrow[j], col_ok[j], (kb0 + d) * kKB + klane, a.k)
+      wbuf[d][j] = d < nkb ? load_w16<VEC>(wrow[j], row_ok[j], (kb0 + d) * kKB + klane, a.k)
                            : make_uint4(0u, 0u, 0u, 0u);
     }
   }
-
-  float acc[MT][2][4];
+  float acc[NW / 2];
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0.0f;
+  for (int e = 0; e < NW / 2; ++e) acc[e] = 0.0f;
 
   for (int i0 = 0; i0 < nkb; i0 += kAhead) {
 #pragma unroll
     for (int d = 0; d < kAhead; ++d) {
       const int i = i0 + d;
       if (i >= nkb) break;
-      cp_async_wait<kStages - 2>();
-      __syncthreads();
-      load_x(i + kStages - 1);
-      const bf16* xst = xs + (i % kStages) * kRows * kXld;
-      // B fragments of the four k16 steps: step s uses word s of the
-      // lane's 16 bytes, bytes 0-1 as b0 and bytes 2-3 as b1, i.e. the
-      // lane's k positions 2t, 2t+1 | 2t+8, 2t+9 map to physical k
-      // 16t + 4s + {0, 1} | {2, 3}; A reads x with the same map.
-      uint32_t b[4][2][2];
+      // A fragments of the four k16 steps: step s takes word s of each row
+      uint32_t af[4][4];
+      const uint32_t wa[4] = {wbuf[d][0].x, wbuf[d][0].y, wbuf[d][0].z, wbuf[d][0].w};
+      const uint32_t wb[4] = {wbuf[d][1].x, wbuf[d][1].y, wbuf[d][1].z, wbuf[d][1].w};
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const uint32_t w4[4] = {wbuf[d][j].x, wbuf[d][j].y, wbuf[d][j].z, wbuf[d][j].w};
-#pragma unroll
-        for (int s = 0; s < 4; ++s) {
-          b[s][j][0] = s8x2_to_bf16x2(w4[s], 0);
-          b[s][j][1] = s8x2_to_bf16x2(w4[s], 2);
-        }
+      for (int s = 0; s < 4; ++s) {
+        af[s][0] = s8_even_to_bf16x2(wa[s]);
+        af[s][1] = s8_even_to_bf16x2(wb[s]);
+        af[s][2] = s8_even_to_bf16x2(wa[s] >> 8);
+        af[s][3] = s8_even_to_bf16x2(wb[s] >> 8);
       }
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
         wbuf[d][j] = (i + kAhead < nkb)
-                         ? load_w16<VEC>(wrow[j], col_ok[j], (kb0 + i + kAhead) * kKB + klane, a.k)
+                         ? load_w16<VEC>(wrow[j], row_ok[j], (kb0 + i + kAhead) * kKB + klane, a.k)
                          : make_uint4(0u, 0u, 0u, 0u);
       }
+      const int slot = i % kStages;
+      mbar_wait(&full[slot], (i / kStages) & 1);
+      fence_proxy_async();
+      const uint64_t desc = sw128_desc(smem + slot * kStageBytes);
+      wgmma_fence();
 #pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        // 16 bf16 of rows g and g+8 at k 16t..16t+15: 8 words each
-        const uint4* lo = reinterpret_cast<const uint4*>(xst + (mt * 16 + g) * kXld + klane);
-        const uint4* hi = reinterpret_cast<const uint4*>(xst + (mt * 16 + g + 8) * kXld + klane);
-        const uint4 l0 = lo[0], l1 = lo[1], h0 = hi[0], h1 = hi[1];
-        const uint32_t xl[8] = {l0.x, l0.y, l0.z, l0.w, l1.x, l1.y, l1.z, l1.w};
-        const uint32_t xh[8] = {h0.x, h0.y, h0.z, h0.w, h1.x, h1.y, h1.z, h1.w};
-#pragma unroll
-        for (int s = 0; s < 4; ++s) {
-#pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            mma_bf16_16816(acc[mt][j], xl[2 * s], xh[2 * s], xl[2 * s + 1], xh[2 * s + 1],
-                           b[s][j][0], b[s][j][1]);
-          }
-        }
+      for (int s = 0; s < 4; ++s) {
+        if constexpr (NW == 16) wgmma_rs_n16(acc, af[s], desc + 2 * s, 1);
+        else if constexpr (NW == 32) wgmma_rs_n32(acc, af[s], desc + 2 * s, 1);
+        else if constexpr (NW == 64) wgmma_rs_n64(acc, af[s], desc + 2 * s, 1);
+        else if constexpr (NW == 128) wgmma_rs_n128(acc, af[s], desc + 2 * s, 1);
+        else wgmma_rs_n256(acc, af[s], desc + 2 * s, 1);
       }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs<NW / 2>(acc);
+      if (lane == 0) mbar_arrive(&empty[slot]);
     }
   }
-  cp_async_wait<0>();
 
-  // partial sums of this split: d0, d1 (row g, columns 2t, 2t+1), d2, d3
-  // (row g+8)
+  // partial sums of this split: acc[4i + 2h + e] = out[m0 + 8i + 2t + e, na + 8h]
   float* part = a.part + static_cast<size_t>(blockIdx.y) * a.m * a.n;
-  const int nb = blockIdx.z * kBN + warp * 16 + 2 * t;
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
+  for (int i = 0; i < NW / 8; ++i) {
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = m0 + mt * 16 + g + 8 * h;
-      if (row >= a.m) continue;
+    for (int e = 0; e < 2; ++e) {
+      const int m = m0 + 8 * i + 2 * t + e;
+      if (m >= a.m) continue;
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int n = nb + 8 * j + e;
-          if (n < a.n) part[static_cast<size_t>(row) * a.n + n] = acc[mt][j][2 * h + e];
-        }
+      for (int h = 0; h < 2; ++h) {
+        if (row_ok[h]) part[static_cast<size_t>(m) * a.n + na + 8 * h] = acc[4 * i + 2 * h + e];
       }
     }
   }
@@ -227,11 +274,11 @@ wint8_kernel(const W8Args a) {
 
 // out = (sum over splits, in split order) * scale + bias, each op rounded
 // (no fused multiply-add), then bf16 or f32.
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(256)
 wint8_epilogue_kernel(const float* __restrict__ part, const float* __restrict__ scale,
                       const float* __restrict__ bias, void* out, int splits, int m, int n,
                       int out_f32) {
-  const long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  const long long i = static_cast<long long>(blockIdx.x) * 256 + threadIdx.x;
   const long long total = static_cast<long long>(m) * n;
   if (i >= total) return;
   const int col = static_cast<int>(i % n);
@@ -245,59 +292,77 @@ wint8_epilogue_kernel(const float* __restrict__ part, const float* __restrict__ 
   }
 }
 
-template <int MT, bool VEC>
-int launch_wint8(const W8Args& a, int splits, cudaStream_t stream) {
-  static size_t smem_configured = 0;
-  const size_t smem = static_cast<size_t>(kStages) * 16 * MT * kXld * sizeof(bf16);
-  if (smem > smem_configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        wint8_kernel<MT, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    smem_configured = smem;
+template <int NW, bool VEC>
+struct Wint8Launch {
+  static constexpr size_t smem = 1024 + static_cast<size_t>(kStages) * NW * 128 + 2 * kStages * 8;
+
+  // the dynamic shared-memory limit, raised once per instantiation
+  static int configure() {
+    static size_t configured = 0;
+    return raise_smem_limit(wint8_kernel<NW, VEC>, smem, &configured);
   }
-  // row tiles fastest: the blocks that stream the same weights run side by
-  // side, so all but the first read them from L2
-  const dim3 grid((a.m + 16 * MT - 1) / (16 * MT), splits, (a.n + kBN - 1) / kBN);
-  wint8_kernel<MT, VEC><<<grid, kThreads, smem, stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
+
+  // resident blocks per SM
+  static int blocks_per_sm() {
+    int occ = 1;
+    if (configure() != 0 ||
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, wint8_kernel<NW, VEC>,
+                                                      wint8_threads(NW), smem) != cudaSuccess ||
+        occ < 1) {
+      occ = 1;
+    }
+    return occ;
+  }
+
+  static int launch(const W8Args& a, int splits, cudaStream_t stream) {
+    const int err = configure();
+    if (err) return err;
+    const int rows = 64 * wint8_wgs(NW);
+    const dim3 grid((a.n + rows - 1) / rows, splits, (a.m + NW - 1) / NW);
+    wint8_kernel<NW, VEC><<<grid, wint8_threads(NW), smem, stream>>>(a);
+    return static_cast<int>(cudaGetLastError());
+  }
+};
+
+template <class F>
+auto with_tile(int m, bool vec, F f) {
+  switch (wint8_nw(m)) {
+    case 16: return vec ? f(Wint8Launch<16, true>{}) : f(Wint8Launch<16, false>{});
+    case 32: return vec ? f(Wint8Launch<32, true>{}) : f(Wint8Launch<32, false>{});
+    case 64: return vec ? f(Wint8Launch<64, true>{}) : f(Wint8Launch<64, false>{});
+    case 128: return vec ? f(Wint8Launch<128, true>{}) : f(Wint8Launch<128, false>{});
+    default: return vec ? f(Wint8Launch<kMaxNw, true>{}) : f(Wint8Launch<kMaxNw, false>{});
+  }
 }
 
-template <bool VEC>
-int launch_wint8_rows(const W8Args& a, int mt, int splits, cudaStream_t s) {
-  switch (mt) {
-    case 1: return launch_wint8<1, VEC>(a, splits, s);
-    case 2: return launch_wint8<2, VEC>(a, splits, s);
-    default: return launch_wint8<4, VEC>(a, splits, s);
-  }
-}
+bool wint8_vec(int k) { return k % 16 == 0; }
 
 }  // namespace
 
 extern "C" {
 
-// Row tiles (m16 tiles per block) K3 uses for M rows: 1, 2 or 4; more
-// rows take more blocks.
-int gcv_wint8_row_tiles(int m) {
-  const int need = (m + 15) / 16;
-  return need <= 1 ? 1 : need <= 2 ? 2 : 4;
+// Rows of the permuted x buffer K3 needs for M rows (M rounded up to its tile).
+int gcv_wint8_x_rows(int m) {
+  const int nw = wint8_nw(m);
+  return (m + nw - 1) / nw * nw;
 }
 
-// Split-K ways K3 uses: the count in 1..16 (no split left empty) whose
-// blocks fill the last wave best (132 SMs, 2 blocks per SM), with at least
-// one full wave where K allows. The
-// workspace holds splits * m * n floats.
+// Split-K ways K3 uses: the count in 1..32 (no split left empty) whose
+// blocks fill the last wave of resident blocks best, with at least one full
+// wave where K allows. The workspace holds splits * m * n floats.
 int gcv_wint8_splits(int m, int k, int n) {
-  const int mt = gcv_wint8_row_tiles(m);
-  const int strips = ((n + kBN - 1) / kBN) * ((m + 16 * mt - 1) / (16 * mt));
-  const int slots = 132 * 2;
+  const int nw = wint8_nw(m);
+  const int rows = 64 * wint8_wgs(nw);
+  const long long tiles = static_cast<long long>((n + rows - 1) / rows) * ((m + nw - 1) / nw);
+  const int per_sm = with_tile(m, wint8_vec(k), [](auto l) { return decltype(l)::blocks_per_sm(); });
+  const long long slots = static_cast<long long>(sm_count()) * per_sm;
   const int nkb = (k + kKB - 1) / kKB;
   int best = 1;
   double best_eff = -1.0;
-  for (int s = 1; s <= 16 && s <= nkb; ++s) {
+  for (int s = 1; s <= 32 && s <= nkb; ++s) {
     const int per = (nkb + s - 1) / s;
     if ((nkb + per - 1) / per != s) continue;   // a split would be empty
-    const long long blocks = static_cast<long long>(strips) * s;
+    const long long blocks = tiles * s;
     const long long waves = (blocks + slots - 1) / slots;
     double eff = static_cast<double>(blocks) / static_cast<double>(waves * slots);
     if (blocks < slots) eff *= 0.5;              // the card is not yet full
@@ -309,36 +374,46 @@ int gcv_wint8_splits(int m, int k, int n) {
   return best;
 }
 
-// K3. x [m, k] bf16, wq [n, k] int8, scale and bias [n] f32, work
-// [splits, m, n] f32 (splits from gcv_wint8_splits), out [m, n] bf16 or
-// (out_f32) f32. Two launches: the split-K product, then the epilogue.
+// K3. x [m, k] bf16 or (x_f32) f32, wq [n, k] int8, scale and bias [n] f32,
+// xp [gcv_wint8_x_rows(m), 64-multiple of k] bf16 scratch, work [splits, m,
+// n] f32 (splits from gcv_wint8_splits), out [m, n] bf16 or (out_f32) f32.
+// Three launches: x's permuted copy, the split-K product, the epilogue.
 int gcv_matmul_wint8(const void* x, const void* wq, const void* scale, const void* bias,
-                     void* work, void* out, int m, int k, int n, int out_f32,
-                     void* stream) {
+                     void* xp, void* work, void* out, int m, int k, int n, int x_f32,
+                     int out_f32, void* stream) {
   if (m <= 0 || n <= 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int splits = gcv_wint8_splits(m, k, n);
   const int nkb = (k + kKB - 1) / kKB;
+  const int kpad = nkb * kKB;
+  const int mpad = gcv_wint8_x_rows(m);
+  const long long chunks = static_cast<long long>(mpad) * kpad / 8;
+  const unsigned int pblocks = static_cast<unsigned int>((chunks + 255) / 256);
+  if (x_f32) {
+    wint8_prep_kernel<float><<<pblocks, 256, 0, s>>>(static_cast<const float*>(x),
+                                                     static_cast<bf16*>(xp), m, k, mpad, kpad);
+  } else {
+    wint8_prep_kernel<bf16><<<pblocks, 256, 0, s>>>(static_cast<const bf16*>(x),
+                                                    static_cast<bf16*>(xp), m, k, mpad, kpad);
+  }
+  int err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  const int splits = gcv_wint8_splits(m, k, n);
   W8Args a;
-  a.x = static_cast<const bf16*>(x);
+  a.xp = static_cast<const bf16*>(xp);
   a.wq = static_cast<const int8_t*>(wq);
   a.part = static_cast<float*>(work);
   a.m = m;
   a.k = k;
   a.n = n;
+  a.kpad = kpad;
   a.kb_per_split = (nkb + splits - 1) / splits;
-  const bool vec = k % 16 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(wq) % 16 == 0;
-  const int mt = gcv_wint8_row_tiles(m);
-  const int err = vec ? launch_wint8_rows<true>(a, mt, splits, s)
-                      : launch_wint8_rows<false>(a, mt, splits, s);
+  const bool vec = wint8_vec(k) && reinterpret_cast<uintptr_t>(wq) % 16 == 0;
+  err = with_tile(m, vec, [&](auto l) { return decltype(l)::launch(a, splits, s); });
   if (err) return err;
   const long long total = static_cast<long long>(m) * n;
-  wint8_epilogue_kernel<<<static_cast<unsigned int>((total + kThreads - 1) / kThreads),
-                          kThreads, 0, s>>>(static_cast<const float*>(work),
-                                            static_cast<const float*>(scale),
-                                            static_cast<const float*>(bias), out, splits, m, n,
-                                            out_f32);
+  wint8_epilogue_kernel<<<static_cast<unsigned int>((total + 255) / 256), 256, 0, s>>>(
+      static_cast<const float*>(work), static_cast<const float*>(scale),
+      static_cast<const float*>(bias), out, splits, m, n, out_f32);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -32,7 +32,8 @@ SOURCES = tuple(os.path.join(_PKG_DIR, "csrc", f) for f in
                  "convnext_block.cu", "convnext_stage.cu", "window_attn.cu",
                  "int8_dot.cu", "dw_moments.cu", "block_parts.cu"))
 HEADERS = tuple(os.path.join(_PKG_DIR, "csrc", f) for f in
-                ("common.cuh", "mlp_tile.cuh", "fused_block.cuh"))
+                ("common.cuh", "mlp_tile.cuh", "fused_block.cuh", "wgmma.cuh",
+                 "mlp_wgmma.cuh"))
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
                          "genconvit_tpu_torch")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -40,8 +41,8 @@ NVCC_FLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"
 
 _P = ctypes.c_void_p
 _SIGNATURES = {
-    # d, x, wg, bw, w2g, b2g, lns, lnb, out, rows, c, hp, stream
-    "gcv_ln_mlp_residual": ([_P] * 9 + [ctypes.c_longlong, ctypes.c_int,
+    # d, x, w1t, bw, w2t, b2g, lns, lnb, vbuf, out, rows, c, hp, stream
+    "gcv_ln_mlp_residual": ([_P] * 10 + [ctypes.c_longlong, ctypes.c_int,
                                         ctypes.c_int, _P], ctypes.c_int),
     # x, scale, bias, out, rows, c, stream
     "gcv_layer_norm_rows": ([_P] * 4 + [ctypes.c_longlong, ctypes.c_int, _P],
@@ -50,8 +51,8 @@ _SIGNATURES = {
     "gcv_ln_mlp_residual_int8": ([_P] * 12 + [ctypes.c_longlong, ctypes.c_int,
                                               ctypes.c_int, ctypes.c_int, _P],
                                  ctypes.c_int),
-    # x, wq, scale, bias, work, out, m, k, n, out_f32, stream
-    "gcv_matmul_wint8": ([_P] * 6 + [ctypes.c_int] * 4 + [_P], ctypes.c_int),
+    # x, wq, scale, bias, xp, work, out, m, k, n, x_f32, out_f32, stream
+    "gcv_matmul_wint8": ([_P] * 7 + [ctypes.c_int] * 5 + [_P], ctypes.c_int),
     # x, wdw, bdw, lns, lnb, w1, b1, w2, b2, gamma, out, n, h, w, c, stream
     "gcv_fused_block": ([_P] * 11 + [ctypes.c_int] * 4 + [_P], ctypes.c_int),
     # x, wdw, bdw, lns, lnb, w1, b1, w2, b2, gamma, ws, out, n, h, w, c, nb, stream
@@ -68,7 +69,8 @@ _SIGNATURES = {
     # M2: x, wdw, bdw, lns, lnb, w1, b1, w2, b2, gamma, out, n, h, w, c, phase, stream
     "gcv_block_parts": ([_P] * 11 + [ctypes.c_int] * 5 + [_P], ctypes.c_int),
     "gcv_wint8_splits": ([ctypes.c_int] * 3, ctypes.c_int),
-    "gcv_mlp_row_tile": ([ctypes.c_int], ctypes.c_int),
+    "gcv_wint8_x_rows": ([ctypes.c_int], ctypes.c_int),
+    "gcv_mlp_plan": ([ctypes.c_int, _P], ctypes.c_int),
     "gcv_error_string": ([ctypes.c_int], ctypes.c_char_p),
 }
 

@@ -18,6 +18,7 @@ source. The LayerNorm affine folds into fc1 and the layer scale into fc2
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -26,16 +27,75 @@ from genconvit_tpu_torch.ops.act import gelu_rational_f32
 from genconvit_tpu_torch.ops.cuda import _build
 
 LN_EPS = 1e-6
-MAX_C = 768  # the fc2 accumulator tile holds [16, 768] f32 at the widest
+MAX_C = 768  # K4, K5, K6 and M1: their fc2 accumulator tile holds [16, 768] f32
+K1_MAX_C = 1536  # K1 splits its fc2 sum into output-column groups (mlp_plan)
 ULP_TOL = 2.0  # kernel vs plain, elementwise, in bf16 ulps (bf16_ulp_error)
 
 
 class FoldedMLP(NamedTuple):
-    """A block's MLP with its LayerNorm affine and layer scale folded in."""
+    """A block's MLP with its LayerNorm affine and layer scale folded in.
+    K1 reads the two matrices transposed (K-major, as warpgroup MMA takes
+    its B operand): `fold_block_mlp` stores both layouts."""
     wg: torch.Tensor    # [C, 4C] compute dtype: ln_scale[:, None] * W1
     bw: torch.Tensor    # [4C] f32: ln_bias @ W1 + b1
     w2g: torch.Tensor   # [4C, C] compute dtype: W2 * gamma[None, :]
     b2g: torch.Tensor   # [C] f32: b2 * gamma
+    wgt: Optional[torch.Tensor] = None    # [4C, C]: wg transposed, contiguous
+    w2gt: Optional[torch.Tensor] = None   # [C, 4C]: w2g transposed, contiguous
+
+
+class MlpPlan(NamedTuple):
+    """K1's tile plan at one width (csrc/mlp_wgmma.cuh mlp_wgmma_plan)."""
+    rows: int     # rows per block: 128 (two warpgroups of 64) or 64 (shared)
+    cols: int     # output columns per fc2 group
+    stages: int   # weight ring stages
+    smem: int     # dynamic shared memory bytes
+
+    def passes(self, c: int) -> int:
+        """Passes over the hidden dimension per row tile (fc1 once each):
+        every group in turn with 128 rows, two groups at once with 64."""
+        groups = -(-c // self.cols)
+        return groups if self.rows == 128 else -(-groups // 2)
+
+    def streams(self, c: int) -> bool:
+        """Whether the ring is too short for a turn (all fc1 stages of a
+        chunk and its fc2 stages at once): then K1 streams stage by stage
+        and its two warpgroups take no turns at the tensor cores."""
+        kbs = 2 if self.cols < 128 else self.cols // 64
+        return self.stages < -(-((c + 63) // 64) // kbs) + (1 if self.rows == 128 else 2)
+
+
+_SMEM_MAX = 232448
+_SMEM_MISC = 1152   # mbarriers and the row sums of the post-LN
+
+
+def mlp_plan(c: int) -> Optional[MlpPlan]:
+    """K1's tile plan at width c, as the CUDA source computes it; None where
+    K1 does not take c (a multiple of 32 in [32, K1_MAX_C])."""
+    if c < 32 or c > K1_MAX_C or c % 32:
+        return None
+    rows = 128 if c <= 384 else 64
+    ybytes = rows * ((c + 63) // 64) * 128
+
+    def stage_bytes(nc):   # NC rows of 128 bytes, or the fc1 tiles of a stage
+        return max(nc * 128, (2 if nc < 128 else nc // 64) * 8192)
+
+    def stages(nc):
+        return min(8, (_SMEM_MAX - 1024 - ybytes - _SMEM_MISC) // stage_bytes(nc))
+
+    best = None
+    for nc in ((192, 128, 96) if rows == 128 else (192, 128)):
+        if stages(nc) < 2:
+            continue
+        groups = -(-c // nc)
+        cost = (groups if rows == 128 else -(-groups // 2) * 2) * nc
+        if best is None or cost < best[1]:
+            best = (nc, cost)
+    if best is None:
+        return None
+    nc = best[0]
+    st = stages(nc)
+    return MlpPlan(rows, nc, st, 1024 + ybytes + st * stage_bytes(nc) + _SMEM_MISC)
 
 
 def fold_block_mlp_f32(ln_scale, ln_bias, fc1_weight, fc1_bias, fc2_weight,
@@ -57,7 +117,9 @@ def fold_block_mlp(ln_scale, ln_bias, fc1_weight, fc1_bias, fc2_weight,
     """Fold in float32, then store the two matrices in `dtype`."""
     f = fold_block_mlp_f32(ln_scale, ln_bias, fc1_weight, fc1_bias, fc2_weight,
                            fc2_bias, gamma)
-    return f._replace(wg=f.wg.to(dtype).contiguous(), w2g=f.w2g.to(dtype).contiguous())
+    wg, w2g = f.wg.to(dtype), f.w2g.to(dtype)
+    return f._replace(wg=wg.contiguous(), w2g=w2g.contiguous(),
+                      wgt=wg.t().contiguous(), w2gt=w2g.t().contiguous())
 
 
 def _row_moments(v32: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -162,12 +224,15 @@ def ln_mlp_residual(dw: torch.Tensor, x: torch.Tensor, folded: FoldedMLP,
     _require(dw.is_cuda, what, f"unsupported device {dw.device}")
     _check_rows(what, dw, x)
     c = x.shape[-1]
-    _require(c <= MAX_C, what, f"C={c} exceeds {MAX_C}")
+    plan = mlp_plan(c)
+    _require(plan is not None, what, f"C={c} exceeds {K1_MAX_C}")
     _require(gelu in ("default", "hp"), what, f"no kernel GELU tier {gelu!r}")
+    _require(folded.wgt is not None and folded.w2gt is not None, what,
+             "the folds lack the transposed matrices (make them with fold_block_mlp)")
     dev = x.device
-    _check_vec(what, folded.wg, (c, 4 * c), torch.bfloat16, dev)
+    _check_vec(what, folded.wgt, (4 * c, c), torch.bfloat16, dev)
     _check_vec(what, folded.bw, (4 * c,), torch.float32, dev)
-    _check_vec(what, folded.w2g, (4 * c, c), torch.bfloat16, dev)
+    _check_vec(what, folded.w2gt, (c, 4 * c), torch.bfloat16, dev)
     _check_vec(what, folded.b2g, (c,), torch.float32, dev)
     lns = lnb = None
     if post_ln is not None:
@@ -175,14 +240,19 @@ def ln_mlp_residual(dw: torch.Tensor, x: torch.Tensor, folded: FoldedMLP,
         _check_vec(what, lns, (c,), torch.float32, dev)
         _check_vec(what, lnb, (c,), torch.float32, dev)
     out = torch.empty_like(x)
+    rows = x.numel() // c
+    # post-LN over more than one pass keeps x + o in float32 here
+    vbuf = (torch.empty((rows, c), dtype=torch.float32, device=dev)
+            if post_ln is not None and plan.passes(c) > 1 else None)
     lib = _build.load()
     with torch.cuda.device(dev):
         err = lib.gcv_ln_mlp_residual(
-            dw.data_ptr(), x.data_ptr(), folded.wg.data_ptr(),
-            folded.bw.data_ptr(), folded.w2g.data_ptr(), folded.b2g.data_ptr(),
+            dw.data_ptr(), x.data_ptr(), folded.wgt.data_ptr(),
+            folded.bw.data_ptr(), folded.w2gt.data_ptr(), folded.b2g.data_ptr(),
             None if lns is None else lns.data_ptr(),
             None if lnb is None else lnb.data_ptr(),
-            out.data_ptr(), x.numel() // c, c, int(gelu == "hp"), _stream(dev))
+            None if vbuf is None else vbuf.data_ptr(),
+            out.data_ptr(), rows, c, int(gelu == "hp"), _stream(dev))
     _build.check(err, what)
     ln_mlp_residual.launches += 1
     return out
@@ -217,5 +287,12 @@ layer_norm_rows.launches = 0
 
 
 def row_tile(c: int) -> int:
-    """Rows per block K1 uses at width c (loads the library)."""
-    return _build.load().gcv_mlp_row_tile(c)
+    """Rows per block K1 uses at width c."""
+    return mlp_plan(c).rows
+
+
+def library_plan(c: int) -> Optional[MlpPlan]:
+    """K1's tile plan as the built library computes it (loads the library);
+    the card tests hold `mlp_plan` against it."""
+    out = (ctypes.c_int * 4)()
+    return MlpPlan(*out) if _build.load().gcv_mlp_plan(c, out) else None

@@ -50,16 +50,18 @@ def matmul_wint8(x: torch.Tensor, wq: torch.Tensor, scale: torch.Tensor,
     _require(scale.dtype == torch.float32 and bias.dtype == torch.float32, what,
              "scale and bias must be float32")
     _require(x.is_contiguous(), what, "x must be contiguous")
-    xb = x if x.dtype == torch.bfloat16 else x.to(torch.bfloat16)
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     lib = _build.load()
-    splits = lib.gcv_wint8_splits(m, k, n)
-    work = torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
-        err = lib.gcv_matmul_wint8(xb.data_ptr(), wq.data_ptr(), scale.data_ptr(),
-                                   bias.data_ptr(), work.data_ptr(), out.data_ptr(),
-                                   m, k, n, int(x.dtype == torch.float32),
-                                   _stream(x.device))
+        splits = lib.gcv_wint8_splits(m, k, n)
+        # x in the kernel's k order, bf16, zero-padded to its row tile and 64-k blocks
+        xp = torch.empty((lib.gcv_wint8_x_rows(m), -(-k // 64) * 64), dtype=torch.bfloat16,
+                         device=x.device)
+        work = torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
+        f32 = int(x.dtype == torch.float32)
+        err = lib.gcv_matmul_wint8(x.data_ptr(), wq.data_ptr(), scale.data_ptr(),
+                                   bias.data_ptr(), xp.data_ptr(), work.data_ptr(),
+                                   out.data_ptr(), m, k, n, f32, f32, _stream(x.device))
     _build.check(err, what)
     matmul_wint8.launches += 1
     return out

@@ -1,0 +1,119 @@
+"""K1 and K3 of one checkout of the port, timed on the card, so that two
+checkouts (a change and its parent) can be compared in one session:
+
+    python3 genconvit_tpu_torch/tools/kernel_ab.py [--package-dir DIR] [--ptxas]
+
+DIR holds the genconvit_tpu_torch package to load (default: this checkout);
+unpack the parent with `git archive HEAD genconvit_tpu_torch` into a
+directory that .gitignore lists, and run parent, change, change, parent.
+Prints CUDA-event ms per launch of K1 (ln_mlp_residual) at the 12 block-tail
+shapes of a V=8 convnext_tiny ensemble forward and their depth-weighted sum,
+and of K3 (matmul_wint8) on the 25088 x 12544 latent head at M = 15, 30,
+120 beside F.linear on the bf16 head. With --ptxas, the build's ptxas
+register and spill lines of K5, K6 and M2 (the kernels on mlp_tile.cuh),
+anonymous-namespace hashes taken out, for a diff between two checkouts.
+Run it by path, not with -m: it chooses which package to import.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import re
+import sys
+
+CALLS = ((240, 224), (120, 224), (120, 112))   # ED, VAE x, VAE x_hat: images, px
+DIMS = (96, 192, 384, 768)
+DEPTHS = (3, 3, 9, 3)
+LATENT = (25088, 12544)
+
+
+def ptxas_lines(log: str) -> list:
+    """(entry, registers/spill line) of the mlp_tile.cuh kernels, hashes out."""
+    out, entry = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = re.sub(r"_GLOBAL__N__[0-9a-f_]+", "", m.group(1))
+            entry = name if re.search(r"fused_block|fused_stage|block_parts", name) else None
+        elif entry and ("registers" in line or "spill" in line):
+            out.append((entry, line.split("info    :")[-1].strip()))
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--package-dir", default=os.path.dirname(os.path.dirname(
+        os.path.dirname(os.path.abspath(__file__)))))
+    ap.add_argument("--ptxas", action="store_true")
+    args = ap.parse_args(argv)
+    pkg_dir = os.path.abspath(args.package_dir)
+    sys.path.insert(0, pkg_dir)
+    import torch
+    import torch.nn.functional as F
+
+    import genconvit_tpu_torch
+    from genconvit_tpu_torch.ops.cuda import _build
+    from genconvit_tpu_torch.ops.cuda import convnext_mlp as km
+    from genconvit_tpu_torch.ops.cuda import int8_matmul as k3
+    from genconvit_tpu_torch.ops.quant import quantize_wint8
+
+    if not torch.cuda.is_available():
+        print("kernel_ab: CUDA is not available", file=sys.stderr)
+        return 2
+    tag = os.path.relpath(os.path.dirname(os.path.dirname(genconvit_tpu_torch.__file__)))
+    dev = torch.device("cuda", 0)
+    info = _build.build()
+    print(f"[{tag}] build {info.seconds:.1f} s, {torch.cuda.get_device_name(0)}", flush=True)
+    if args.ptxas:
+        for entry, line in ptxas_lines(info.log):
+            print(f"[{tag}] ptxas {entry}: {line}")
+
+    def cuda_ms(fn, iters):
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(iters):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        return a.elapsed_time(b) / iters
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    total = 0.0
+    for n, px in CALLS:
+        for si, c in enumerate(DIMS):
+            rows = n * ((px // 4) >> si) ** 2
+
+            def r(*shape, s=1.0):
+                return s * torch.randn(*shape, device=dev, generator=g)
+            folded = km.fold_block_mlp(
+                1 + r(c, s=0.1), r(c, s=0.1), r(4 * c, c, s=c ** -0.5), r(4 * c, s=0.05),
+                r(c, 4 * c, s=(4 * c) ** -0.5), r(c, s=0.05),
+                0.1 + 0.9 * torch.rand(c, device=dev, generator=g), torch.bfloat16)
+            dw = (2 * r(rows, c)).to(torch.bfloat16)
+            x = r(rows, c).to(torch.bfloat16)
+            t = cuda_ms(lambda: km.ln_mlp_residual(dw, x, folded), 10)
+            total += DEPTHS[si] * t
+            print(f"[{tag}] K1 R={rows} C={c}: {t:.4f} ms", flush=True)
+            del folded, dw, x
+    print(f"[{tag}] K1 per V=8 forward (depth-weighted): {total:.4f} ms", flush=True)
+    k, n = LATENT
+    w16 = (0.01 * torch.randn(n, k, device=dev, generator=g)).to(torch.bfloat16)
+    wq, sc = quantize_wint8(w16, dim=1)
+    b = 0.1 * torch.randn(n, device=dev, generator=g)
+    b16 = b.to(torch.bfloat16)
+    for m in (15, 30, 120):
+        x = torch.randn(m, k, device=dev, generator=g).to(torch.bfloat16)
+        t = cuda_ms(lambda: k3.matmul_wint8(x, wq, sc, b), 20)
+        t_l = cuda_ms(lambda: F.linear(x, w16, b16), 20)
+        print(f"[{tag}] K3 M={m}: {t:.4f} ms, F.linear on the bf16 head {t_l:.4f} ms",
+              flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -114,6 +114,75 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         km.ln_mlp_residual(x, x.cpu(), folded)
 
 
+# K1 at every width of the repo's ConvNeXt configurations (convnext_tiny's,
+# base's and large's: up to C = 1536), at the row counts around its tile.
+_CFG_WIDTHS = (96, 128, 192, 256, 384, 512, 768, 1024, 1536)
+
+
+def _folded_args(c, dev, seed):
+    """The arguments of fold_block_mlp for one random block, as _folded draws them."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def r(*shape, s=1.0):
+        return s * torch.randn(*shape, device=dev, generator=g)
+    return [1 + r(c, s=0.1), r(c, s=0.1), r(4 * c, c, s=c ** -0.5), r(4 * c, s=0.05),
+            r(c, 4 * c, s=(4 * c) ** -0.5), r(c, s=0.05),
+            0.1 + 0.9 * torch.rand(c, device=dev, generator=g)]
+
+
+@pytest.mark.parametrize("post_ln", [False, True])
+@pytest.mark.parametrize("c", _CFG_WIDTHS)
+def test_k1_at_every_convnext_width(dev, c, post_ln):
+    args = _folded_args(c, dev, 500 + c)
+    folded = km.fold_block_mlp(*args, torch.bfloat16)
+    g = torch.Generator(device=dev).manual_seed(600 + c + post_ln)
+    tile = km.library_plan(c).rows
+    post = None
+    if post_ln:
+        post = ((1 + 0.1 * torch.randn(c, device=dev, generator=g)).float(),
+                (0.1 * torch.randn(c, device=dev, generator=g)).float())
+    for rows in (1, tile - 1, tile + 1, 19 * tile + 37):
+        dw = (2 * torch.randn(rows, c, device=dev, generator=g)).to(torch.bfloat16)
+        x = torch.randn(rows, c, device=dev, generator=g).to(torch.bfloat16)
+        zero = torch.zeros_like(x)
+        o_max = _branch_max(dw, folded)
+        for xin in (x, zero):
+            before = km.ln_mlp_residual.launches
+            out = km.ln_mlp_residual(dw, xin, folded, post)
+            torch.cuda.synchronize()
+            assert km.ln_mlp_residual.launches == before + 1
+            ref = km.ln_mlp_residual_plain(dw, xin, folded, post)
+            if post_ln:
+                assert _agrees(out, ref, None, ref.float().abs().max().item()), (rows, xin is zero)
+            else:
+                assert _agrees(out, ref, xin, o_max), (rows, xin is zero)
+    # planted faults at the ragged large count (x = 0, the residual
+    # epilogue, as chip_smoke.py plants them): fc2 bias, LN-bias fold and
+    # layer scale dropped
+    ref = km.ln_mlp_residual_plain(dw, zero, folded)
+    no_lnb, no_gamma = list(args), list(args)
+    no_lnb[1] = torch.zeros_like(args[1])
+    no_gamma[6] = torch.ones_like(args[6])
+    for bad in (folded._replace(b2g=torch.zeros_like(folded.b2g)),
+                km.fold_block_mlp(*no_lnb, torch.bfloat16),
+                km.fold_block_mlp(*no_gamma, torch.bfloat16)):
+        assert not _agrees(km.ln_mlp_residual(dw, zero, bad), ref, zero, o_max)
+
+
+def test_k1_tile_plan_mirror_matches_the_library(dev):
+    for c in range(0, 1600, 16):
+        assert km.mlp_plan(c) == km.library_plan(c), c
+
+
+def test_k1_refuses_widths_past_its_plan(dev):
+    g = torch.Generator(device=dev).manual_seed(9)
+    for c in (1568, 80):
+        x = torch.zeros(4, c, device=dev, dtype=torch.bfloat16)
+        folded = _folded(96, dev, g)
+        with pytest.raises(ValueError):
+            km.ln_mlp_residual(x, x, folded)
+
+
 # K3 and K4 (the int8 configuration). K4 is held within k4.ULP_TOL bf16
 # ulps: K1's two rounding flips plus one int8 step (convnext_mlp_int8).
 
@@ -190,6 +259,39 @@ def test_k3_matches_plain(dev, m, k, n):
     # planted faults: bias dropped, scale by its mean
     assert not _agrees(k3.matmul_wint8(x, wq, s, torch.zeros_like(b)), ref)
     assert not _agrees(k3.matmul_wint8(x, wq, s.mean().expand_as(s).contiguous(), b), ref)
+
+
+# K3 at the row counts of every x tile (16 .. 256 rows, and past 256), with
+# K and N off every 64-multiple: K = 2064 takes the 16-byte weight loads,
+# K = 1000 the byte loads.
+@pytest.mark.parametrize("m,k,n", [(1, 2064, 520), (15, 1000, 300), (30, 2064, 520),
+                                   (120, 2064, 130), (129, 1000, 200), (240, 2064, 520),
+                                   (300, 1000, 70)])
+def test_k3_at_every_row_tile(dev, m, k, n):
+    from genconvit_tpu_torch.ops.cuda import int8_matmul as k3
+    from genconvit_tpu_torch.ops.quant import quantize_wint8
+
+    g = torch.Generator(device=dev).manual_seed(7 * m + k + n)
+    wq, s = quantize_wint8(0.02 * torch.randn(n, k, device=dev, generator=g), dim=1)
+    b = 0.1 * torch.randn(n, device=dev, generator=g)
+    x = torch.randn(m, k, device=dev, generator=g).to(torch.bfloat16)
+    before = k3.matmul_wint8.launches
+    out = k3.matmul_wint8(x, wq, s, b)
+    torch.cuda.synchronize()
+    assert k3.matmul_wint8.launches == before + 1
+    ref = k3.matmul_wint8_plain(x, wq, s, b)
+    assert out.shape == (m, n) and _agrees(out, ref)
+    ref32 = k3.matmul_wint8_plain(x.float(), wq, s, b)
+    assert ((k3.matmul_wint8(x.float(), wq, s, b) - ref32).abs().max()
+            / ref32.abs().max()).item() <= 1e-5
+    # planted faults: bias dropped, scale by its mean, one weight row's
+    # bytes reversed in k (a wrong k order would pass any check that
+    # multiplies by a k-constant x)
+    assert not _agrees(k3.matmul_wint8(x, wq, s, torch.zeros_like(b)), ref)
+    assert not _agrees(k3.matmul_wint8(x, wq, s.mean().expand_as(s).contiguous(), b), ref)
+    flipped = wq.clone()
+    flipped[n // 2] = wq[n // 2].flip(0)
+    assert not _agrees(k3.matmul_wint8(x, flipped, s, b), ref)
 
 
 def test_int8_wrappers_raise_on_what_the_kernels_do_not_take(dev):
