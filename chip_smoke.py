@@ -13,9 +13,9 @@ Phases (any failed check raises and the exit code is non-zero):
   3. kernels vs their plain PyTorch versions in bf16, at every shape the
      scoring path gives them (K1 and K4 in both int8 modes at the 12
      backbone-call x stage shapes, with the post-LN variant at stages 0-2,
-     and with x = 0, where the output is the MLP branch alone; K1 also at
-     the widths past convnext_tiny's: convnext_large's 192, 384, 768 and
-     1536 and convnext_base's 1024, at the ED call's rows; K2 at the three
+     and with x = 0, where the output is the MLP branch alone; K1 and K4
+     also at the widths past convnext_tiny's: convnext_large's 192, 384, 768
+     and 1536 and convnext_base's 1024, at the ED call's rows; K2 at the three
      stem LNs; K3 at M = 1, 15, 30, 120 and 240 on the 25088x12544 head and
      at one odd shape); pass: max|diff| / max|ref| <= 3e-2 and every element
      within 2 bf16 ulps (3 for K4: one int8 step, see convnext_mlp_int8),
@@ -26,9 +26,12 @@ Phases (any failed check raises and the exit code is non-zero):
      event times of kernel and plain version, of the plain bf16 graph (K1),
      of K1 at K4's shapes, and of the one PyTorch call that computes the
      same function where there is one (F.layer_norm for K2, F.linear on
-     the bf16 head for K3, cuBLAS's two bf16 products at hid = 4C for K1),
+     the bf16 head for K3, cuBLAS's two bf16 products at hid = 4C for K1,
+     torch._int_mm then torch._int_mm ('full') or a bf16 torch.matmul
+     ('fc1') for K4),
      beside the bound at the H100's published peaks; K1's tile plan as the
-     library computes it against its Python mirror, at every width;
+     library computes it against its Python mirror, at every width, and
+     K4's in both modes;
      K5 at its five path shapes and K6 at its five chains (pallas '1' and
      'stage'), held the same way, K6 block by block (the chain cut after
      block k against the plain block k on the kernel's own input, each
@@ -99,11 +102,12 @@ Phases (any failed check raises and the exit code is non-zero):
 
   10. convnext_large (the JAX package's `--s large` backbone: dims
      192/384/768/1536, depths 3/3/27/3) at full width and depth, 224 px,
-     random weights from a seed, through the default plan: the requests of
-     phase 4 with 108 K1 and 3 K2 launches per forward, throughput as in
-     phase 6 (with --profile, its breakdown too), and parity against its
-     float32 plain path as in phase 5 (max|dy_val| <= 2e-2). It runs after
-     phase 5.
+     random weights from a seed, through the default plan and through int8
+     heads + int8_mlp='full': the requests of phase 4 with 108 K1 (or K4)
+     and 3 K2 launches per forward (and K3's one), throughput as in phase 6
+     (with --profile, the default plan's breakdown too), and parity against
+     its float32 plain path as in phase 5 (max|dy_val| <= 2e-2, 4e-2 with
+     the int8 tails). It runs after phase 5.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Without CUDA it exits non-zero at once.
@@ -148,7 +152,8 @@ K7_PER_FORWARD = (12, 5)   # swin_tiny at 224 px: launches, of them with a mask
 K1_WIDE = (("large", 0, 192), ("large", 1, 384), ("large", 2, 768), ("large", 3, 1536),
            ("base", 3, 1024))
 LARGE = "convnext_large"
-LARGE_K1_PER_FORWARD = 108   # 36 blocks x 3 backbone calls
+LARGE_K1_PER_FORWARD = 108   # 36 blocks x 3 backbone calls (K1, or K4 under int8_mlp)
+LARGE_CONFIGS = (CONFIGS[0], CONFIGS[3])   # default; int8 heads + int8_mlp='full'
 M1_TOOL_SHAPE = (240, 56, 128)   # the JAX tools' default n, h, c: M1 (hid 3c) ...
 M3_TOOL_SHAPE = (240, 56, 96)    # ... and M3 (C unpadded)
 
@@ -257,6 +262,21 @@ def two_products(torch, blk):
     return lambda y: torch.matmul(torch.matmul(y, w1), w2)
 
 
+def k4_products(torch, folded, rows: int, c: int, dev, g):
+    """K4's two products at its shapes as one PyTorch call each, the [R, 4C]
+    hidden through device memory: torch._int_mm (s8 x s8 -> s32) for fc1,
+    then torch._int_mm again ('full') or a bf16 torch.matmul ('fc1') for
+    fc2, on a hidden made beforehand: K4's library yardstick."""
+    yq = torch.randint(-127, 128, (rows, c), device=dev, generator=g, dtype=torch.int8)
+    w1 = folded.wq1.t()
+    if folded.mode == "full":
+        hq = torch.randint(-127, 128, (rows, 4 * c), device=dev, generator=g, dtype=torch.int8)
+        w2 = folded.wq2.t()
+        return lambda: (torch._int_mm(yq, w1), torch._int_mm(hq, w2))
+    hb = torch.randn(rows, 4 * c, device=dev, generator=g).to(torch.bfloat16)
+    return lambda: (torch._int_mm(yq, w1), torch.matmul(hb, folded.w2g))
+
+
 def check_k1_shape(torch, km, what, blk, dr, xr, posts, tiers, planted) -> float:
     """K1 against its plain version at one shape: every post-LN variant and
     GELU tier, with x and with x = 0 (the MLP branch alone), and the planted
@@ -317,10 +337,11 @@ def planted_int8(torch, k4, blk, folded, mode: str) -> dict:
                 s1=folded.s1.mean().expand_as(folded.s1).contiguous())}
 
 
-def check_k4_shape(torch, km, k4, tag, blk, dr, xr, posts, tiers, planted, acc) -> None:
+def check_k4_shape(torch, km, k4, tag, blk, dr, xr, posts, tiers, planted, acc, g) -> None:
     """K4 in both modes at one (call, stage) shape against its plain
     version, as K1: with and without the post-LN, x and x = 0; the planted
-    faults when asked; times of kernel, plain and K1 at the shape."""
+    faults when asked; times of kernel, plain, K1 and the library's two
+    products (k4_products) at the shape."""
     c = xr.shape[-1]
     zero = torch.zeros_like(xr)
     for mode in k4.MODES:
@@ -351,23 +372,29 @@ def check_k4_shape(torch, km, k4, tag, blk, dr, xr, posts, tiers, planted, acc) 
                                                    km.bf16_ulp_error(out, ref, xin, o_max))
                     log(f"  K4 {mode} C={c} planted, x={'0' if xin is zero else 'randn'}: {msg}")
         iters = 20 if dr.numel() < 2e7 else 10
+        rows = dr.numel() // c
         t_k = cuda_ms(torch, lambda: k4.ln_mlp_residual_int8(dr, xr, folded), iters)
         t_p = cuda_ms(torch, lambda: k4.ln_mlp_residual_int8_plain(dr, xr, folded), 3, 1)
         f1 = blk.fold()
         t_1 = cuda_ms(torch, lambda: km.ln_mlp_residual(dr, xr, f1), iters)
-        b, by = mlp_bound(dr.numel() // c, c, mode)
-        acc[mode]["shapes"].append((tag, t_k, t_p, t_1, b, by))
-        del folded, f1
+        prods = k4_products(torch, folded, rows, c, dr.device, g)
+        t_l = cuda_ms(torch, prods, iters)
+        b, by = mlp_bound(rows, c, mode)
+        acc[mode]["shapes"].append((tag, t_k, t_p, t_1, t_l, b, by))
+        del folded, f1, prods
 
 
-def phase_k1_wide(torch, km, dev, card: str, g) -> float:
-    """K1 at the widths past convnext_tiny's (K1_WIDE), at the ED call's rows
-    for each: held as at the tiny shapes (post-LN where the stage has one,
-    x = 0, the planted faults) and timed beside its plain version, cuBLAS's
-    two products and the bound. Returns the largest max|diff|."""
+def phase_k1_wide(torch, km, k4, dev, card: str, g) -> tuple:
+    """K1 and K4 (both modes) at the widths past convnext_tiny's (K1_WIDE),
+    at the ED call's rows for each: held as at the tiny shapes (post-LN where
+    the stage has one, x = 0, the planted faults) and timed beside their
+    plain versions, the library's products and the bound. Returns K1's
+    largest max|diff| and K4's record of these shapes."""
     from genconvit_tpu_torch.models.convnext import CONVNEXT_CFGS, _nhwc
 
     worst = 0.0
+    k4acc = {m: {"err": 0.0, "ulps": 0.0, "planted_min": float("inf"), "shapes": []}
+             for m in k4.MODES}
     for name, si, c in K1_WIDE:
         if CONVNEXT_CFGS[f"convnext_{name}"]["dims"][si] != c:
             raise AssertionError(f"convnext_{name} stage {si} is not C={c}")
@@ -387,6 +414,8 @@ def phase_k1_wide(torch, km, dev, card: str, g) -> float:
             worst = max(worst, check_k1_shape(
                 torch, km, f"K1 {name:5s} s{si} R={rows:7d} C={c:4d} ragged="
                 f"{int(rows % plan.rows != 0)}", blk, dr, xr, posts, ("default",), True))
+            check_k4_shape(torch, km, k4, f"{name:5s} s{si} R={rows:7d} C={c:4d}", blk, dr, xr,
+                           posts, ("default",), True, k4acc, g)
             folded = blk.fold()
             yb = torch.randn(rows, c, device=dev, generator=g).to(torch.bfloat16)
             prods = two_products(torch, blk)
@@ -400,7 +429,7 @@ def phase_k1_wide(torch, km, dev, card: str, g) -> float:
             f"{bd:.4f} ms ({by}) [{card}]")
         del blk, x, dr, xr, folded, yb, prods
         torch.cuda.empty_cache()
-    return worst
+    return worst, k4acc
 
 
 def phase_k3(torch, km, k3, dev, card: str) -> dict:
@@ -492,7 +521,7 @@ def phase_kernels(torch, dev, card: str) -> list:
                     torch, km, f"K1 {call:8s} s{si} R={rows:7d} C={c:3d} ragged={ragged}", blk,
                     dr, xr, post_variants, tiers, call == "ed"))
                 check_k4_shape(torch, km, k4, f"{call:8s} s{si} R={rows:7d} C={c:3d}", blk,
-                               dr, xr, post_variants, tiers, call == "ed", k4acc)
+                               dr, xr, post_variants, tiers, call == "ed", k4acc, g)
 
                 def graph_tail():
                     t = layer_norm(dr, blk.norm.weight, blk.norm.bias, 1e-6)
@@ -523,22 +552,33 @@ def phase_kernels(torch, dev, card: str) -> list:
         f"{k1_ms:.4f} ms, plain {k1_plain_ms:.4f} ms, plain bf16 graph "
         f"{k1_graph_ms:.4f} ms, cuBLAS's two products {k1_lib_ms:.4f} ms, bound "
         f"{k1_bound:.4f} ms [{card}]")
-    k1_err = max(k1_err, phase_k1_wide(torch, km, dev, card, g))
+    k1_wide_err, k4wide = phase_k1_wide(torch, km, k4, dev, card, g)
+    k1_err = max(k1_err, k1_wide_err)
     k4tot = {}
     for mode, rec in k4acc.items():
-        tot = {"ms": 0.0, "plain_ms": 0.0, "k1_ms": 0.0, "bound_ms": 0.0}
-        for i, (tag, t_k, t_p, t_1, bd, by) in enumerate(rec["shapes"]):
+        tot = {"ms": 0.0, "plain_ms": 0.0, "k1_ms": 0.0, "lib_ms": 0.0, "bound_ms": 0.0}
+        for i, (tag, t_k, t_p, t_1, t_l, bd, by) in enumerate(rec["shapes"]):
             depth = DEPTHS[i % 4]
             tot["ms"] += depth * t_k
             tot["plain_ms"] += depth * t_p
             tot["k1_ms"] += depth * t_1
+            tot["lib_ms"] += depth * t_l
             tot["bound_ms"] += depth * bd
             log(f"K4 {mode:4s} time {tag}: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, K1 "
-                f"{t_1:.4f} ms, bound {bd:.4f} ms ({by}) [{card}]")
+                f"{t_1:.4f} ms, library's two products {t_l:.4f} ms, bound {bd:.4f} ms ({by}) "
+                f"[{card}]")
+        for tag, t_k, t_p, t_1, t_l, bd, by in k4wide[mode]["shapes"]:
+            log(f"K4 {mode:4s} time {tag}: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, K1 "
+                f"{t_1:.4f} ms, library's two products {t_l:.4f} ms, bound {bd:.4f} ms ({by}) "
+                f"[{card}]")
+        rec["err"] = max(rec["err"], k4wide[mode]["err"])
+        rec["ulps"] = max(rec["ulps"], k4wide[mode]["ulps"])
+        rec["planted_min"] = min(rec["planted_min"], k4wide[mode]["planted_min"])
         log(f"K4 {mode} per V=8 ensemble forward (54 launches, depth-weighted): kernel "
             f"{tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, K1 {tot['k1_ms']:.4f} ms, "
-            f"bound {tot['bound_ms']:.4f} ms; max ulps {rec['ulps']:.3f} (limit "
-            f"{k4.ULP_TOL}); planted faults >= {rec['planted_min']:.1f} ulps [{card}]")
+            f"library's two products {tot['lib_ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms; "
+            f"max ulps {rec['ulps']:.3f} (limit {k4.ULP_TOL}, every width); planted faults >= "
+            f"{rec['planted_min']:.1f} ulps [{card}]")
         k4tot[mode] = tot
 
     k2_ms = k2_plain_ms = k2_lib_ms = k2_bound = 0.0
@@ -599,10 +639,10 @@ def phase_kernels(torch, dev, card: str) -> list:
              "source": "genconvit_tpu_torch/csrc/convnext_mlp_int8.cu",
              "replaces": f"{mlp}:{line}", "launches": 0,
              "max_abs_err": k4acc[mode]["err"], "ms": tot["ms"], "plain_ms": tot["plain_ms"],
-             "bound_ms": tot["bound_ms"], "bound_by": "bytes", "library_ms": None})
+             "bound_ms": tot["bound_ms"], "bound_by": "bytes", "library_ms": tot["lib_ms"]})
     rec[0]["bound_by"] = side(k1_sides)
     for r, mode in ((rec[3], "fc1"), (rec[4], "full")):
-        r["bound_by"] = side([(DEPTHS[i % 4] * sh[4], sh[5])
+        r["bound_by"] = side([(DEPTHS[i % 4] * sh[5], sh[6])
                               for i, sh in enumerate(k4acc[mode]["shapes"])])
     return rec
 
@@ -1036,18 +1076,26 @@ def phase_parity(torch, np, dev, card: str, configs=CONFIGS,
 
 def phase_large(torch, np, dev, card: str, profile: bool) -> dict:
     """Phase 10: convnext_large (the JAX package's `--s large` backbone) at
-    full width and depth through the default plan: the requests with 108 K1
-    and 3 K2 launches per forward, parity against its float32 plain path,
-    throughput."""
-    cfg = CONFIGS[0]
-    pred, totals, peak = phase_slice(torch, np, dev, card, cfg, LARGE, LARGE_K1_PER_FORWARD)
-    rates = phase_throughput(torch, pred, dev, card, f"{cfg[0]}, {LARGE}")
-    if profile:
-        phase_profile(torch, pred, dev, card, f"{cfg[0]}, {LARGE}")
-    del pred
-    torch.cuda.empty_cache()
-    dyv = phase_parity(torch, np, dev, card, (cfg,), LARGE)[cfg[0]]
-    return dict(rates, launches=totals, peak_forward_gib=peak, dy_val=dyv)
+    full width and depth through the default plan and through int8 heads +
+    int8_mlp='full': the requests with 108 K1 (or K4) and 3 K2 launches per
+    forward (and K3's one), throughput, parity of both against one float32
+    plain path. Returns each configuration's record."""
+    import gc
+
+    out = {}
+    for cfg in LARGE_CONFIGS:
+        pred, totals, peak = phase_slice(torch, np, dev, card, cfg, LARGE, LARGE_K1_PER_FORWARD)
+        rates = phase_throughput(torch, pred, dev, card, f"{cfg[0]}, {LARGE}")
+        if profile and cfg[0] == "default":
+            phase_profile(torch, pred, dev, card, f"{cfg[0]}, {LARGE}")
+        del pred
+        gc.collect()
+        torch.cuda.empty_cache()
+        out[cfg[0]] = dict(rates, launches=totals, peak_forward_gib=peak)
+    dyv = phase_parity(torch, np, dev, card, LARGE_CONFIGS, LARGE)
+    for name, rec in out.items():
+        rec["dy_val"] = dyv[name]
+    return out
 
 
 def phase_throughput(torch, pred, dev, card: str, name: str) -> dict:
@@ -1615,6 +1663,7 @@ def main() -> int:
 
     from genconvit_tpu_torch.ops.cuda import _build
     from genconvit_tpu_torch.ops.cuda import convnext_mlp as km
+    from genconvit_tpu_torch.ops.cuda import convnext_mlp_int8 as k4
 
     dev = torch.device("cuda", 0)
     t_all = time.perf_counter()
@@ -1631,6 +1680,13 @@ def main() -> int:
             raise AssertionError(f"K1's plan mirror at C={c}: {plan}, the library's {lib}")
         log(f"K1 plan C={c}: {tuple(plan)} (rows, group columns, stages, shared bytes), "
             f"{plan.passes(c)} pass(es){', streamed' if plan.streams(c) else ', in turns'}")
+        for mode in k4.MODES:
+            plan, lib = k4.k4_plan(c, mode), k4.library_plan(c, mode)
+            if plan != lib:
+                raise AssertionError(f"K4's plan mirror at C={c} ({mode}): {plan}, the "
+                                     f"library's {lib}")
+            log(f"K4 plan C={c} {mode}: {tuple(plan)} (rows, group columns, w1t tiles a "
+                f"stage, stages, shared bytes), {plan.passes(c)} pass(es)")
     t = time.perf_counter()
     kernels = (phase_kernels(torch, dev, card) + phase_fused(torch, dev, card)
                + [phase_k7(torch, dev, card)])
@@ -1668,10 +1724,11 @@ def main() -> int:
             f"{r['v1_sync_median_ms']:.2f} ms), peak device memory {r['peak_forward_gib']:.2f} "
             f"GiB over phase 4's forwards, {r['peak_v8_gib']:.2f} GiB at V=8; "
             f"max|dy_val| vs f32 plain {parity[name]:.3e} [{card}]")
-    log(f"summary [default, {LARGE}]: V=8 {large['v8_videos_s']:.2f} videos/s "
-        f"({large['v8_ms']:.2f} ms/launch), V=1 {large['v1_ms']:.2f} ms/launch, peak device "
-        f"memory {large['peak_v8_gib']:.2f} GiB at V=8; launches {large['launches']}; "
-        f"max|dy_val| vs f32 plain {large['dy_val']:.3e} [{card}]")
+    for name, r in large.items():
+        log(f"summary [{name}, {LARGE}]: V=8 {r['v8_videos_s']:.2f} videos/s "
+            f"({r['v8_ms']:.2f} ms/launch), V=1 {r['v1_ms']:.2f} ms/launch, peak device "
+            f"memory {r['peak_v8_gib']:.2f} GiB at V=8; launches {r['launches']}; "
+            f"max|dy_val| vs f32 plain {r['dy_val']:.3e} [{card}]")
     for (pname, n), (rate, ms, peak) in swin["rates"].items():
         log(f"summary [swin_tiny {pname}] N={n}: {rate:.2f} images/s ({ms:.3f} ms/forward), "
             f"peak device memory {peak:.2f} GiB [{card}]")

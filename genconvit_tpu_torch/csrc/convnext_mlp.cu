@@ -74,27 +74,35 @@ struct MlpArgs {
   int split;          // mlp_wgmma_split: each pass of a tile is a work item
 };
 
-// K1's GELU: the plan's rational tier with the fast reciprocal, the tier a
-// compile-time choice so that the 32 evaluations of a chunk carry no branch.
+// K1's chunk functor (MlpWgmma::pass): the bias of chunk j loaded before
+// its products are issued, then bias + GELU in registers, rounded to bf16:
+// fc2's A fragments. z[4i + e] is hidden column 64j + 8i + 2t + e of row g,
+// z[4i + 2 + e] of row g + 8; k16 step s takes i = 2s (k 2t..) and 2s + 1
+// (k 2t + 8..). The GELU tier is a compile-time choice, so that the 32
+// evaluations of a chunk carry no branch.
 template <int HP>
-struct GeluTier {
-  __device__ __forceinline__ float operator()(float h) const { return gelu_rational(h, HP); }
+struct K1Chunk {
+  const float* b1;
+  float2 bias[8];
+
+  __device__ __forceinline__ void load(int j) {
+    const int t = threadIdx.x % 4;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) bias[i] = *reinterpret_cast<const float2*>(b1 + 64 * j + 8 * i + 2 * t);
+  }
+
+  __device__ __forceinline__ void convert(const float* z, uint32_t (*hf)[4]) const {
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const bf162 ha = __floats2bfloat162_rn(gelu_rational(z[4 * i] + bias[i].x, HP),
+                                             gelu_rational(z[4 * i + 1] + bias[i].y, HP));
+      const bf162 hb = __floats2bfloat162_rn(gelu_rational(z[4 * i + 2] + bias[i].x, HP),
+                                             gelu_rational(z[4 * i + 3] + bias[i].y, HP));
+      hf[i / 2][(i % 2) * 2] = bf162_bits(ha);
+      hf[i / 2][(i % 2) * 2 + 1] = bf162_bits(hb);
+    }
+  }
 };
-
-__device__ __forceinline__ void prefetch_l2(const void* p) {
-  asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
-}
-
-// Ask L2 for rows [r0, r0 + nrows) of a [rows, c] bf16 tensor (one
-// contiguous range), 128-byte lines spread over the warp.
-__device__ __forceinline__ void prefetch_rows(const bf16* base, long long r0, int nrows,
-                                              long long rows, int c) {
-  const long long r1 = r0 + nrows < rows ? r0 + nrows : rows;
-  if (r0 >= r1) return;
-  const char* p = reinterpret_cast<const char*>(base + r0 * c);
-  const long long bytes = (r1 - r0) * c * 2;
-  for (long long off = (threadIdx.x % 32) * 128; off < bytes; off += 32 * 128) prefetch_l2(p + off);
-}
 
 // A warp's rows [r0, r0 + nrows) of a tile: LayerNorm statistics and y =
 // bf16((d - mean) * rstd) into the swizzled y tiles; rows past the ragged
@@ -155,176 +163,21 @@ __device__ __forceinline__ void ln_rows_to_y(const MlpArgs& a, unsigned char* yt
   }
 }
 
-// Consumer warpgroup W of a block: every tile's prologue, passes and
-// epilogue. In rows plans it owns rows 64 W.. of each 128-row tile; in cols
-// plans both share a 64-row tile and W takes groups W, W + 2, ...
-template <int NC, bool COLS, bool STREAM, int HP>
-__device__ __forceinline__ void mlp_consumer(const MlpArgs& a,
-                                             const MlpWgmma<NC, COLS, STREAM>& mlp) {
-  const int W = threadIdx.x / 128;
-  constexpr int kTile = MlpWgmma<NC, COLS, STREAM>::kRows;
-  const int c = a.c;
-  const int ww = (threadIdx.x / 32) % 4;   // warp in the warpgroup: rows 16 ww..
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4;
-  const int t = lane % 4;
-  const float inv_c = 1.0f / static_cast<float>(c);
-  const bool post = a.lns != nullptr;
-  const int passes = mlp.passes;
-  const int yw = COLS ? 0 : W;
-  uint32_t q = 0;
-  float o[NC / 2];
-  const int nitems = mlp.items(a.rows);
-  mlp.turn_end(W, W == 1);   // warpgroup 0 takes the first turn
-  for (int item = blockIdx.x; item < nitems; item += gridDim.x) {
-    const long long tile0 = static_cast<long long>(mlp.item_tile(item)) * kTile;
-    const long long row0 = tile0 + (COLS ? 0 : 64 * W);
-    const int p0 = mlp.item_pass0(item), p1 = mlp.item_pass1(item);
-    const bool last_item = item + gridDim.x >= nitems;
+// What mlp_consumer needs of K1 (mlp_wgmma.cuh): its arguments, the bf16
+// prologue, the chunk functor; nothing happens per tile or after fc2.
+template <int HP>
+struct K1Tail {
+  const MlpArgs& a;
 
-    // 1. y of the tile: rows mode, each warpgroup its own 64 rows (16 a
-    //    warp); cols mode, the shared 64 rows (8 a warp), after both
-    //    warpgroups are done with the last tile's.
-    if constexpr (COLS) {
-      bar_sync(2, 256);
-      ln_rows_to_y<4>(a, mlp.y_tile(0, 0), tile0, 8 * (4 * W + ww), 8, mlp.nkb);
-      fence_proxy_async();
-      bar_sync(1, 256);
-    } else {
-      ln_rows_to_y<8>(a, mlp.y_tile(W, 0), row0 - 64 * W, 64 * W + 16 * ww, 16, mlp.nkb);
-      fence_proxy_async();
-      bar_sync(1 + W, 128);
-    }
-
-    // this tile's x rows (the epilogue's) and the next item's d rows (the
-    // next prologue's) into L2 while the passes run
-    const int wrows = COLS ? 8 : 16;
-    const int wr0 = COLS ? 8 * (4 * W + ww) : 64 * W + 16 * ww;
-    prefetch_rows(a.x, tile0 + wr0, wrows, a.rows, c);
-    if (!last_item) {
-      prefetch_rows(a.d, static_cast<long long>(mlp.item_tile(item + gridDim.x)) * kTile + wr0,
-                    wrows, a.rows, c);
-    }
-
-    // 2. per pass: fc1 -> GELU -> fc2 (o), then the epilogue on the group's
-    //    columns: o[4i + 2h + e] is column grp * NC + 8i + 2t + e of row 16 ww
-    //    + g + 8h.
-    const long long ra = row0 + 16 * ww + g;
-    float rsum[2] = {0.f, 0.f}, rsq[2] = {0.f, 0.f};
-    for (int ps = p0; ps < p1; ++ps) {
-      if constexpr (STREAM) {
-        mlp.pass_stream(W, yw, a.bw, GeluTier<HP>{}, o, q);
-      } else {
-        mlp.pass(W, yw, a.bw, GeluTier<HP>{}, o, q, last_item && ps == p1 - 1);
-      }
-      const int grp = COLS ? 2 * ps + W : ps;
-      // kB column steps at a time, their x and bias loads issued first
-      constexpr int kB = NC == 96 ? 12 : 8;
-#pragma unroll
-      for (int i0 = 0; i0 < NC / 8; i0 += kB) {
-        float2 xv[kB][2], bias[kB];
-#pragma unroll
-        for (int ii = 0; ii < kB; ++ii) {
-          const int col = grp * NC + 8 * (i0 + ii) + 2 * t;
-          bias[ii] = col < c ? *reinterpret_cast<const float2*>(a.b2g + col) : make_float2(0.f, 0.f);
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const long long r = ra + 8 * h;
-            xv[ii][h] = col < c && r < a.rows
-                            ? __bfloat1622float2(*reinterpret_cast<const bf162*>(a.x + r * c + col))
-                            : make_float2(0.f, 0.f);
-          }
-        }
-#pragma unroll
-        for (int ii = 0; ii < kB; ++ii) {
-          const int i = i0 + ii;
-          const int col = grp * NC + 8 * i + 2 * t;
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const long long r = ra + 8 * h;
-            float& v0 = o[4 * i + 2 * h];
-            float& v1 = o[4 * i + 2 * h + 1];
-            if (!post) {
-              const float o0 = __bfloat162float(__float2bfloat16_rn(v0 + bias[ii].x));
-              const float o1 = __bfloat162float(__float2bfloat16_rn(v1 + bias[ii].y));
-              if (col < c && r < a.rows) {
-                *reinterpret_cast<bf162*>(a.out + r * c + col) =
-                    __floats2bfloat162_rn(xv[ii][h].x + o0, xv[ii][h].y + o1);
-              }
-            } else {
-              // rows past the end and columns past C hold zeros: they add nothing
-              v0 = xv[ii][h].x + (v0 + bias[ii].x);
-              v1 = xv[ii][h].y + (v1 + bias[ii].y);
-              rsum[h] += v0 + v1;
-              rsq[h] += v0 * v0 + v1 * v1;
-              if (passes > 1 && col < c && r < a.rows) {
-                *reinterpret_cast<float2*>(a.vbuf + r * c + col) = make_float2(v0, v1);
-              }
-            }
-          }
-        }
-      }
-    }
-    if (!post) continue;
-
-    // 3. post-LN: a row's columns lie in the four threads of a quad (and, in
-    //    cols plans, in both warpgroups: their sums meet in shared memory);
-    //    the values come back from registers (one pass) or from this
-    //    thread's own vbuf writes.
-    float mean[2], rstd[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float s1 = rsum[h], s2 = rsq[h];
-      s1 += __shfl_xor_sync(0xffffffffu, s1, 1);
-      s2 += __shfl_xor_sync(0xffffffffu, s2, 1);
-      s1 += __shfl_xor_sync(0xffffffffu, s1, 2);
-      s2 += __shfl_xor_sync(0xffffffffu, s2, 2);
-      rsum[h] = s1;
-      rsq[h] = s2;
-    }
-    if constexpr (COLS) {
-      float* mine = mlp.rowsum + W * 128;
-      const float* other = mlp.rowsum + (1 - W) * 128;
-      if (t == 0) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          mine[2 * (16 * ww + g + 8 * h)] = rsum[h];
-          mine[2 * (16 * ww + g + 8 * h) + 1] = rsq[h];
-        }
-      }
-      bar_sync(3, 256);
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        rsum[h] += other[2 * (16 * ww + g + 8 * h)];
-        rsq[h] += other[2 * (16 * ww + g + 8 * h) + 1];
-      }
-      bar_sync(3, 256);   // both have read before the next tile writes
-    }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      mean[h] = rsum[h] * inv_c;
-      rstd[h] = rsqrtf(rsq[h] * inv_c - mean[h] * mean[h] + kLnEps);
-    }
-    for (int ps = 0; ps < passes; ++ps) {
-      const int grp = COLS ? 2 * ps + W : ps;
-#pragma unroll
-      for (int i = 0; i < NC / 8; ++i) {
-        const int col = grp * NC + 8 * i + 2 * t;
-        if (col >= c) continue;
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const long long r = ra + 8 * h;
-          if (r >= a.rows) continue;
-          float2 v = make_float2(o[4 * i + 2 * h], o[4 * i + 2 * h + 1]);
-          if (passes > 1) v = *reinterpret_cast<const float2*>(a.vbuf + r * c + col);
-          *reinterpret_cast<bf162*>(a.out + r * c + col) = __floats2bfloat162_rn(
-              (v.x - mean[h]) * rstd[h] * a.lns[col] + a.lnb[col],
-              (v.y - mean[h]) * rstd[h] * a.lns[col + 1] + a.lnb[col + 1]);
-        }
-      }
-    }
+  template <int RB>
+  __device__ __forceinline__ void rows_to_y(unsigned char* ytiles, long long row_base, int r0,
+                                            int nrows, int nkb, float*) const {
+    ln_rows_to_y<RB>(a, ytiles, row_base, r0, nrows, nkb);
   }
-}
+  __device__ __forceinline__ K1Chunk<HP> chunk() const { return K1Chunk<HP>{a.bw}; }
+  __device__ __forceinline__ void begin_rows(K1Chunk<HP>&, const float*) const {}
+  __device__ __forceinline__ void fc2_done(K1Chunk<HP>&, float*, int) const {}
+};
 
 template <int NC, bool COLS, bool STREAM, int HP>
 __global__ void __launch_bounds__(kMlpThreads, 1)
@@ -332,52 +185,7 @@ ln_mlp_residual_kernel(const MlpArgs a, const __grid_constant__ CUtensorMap tm1,
                        const __grid_constant__ CUtensorMap tm2) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const MlpWgmma<NC, COLS, STREAM> mlp(align1024(smem_raw), a.c, a.stages, a.split != 0);
-  if (threadIdx.x == 0) mlp.init_barriers();
-  __syncthreads();
-  const int warp = threadIdx.x / 32;
-  if (warp >= 8) {
-    // the producer warpgroup streams; most of its registers go to the
-    // consumers (2 x 128 x 224 + 128 x 56 = 168 x 384)
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n" ::: "memory");
-    if (threadIdx.x == 256) mlp.produce(&tm1, &tm2, blockIdx.x, gridDim.x, mlp.items(a.rows));
-  } else {
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n" ::: "memory");
-    mlp_consumer<NC, COLS, STREAM, HP>(a, mlp);
-  }
-}
-
-// cuTensorMapEncodeTiled, from the driver through the runtime (no driver
-// library at link time).
-typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault) == cudaSuccess) {
-      fn = reinterpret_cast<EncodeTiledFn>(p);
-    }
-  }
-  return fn;
-}
-
-// A 2-D map of a row-major bf16 [outer, inner] matrix in boxes of
-// box_outer x 64, 128-byte swizzled, zero past the edges.
-int bf16_box_map(CUtensorMap* map, const void* base, int inner, int outer, int box_outer) {
-  const EncodeTiledFn fn = encode_tiled();
-  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(inner), static_cast<cuuint64_t>(outer)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(inner) * 2};
-  const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_outer)};
-  const cuuint32_t elem[2] = {1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
-                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+  mlp_block(K1Tail<HP>{a}, mlp, &tm1, &tm2);
 }
 
 template <int NC, bool COLS, bool STREAM, int HP>
@@ -388,8 +196,8 @@ int launch_mlp_tier(const MlpArgs& a, const MlpPlan& p, cudaStream_t stream) {
       raise_smem_limit(ln_mlp_residual_kernel<NC, COLS, STREAM, HP>, smem, &smem_configured);
   if (err) return err;
   CUtensorMap tm1, tm2;
-  int e = bf16_box_map(&tm1, a.w1t, a.c, 4 * a.c, 64);
-  if (e == 0) e = bf16_box_map(&tm2, a.w2t, 4 * a.c, a.c, NC);
+  int e = box_map(&tm1, a.w1t, 2, a.c, 4 * a.c, 128, 64);
+  if (e == 0) e = box_map(&tm2, a.w2t, 2, 4 * a.c, a.c, 128, NC);
   if (e) return e;
   // work items as the kernel counts them (MlpWgmma::items)
   const long long items = (a.rows + p.rows - 1) / p.rows * (a.split ? mlp_wgmma_passes(a.c, p) : 1);

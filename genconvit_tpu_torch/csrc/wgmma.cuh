@@ -1,17 +1,21 @@
 // Hopper warpgroup matrix multiply (wgmma) and the barriers around it, for
-// the kernels that run on it: K1 (convnext_mlp.cu, loop in mlp_wgmma.cuh)
-// and K3 (int8_matmul.cu). sm_90a only.
+// the kernels that run on it: K1 (convnext_mlp.cu) and K4
+// (convnext_mlp_int8.cu), whose loop is mlp_wgmma.cuh, and K3
+// (int8_matmul.cu). sm_90a only.
 //
-// Shared-memory operands use one layout: K-major tiles of rows of 64 bf16
-// (128 bytes) with the 128-byte swizzle, whose 16-byte chunk c of row r sits
-// at chunk c ^ (r % 8); 8 rows (1024 bytes, 1024-aligned) form one swizzle
-// atom. A descriptor names the tile's first row and k offset; the k16 step s
-// of a 64-k tile starts 32 * s bytes in. The accumulator of m64nNk16 gives
-// thread (warp w of the warpgroup, lane 4g + t) d[4i + e] = D[16w + g, 8i +
-// 2t + e] and d[4i + 2 + e] = D[16w + g + 8, 8i + 2t + e]; an A fragment
-// from registers is that of mma.sync m16n8k16 for the warp's 16 rows (see
-// mma_bf16_16816 in common.cuh). The operand lists of the wgmma wrappers
-// are spelled out, one register per accumulator element, as PTX requires.
+// Shared-memory operands are K-major tiles of 128-byte rows (64 bf16 or
+// 128 int8 values) with the 128-byte swizzle, whose 16-byte chunk c of row r
+// sits at chunk c ^ (r % 8); 8 rows (1024 bytes, 1024-aligned) form one
+// swizzle atom. A descriptor names the tile's first row and k offset; a k
+// step (k16 of bf16, k32 of s8: 32 bytes) s of a tile starts 32 * s bytes
+// in. K4's s8 fc2 operand has rows of 64 bytes in the 64-byte swizzle
+// (8-row atoms of 512 bytes). The accumulator of m64nNk16 (f32) and of
+// m64nNk32 (s32) gives thread (warp w of the warpgroup, lane 4g + t)
+// d[4i + e] = D[16w + g, 8i + 2t + e] and d[4i + 2 + e] = D[16w + g + 8,
+// 8i + 2t + e]; an A fragment from registers is that of mma.sync m16n8k16
+// (bf16) or m16n8k32 (s8) for the warp's 16 rows (see mma_bf16_16816 and
+// mma_s8_16832 in common.cuh). The operand lists of the wgmma wrappers are
+// spelled out, one register per accumulator element, as PTX requires.
 #pragma once
 
 #include <cuda.h>   // CUtensorMap (the type only; no driver library is linked)
@@ -35,6 +39,11 @@ __host__ __device__ __forceinline__ uint32_t swz128(int r, int k) {
   return static_cast<uint32_t>(r * 128 + ((((k >> 3) ^ r) & 7) << 4) + ((k & 7) << 1));
 }
 
+// Byte offset of byte k of row r in a swizzled tile of 128-byte rows.
+__host__ __device__ __forceinline__ uint32_t swz128_byte(int r, int k) {
+  return static_cast<uint32_t>(r * 128 + ((((k >> 4) ^ r) & 7) << 4) + (k & 15));
+}
+
 // Descriptor of a K-major, 128-byte-swizzled operand starting at `smem`:
 // start address >> 4, leading offset 1 (unused with this swizzle), stride
 // 1024 bytes between 8-row groups, layout 1 (128-byte swizzle).
@@ -42,6 +51,14 @@ __device__ __forceinline__ uint64_t sw128_desc(const void* smem) {
   const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
          (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// The same for rows of 64 bytes in the 64-byte swizzle: stride 512 bytes
+// between 8-row groups, layout 2.
+__device__ __forceinline__ uint64_t sw64_desc(const void* smem) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>(512 >> 4) << 32) | (2ull << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -63,6 +80,12 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float* d) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(int* d) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
 // Writes by st.shared or cp.async (the generic proxy) made visible to the
@@ -147,6 +170,45 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   while (!mbar_try_wait(bar, parity)) {
     if (clock64() - t0 > (1ll << 35)) __trap();
   }
+}
+
+// cuTensorMapEncodeTiled, from the driver through the runtime (no driver
+// library at link time).
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                  const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+__host__ inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault) == cudaSuccess) {
+      fn = reinterpret_cast<EncodeTiledFn>(p);
+    }
+  }
+  return fn;
+}
+
+// A 2-D map of a row-major [outer, inner] matrix of bf16 (elem_bytes 2) or
+// int8 (1) in boxes of box_outer rows of box_bytes bytes, swizzled by
+// box_bytes (128 or 64), zero past the edges.
+__host__ inline int box_map(CUtensorMap* map, const void* base, int elem_bytes, int inner,
+                            int outer, int box_bytes, int box_outer) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(inner), static_cast<cuuint64_t>(outer)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(inner) * elem_bytes};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_bytes / elem_bytes),
+                             static_cast<cuuint32_t>(box_outer)};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = fn(map, elem_bytes == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                             : CU_TENSOR_MAP_DATA_TYPE_UINT8,
+                        2, const_cast<void*>(base), dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        box_bytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
 // D[64 x 64] (+)= A[64 x 16] . B[16 x 64]: A and B by descriptor.
@@ -279,6 +341,76 @@ __device__ __forceinline__ void wgmma_rs_n256(float* d, const uint32_t* a, uint6
         "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+}
+
+// D[64 x 64] (+)= A[64 x 32] . B[32 x 64], s8 x s8 -> s32: A and B by descriptor.
+__device__ __forceinline__ void wgmma_ss_n64_s8(int* d, uint64_t a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p;\n}\n"
+      :
+        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+// D[64 x 96] (+)= A[64 x 32] . B[32 x 96], s8 x s8 -> s32: A from registers, B by descriptor.
+__device__ __forceinline__ void wgmma_rs_n96_s8(int* d, const uint32_t* a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, {%48, %49, %50, %51}, %52, p;\n}\n"
+      :
+        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+}
+
+// D[64 x 128] (+)= A[64 x 32] . B[32 x 128], s8 x s8 -> s32: A from registers, B by descriptor.
+__device__ __forceinline__ void wgmma_rs_n128_s8(int* d, const uint32_t* a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p;\n}\n"
+      :
+        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+}
+
+// D[64 x 192] (+)= A[64 x 32] . B[32 x 192], s8 x s8 -> s32: A from registers, B by descriptor.
+__device__ __forceinline__ void wgmma_rs_n192_s8(int* d, const uint32_t* a, uint64_t b, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, {%96, %97, %98, %99}, %100, p;\n}\n"
+      :
+        "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]),
+        "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
+        "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]), "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]),
+        "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
 }
 

@@ -28,12 +28,12 @@ from typing import Optional
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 SOURCES = tuple(os.path.join(_PKG_DIR, "csrc", f) for f in
-                ("convnext_mlp.cu", "convnext_mlp_int8.cu", "int8_matmul.cu",
-                 "convnext_block.cu", "convnext_stage.cu", "window_attn.cu",
-                 "int8_dot.cu", "dw_moments.cu", "block_parts.cu"))
+                ("convnext_mlp.cu", "convnext_mlp_int8.cu", "convnext_mlp_int8_full.cu",
+                 "int8_matmul.cu", "convnext_block.cu", "convnext_stage.cu",
+                 "window_attn.cu", "int8_dot.cu", "dw_moments.cu", "block_parts.cu"))
 HEADERS = tuple(os.path.join(_PKG_DIR, "csrc", f) for f in
                 ("common.cuh", "mlp_tile.cuh", "fused_block.cuh", "wgmma.cuh",
-                 "mlp_wgmma.cuh"))
+                 "mlp_wgmma.cuh", "convnext_mlp_int8.cuh"))
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
                          "genconvit_tpu_torch")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -47,8 +47,8 @@ _SIGNATURES = {
     # x, scale, bias, out, rows, c, stream
     "gcv_layer_norm_rows": ([_P] * 4 + [ctypes.c_longlong, ctypes.c_int, _P],
                             ctypes.c_int),
-    # d, x, wq1, s1, bw, w2g, wq2, s2, b2g, lns, lnb, out, rows, c, hp, mode, stream
-    "gcv_ln_mlp_residual_int8": ([_P] * 12 + [ctypes.c_longlong, ctypes.c_int,
+    # d, x, wq1, s1, bw, w2t, wq2k, s2, b2g, lns, lnb, vbuf, out, rows, c, hp, mode, stream
+    "gcv_ln_mlp_residual_int8": ([_P] * 13 + [ctypes.c_longlong, ctypes.c_int,
                                               ctypes.c_int, ctypes.c_int, _P],
                                  ctypes.c_int),
     # x, wq, scale, bias, xp, work, out, m, k, n, x_f32, out_f32, stream
@@ -71,6 +71,7 @@ _SIGNATURES = {
     "gcv_wint8_splits": ([ctypes.c_int] * 3, ctypes.c_int),
     "gcv_wint8_x_rows": ([ctypes.c_int], ctypes.c_int),
     "gcv_mlp_plan": ([ctypes.c_int, _P], ctypes.c_int),
+    "gcv_k4_plan": ([ctypes.c_int, ctypes.c_int, _P], ctypes.c_int),
     "gcv_error_string": ([ctypes.c_int], ctypes.c_char_p),
 }
 

@@ -1,4 +1,4 @@
-"""K1 and K3 of one checkout of the port, timed on the card, so that two
+"""K1, K4 and K3 of one checkout of the port, timed on the card, so that two
 checkouts (a change and its parent) can be compared in one session:
 
     python3 genconvit_tpu_torch/tools/kernel_ab.py [--package-dir DIR] [--ptxas]
@@ -6,11 +6,12 @@ checkouts (a change and its parent) can be compared in one session:
 DIR holds the genconvit_tpu_torch package to load (default: this checkout);
 unpack the parent with `git archive HEAD genconvit_tpu_torch` into a
 directory that .gitignore lists, and run parent, change, change, parent.
-Prints CUDA-event ms per launch of K1 (ln_mlp_residual) at the 12 block-tail
-shapes of a V=8 convnext_tiny ensemble forward and their depth-weighted sum,
-and of K3 (matmul_wint8) on the 25088 x 12544 latent head at M = 15, 30,
-120 beside F.linear on the bf16 head. With --ptxas, the build's ptxas
-register and spill lines of K5, K6 and M2 (the kernels on mlp_tile.cuh),
+Prints CUDA-event ms per launch of K1 (ln_mlp_residual) and of K4
+(ln_mlp_residual_int8, 'fc1' and 'full') at the 12 block-tail shapes of a
+V=8 convnext_tiny ensemble forward and their depth-weighted sums, and of K3
+(matmul_wint8) on the 25088 x 12544 latent head at M = 15, 30, 120 beside
+F.linear on the bf16 head. With --ptxas, the build's ptxas register and
+spill lines of K1, K4, K5, K6 and M2 (the block-tail kernels),
 anonymous-namespace hashes taken out, for a diff between two checkouts.
 Run it by path, not with -m: it chooses which package to import.
 """
@@ -29,13 +30,14 @@ LATENT = (25088, 12544)
 
 
 def ptxas_lines(log: str) -> list:
-    """(entry, registers/spill line) of the mlp_tile.cuh kernels, hashes out."""
+    """(entry, registers/spill line) of the block-tail kernels, hashes out."""
     out, entry = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
             name = re.sub(r"_GLOBAL__N__[0-9a-f_]+", "", m.group(1))
-            entry = name if re.search(r"fused_block|fused_stage|block_parts", name) else None
+            entry = name if re.search(r"fused_block|fused_stage|block_parts|ln_mlp_residual",
+                                      name) else None
         elif entry and ("registers" in line or "spill" in line):
             out.append((entry, line.split("info    :")[-1].strip()))
     return out
@@ -55,6 +57,7 @@ def main(argv=None) -> int:
     import genconvit_tpu_torch
     from genconvit_tpu_torch.ops.cuda import _build
     from genconvit_tpu_torch.ops.cuda import convnext_mlp as km
+    from genconvit_tpu_torch.ops.cuda import convnext_mlp_int8 as k4
     from genconvit_tpu_torch.ops.cuda import int8_matmul as k3
     from genconvit_tpu_torch.ops.quant import quantize_wint8
 
@@ -83,24 +86,31 @@ def main(argv=None) -> int:
         return a.elapsed_time(b) / iters
 
     g = torch.Generator(device=dev).manual_seed(3)
-    total = 0.0
+    total = dict.fromkeys(("K1",) + tuple(f"K4 {m}" for m in k4.MODES), 0.0)
     for n, px in CALLS:
         for si, c in enumerate(DIMS):
             rows = n * ((px // 4) >> si) ** 2
 
             def r(*shape, s=1.0):
                 return s * torch.randn(*shape, device=dev, generator=g)
-            folded = km.fold_block_mlp(
-                1 + r(c, s=0.1), r(c, s=0.1), r(4 * c, c, s=c ** -0.5), r(4 * c, s=0.05),
-                r(c, 4 * c, s=(4 * c) ** -0.5), r(c, s=0.05),
-                0.1 + 0.9 * torch.rand(c, device=dev, generator=g), torch.bfloat16)
+            args = (1 + r(c, s=0.1), r(c, s=0.1), r(4 * c, c, s=c ** -0.5), r(4 * c, s=0.05),
+                    r(c, 4 * c, s=(4 * c) ** -0.5), r(c, s=0.05),
+                    0.1 + 0.9 * torch.rand(c, device=dev, generator=g))
             dw = (2 * r(rows, c)).to(torch.bfloat16)
             x = r(rows, c).to(torch.bfloat16)
-            t = cuda_ms(lambda: km.ln_mlp_residual(dw, x, folded), 10)
-            total += DEPTHS[si] * t
-            print(f"[{tag}] K1 R={rows} C={c}: {t:.4f} ms", flush=True)
-            del folded, dw, x
-    print(f"[{tag}] K1 per V=8 forward (depth-weighted): {total:.4f} ms", flush=True)
+            folds = {"K1": (km.ln_mlp_residual, km.fold_block_mlp(*args, torch.bfloat16))}
+            for m in k4.MODES:
+                folds[f"K4 {m}"] = (k4.ln_mlp_residual_int8,
+                                    k4.fold_block_mlp_int8(*args, m, torch.bfloat16))
+            line = []
+            for name, (fn, folded) in folds.items():
+                t = cuda_ms(lambda: fn(dw, x, folded), 10)
+                total[name] += DEPTHS[si] * t
+                line.append(f"{name} {t:.4f} ms")
+            print(f"[{tag}] R={rows} C={c}: " + ", ".join(line), flush=True)
+            del folds, dw, x
+    for name, t in total.items():
+        print(f"[{tag}] {name} per V=8 forward (depth-weighted): {t:.4f} ms", flush=True)
     k, n = LATENT
     w16 = (0.01 * torch.randn(n, k, device=dev, generator=g)).to(torch.bfloat16)
     wq, sc = quantize_wint8(w16, dim=1)

@@ -195,8 +195,12 @@ def _int8_block(c, dev, g):
             r(c, 4 * c, s=0.02), r(c, s=0.02), gamma)
 
 
-@pytest.mark.parametrize("post_ln", [False, True])
-@pytest.mark.parametrize("c", [96, 160, 384, 768])   # 160: a width off the path
+# (C, post-LN): 160 is a width off the path; the post-LN goes to C = 768
+_K4_WIDTHS = [(c, post) for c in (96, 160, 192, 384, 768, 1024, 1536)
+              for post in ((False, True) if c <= 768 else (False,))]
+
+
+@pytest.mark.parametrize("c,post_ln", _K4_WIDTHS)
 @pytest.mark.parametrize("mode", ["fc1", "full"])
 def test_k4_matches_plain(dev, mode, c, post_ln):
     from genconvit_tpu_torch.ops.cuda import convnext_mlp_int8 as k4
@@ -294,6 +298,63 @@ def test_k3_at_every_row_tile(dev, m, k, n):
     assert not _agrees(k3.matmul_wint8(x, flipped, s, b), ref)
 
 
+# K4 at every width of the repo's ConvNeXt configurations, at the row
+# counts around its tile (a count ragged against it, and the few-row counts
+# where the passes of a tile become work items of their own), with the
+# planted faults at each.
+@pytest.mark.parametrize("c", _CFG_WIDTHS)
+@pytest.mark.parametrize("mode", ["fc1", "full"])
+def test_k4_at_every_convnext_width(dev, mode, c):
+    from genconvit_tpu_torch.ops.cuda import convnext_mlp_int8 as k4
+
+    g = torch.Generator(device=dev).manual_seed(700 + c)
+    args = _int8_block(c, dev, g)
+    folded = k4.fold_block_mlp_int8(*args, mode, torch.bfloat16)
+    tile = k4.library_plan(c, mode).rows
+    for rows in (1, tile - 1, tile + 1, 19 * tile + 37):
+        dw = (2 * torch.randn(rows, c, device=dev, generator=g)).to(torch.bfloat16)
+        x = torch.randn(rows, c, device=dev, generator=g).to(torch.bfloat16)
+        zero = torch.zeros_like(x)
+        o_max = k4.ln_mlp_residual_int8_plain(dw, zero, folded).float().abs().max().item()
+        for xin in (x, zero):
+            before = k4.ln_mlp_residual_int8.launches
+            out = k4.ln_mlp_residual_int8(dw, xin, folded)
+            torch.cuda.synchronize()
+            assert k4.ln_mlp_residual_int8.launches == before + 1
+            ref = k4.ln_mlp_residual_int8_plain(dw, xin, folded)
+            assert _rel(out, ref) <= TOL, (rows, xin is zero)
+            assert km.bf16_ulp_error(out, ref, xin, o_max) <= k4.ULP_TOL, (rows, xin is zero)
+    # planted faults at the ragged large count (x = 0): b2g dropped, LN-bias
+    # fold dropped, s1 by its mean
+    ref = k4.ln_mlp_residual_int8_plain(dw, zero, folded)
+    no_lnb = list(args)
+    no_lnb[1] = torch.zeros_like(args[1])
+    for bad in (folded._replace(b2g=torch.zeros_like(folded.b2g)),
+                k4.fold_block_mlp_int8(*no_lnb, mode, torch.bfloat16),
+                folded._replace(s1=folded.s1.mean().expand_as(folded.s1).contiguous())):
+        out = k4.ln_mlp_residual_int8(dw, zero, bad)
+        assert km.bf16_ulp_error(out, ref, zero, o_max) > k4.ULP_TOL
+
+
+def test_k4_tile_plan_mirror_matches_the_library(dev):
+    from genconvit_tpu_torch.ops.cuda import convnext_mlp_int8 as k4
+
+    for mode in k4.MODES:
+        for c in range(0, 1600, 16):
+            assert k4.k4_plan(c, mode) == k4.library_plan(c, mode), (mode, c)
+
+
+def test_k4_refuses_widths_past_its_plan(dev):
+    from genconvit_tpu_torch.ops.cuda import convnext_mlp_int8 as k4
+
+    g = torch.Generator(device=dev).manual_seed(10)
+    folded = k4.fold_block_mlp_int8(*_int8_block(96, dev, g), "full", torch.bfloat16)
+    for c in (1568, 80):
+        x = torch.zeros(4, c, device=dev, dtype=torch.bfloat16)
+        with pytest.raises(ValueError):
+            k4.ln_mlp_residual_int8(x, x, folded)
+
+
 def test_int8_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     from genconvit_tpu_torch.ops.cuda import convnext_mlp_int8 as k4
     from genconvit_tpu_torch.ops.cuda import int8_matmul as k3
@@ -313,6 +374,8 @@ def test_int8_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         k4.ln_mlp_residual_int8(x, x, folded._replace(mode="w4"))
     with pytest.raises(ValueError, match="int8"):
         k4.ln_mlp_residual_int8(x, x, folded._replace(wq1=folded.wq1.float()))
+    with pytest.raises(ValueError, match="wq2k"):
+        k4.ln_mlp_residual_int8(x, x, folded._replace(wq2k=None))
     wq = torch.zeros(8, 96, dtype=torch.int8, device=dev)
     s = torch.ones(8, device=dev)
     with pytest.raises(ValueError, match="int8"):
