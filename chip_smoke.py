@@ -41,7 +41,10 @@ Phases (any failed check raises and the exit code is non-zero):
      blocks reversed), timed beside their plain versions, the cuDNN
      depthwise conv + K1 at the same shapes (the default path for those
      blocks) and the bound, which lets the tensor cores and the f32 cores
-     run at the same time; K7 (Swin window attention) at the four stage
+     run at the same time; K6 also at convnext_large's three K6 widths (384,
+     768, 1536) and convnext_base's 1024 at the ED call's rows, chains cut
+     to 3 blocks, held, faulted and timed the same way; K5's and K6's plans
+     (k5_plan, k6_plan) against the library's at every shape; K7 (Swin window attention) at the four stage
      shapes of swin_tiny and of swin_large at N = 120 (masked at stages 0-2,
      unmasked at all four), within 2 bf16 ulps of the window-head's largest
      |out| (window_attn.ulp_error), with planted faults (relative bias
@@ -102,12 +105,14 @@ Phases (any failed check raises and the exit code is non-zero):
 
   10. convnext_large (the JAX package's `--s large` backbone: dims
      192/384/768/1536, depths 3/3/27/3) at full width and depth, 224 px,
-     random weights from a seed, through the default plan and through int8
-     heads + int8_mlp='full': the requests of phase 4 with 108 K1 (or K4)
-     and 3 K2 launches per forward (and K3's one), throughput as in phase 6
-     (with --profile, the default plan's breakdown too), and parity against
-     its float32 plain path as in phase 5 (max|dy_val| <= 2e-2, 4e-2 with
-     the int8 tails). It runs after phase 5.
+     random weights from a seed, through the default plan, through int8
+     heads + int8_mlp='full' and through pallas='stage': the requests of
+     phase 4 with 108 K1 (or K4) and 3 K2 launches per forward (and K3's
+     one), or 8 K6 launches (ED and VAE x at stages 1-3, x_hat at stages
+     1-2), throughput as in phase 6 (with --profile, the default plan's
+     breakdown too), and parity against its float32 plain path as in phase
+     5 (max|dy_val| <= 2e-2, 4e-2 with the int8 tails). It runs after
+     phase 5.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Without CUDA it exits non-zero at once.
@@ -153,7 +158,14 @@ K1_WIDE = (("large", 0, 192), ("large", 1, 384), ("large", 2, 768), ("large", 3,
            ("base", 3, 1024))
 LARGE = "convnext_large"
 LARGE_K1_PER_FORWARD = 108   # 36 blocks x 3 backbone calls (K1, or K4 under int8_mlp)
-LARGE_CONFIGS = (CONFIGS[0], CONFIGS[3])   # default; int8 heads + int8_mlp='full'
+LARGE_K6_PER_FORWARD = 8     # pallas='stage': ED and VAE x at stages 1-3, x_hat at 1-2
+LARGE_CONFIGS = (CONFIGS[0], CONFIGS[3], CONFIGS[5])   # default; int8 heads + 'full'; 'stage'
+# K6 at the widths the tiny backbone never reaches, at the ED call's rows:
+# convnext_large's three K6 stages and convnext_base's last, (name, stage,
+# H, C), each chain cut to 3 blocks (large's stage 2 has 27)
+K6_WIDE = (("large", 1, 28, 384), ("large", 2, 14, 768), ("large", 3, 7, 1536),
+           ("base", 3, 7, 1024))
+K6_WIDE_BLOCKS = 3
 M1_TOOL_SHAPE = (240, 56, 128)   # the JAX tools' default n, h, c: M1 (hid 3c) ...
 M3_TOOL_SHAPE = (240, 56, 96)    # ... and M3 (C unpadded)
 
@@ -695,87 +707,124 @@ def fused_steps(k5, k6, name: str, kern, x, p, truth=None):
     return iter([(x, kern(x, p), ref)])
 
 
-def phase_fused(torch, dev, card: str) -> list:
-    """K5 and K6 at the scoring path's shapes against their plain versions
-    (K6 block by block), with planted faults; times of kernel, plain version
-    and the cuDNN depthwise conv + K1 at the same shapes; the bound."""
+def check_fused(torch, dev, card: str, g, name: str, call: str, n: int, h: int, c: int,
+                nb: int, time_plain: bool = True) -> dict:
+    """One K5 launch (nb = 1) or K6 chain of nb blocks at [n, h, h, c]
+    against its plain version (K6 block by block), with the planted faults;
+    CUDA-event times of kernel, plain version (unless time_plain is False)
+    and cuDNN's depthwise conv + K1 over the same blocks, and the bound."""
     from genconvit_tpu_torch.models.convnext import _nhwc
     from genconvit_tpu_torch.ops.cuda import convnext_block as k5
     from genconvit_tpu_torch.ops.cuda import convnext_mlp as km
     from genconvit_tpu_torch.ops.cuda import convnext_stage as k6
 
+    tol = k5.ULP_TOL   # per block, K6's too
+    rec = {"err": 0.0, "ulps": 0.0, "planted_min": float("inf")}
+    blks = [random_fused_block(torch, c, dev, g) for _ in range(nb)]
+    x = torch.randn(n, h, h, c, device=dev, generator=g).to(torch.bfloat16)
+    with torch.inference_mode():
+        packs = [b.pack_fused() for b in blks]
+        if name == "K5":
+            p = packs[0]
+            kern, plain = k5.fused_convnext_block, k5.fused_convnext_block_plain
+            faults = k5.planted_faults(p)
+        else:
+            p = k5.stack_blocks(packs)
+            kern, plain = k6.fused_convnext_stage, k6.fused_convnext_stage_plain
+            faults = k6.chain_faults(packs)
+        what = f"{name} {call:8s} N={n} H={h:2d} C={c:4d} blocks={nb}"
+        for k, (xin, out, ref) in enumerate(fused_steps(k5, k6, name, kern, x, p)):
+            scale = (ref.float() - xin.float()).abs().max().item()
+            step = what + (f" block {k}" if name == "K6" else "")
+            err, rel, ulps = compare(torch, km, step, out, ref, xin, scale, tol)
+            rec["err"] = max(rec["err"], err)
+            rec["ulps"] = max(rec["ulps"], ulps)
+            log(f"{step} max|diff|={err:.3e} rel={rel:.3e} ulps={ulps:.3f} (limit {tol})")
+        for fname, bad in faults.items():
+            # refused when any step fails; the steps after it are not run
+            worst = 0.0
+            for k, (xin, out, ref) in enumerate(fused_steps(k5, k6, name, kern, x, bad, p)):
+                scale = (ref.float() - xin.float()).abs().max().item()
+                worst = max(worst, km.bf16_ulp_error(out, ref, xin, scale))
+                if worst > tol:
+                    break
+            rec["planted_min"] = min(rec["planted_min"], worst)
+            log(f"  {name} planted: "
+                + must_fail(torch, km, fname + (f" (block {k})" if name == "K6" else ""),
+                            out, ref, xin, scale, tol))
+        del xin, ref, out, faults
+        folds = [b.fold() for b in blks]
+        xc = x.permute(0, 3, 1, 2)   # the NCHW channels_last view
+
+        def cudnn_dw_k1():
+            v = xc
+            for b, f in zip(blks, folds):
+                v = km.ln_mlp_residual(_nhwc(b.dw(v)), _nhwc(v), f).permute(0, 3, 1, 2)
+            return v
+
+        iters = 10 if n * h * h * c * nb < 5e7 else 5
+        rec["ms"] = cuda_ms(torch, lambda: kern(x, p), iters)
+        rec["plain_ms"] = cuda_ms(torch, lambda: plain(x, p), 2, 1) if time_plain else None
+        rec["cmp_ms"] = cuda_ms(torch, cudnn_dw_k1, iters)
+    rec["bound_ms"], rec["by"] = fused_bound(n * h * h, c, nb)
+    plain_ms = "not timed" if rec["plain_ms"] is None else f"{rec['plain_ms']:.4f} ms"
+    log(f"{name} time {call:8s} N={n} H={h:2d} C={c:4d} blocks={nb}: kernel {rec['ms']:.4f} ms, "
+        f"plain {plain_ms}, cuDNN dw + K1 {rec['cmp_ms']:.4f} ms, bound "
+        f"{rec['bound_ms']:.4f} ms ({rec['by']}) [{card}]")
+    return rec
+
+
+def phase_fused(torch, dev, card: str) -> list:
+    """K5 and K6 at the scoring path's shapes against their plain versions
+    (K6 block by block), with planted faults; times of kernel, plain version
+    and the cuDNN depthwise conv + K1 at the same shapes; the bound. Then K6
+    at convnext_large's and convnext_base's widths (K6_WIDE), held and timed
+    the same way, and both kernels' plans against the library's."""
+    from genconvit_tpu_torch.ops.cuda import convnext_block as k5
+    from genconvit_tpu_torch.ops.cuda import convnext_stage as k6
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     g = torch.Generator(device=dev).manual_seed(2345)
     k5_shapes, k6_chains = fused_shapes()
-    tol = k5.ULP_TOL   # per block, K6's too
+    for name, shapes in (("K5", k5_shapes), ("K6", k6_chains + [
+            (f"ED {m}", 240, h, c, K6_WIDE_BLOCKS) for m, _, h, c in K6_WIDE])):
+        for _, n, h, c, _ in shapes:
+            plan, lib = k6.k6_plan(c, n, h, h, sms), k6.library_k6_plan(c, n, h, h, sms)
+            if plan != lib or tuple(plan[:5]) != tuple(k5.k5_plan(c)) or \
+                    tuple(k5.library_k5_plan(c)) != tuple(k5.k5_plan(c)):
+                raise AssertionError(f"{name}'s plan mirror at C={c} N={n} H={h}: {plan}, the "
+                                     f"library's {lib}")
+            log(f"{name} plan C={c} N={n} H={h}: {tuple(plan)} (rows, group columns, stages, "
+                f"shared bytes, pairs a lane, images an item)")
     recs = {}
     for name, shapes in (("K5", k5_shapes), ("K6", k6_chains)):
-        rec = {"err": 0.0, "ulps": 0.0, "planted_min": float("inf"), "ms": 0.0,
+        tot = {"err": 0.0, "ulps": 0.0, "planted_min": float("inf"), "ms": 0.0,
                "plain_ms": 0.0, "cmp_ms": 0.0, "bound_ms": 0.0, "sides": []}
         for call, n, h, c, depth in shapes:
             nb = 1 if name == "K5" else depth    # blocks per launch
             per_fwd = depth if name == "K5" else 1
-            blks = [random_fused_block(torch, c, dev, g) for _ in range(nb)]
-            x = torch.randn(n, h, h, c, device=dev, generator=g).to(torch.bfloat16)
-            with torch.inference_mode():
-                packs = [b.pack_fused() for b in blks]
-                if name == "K5":
-                    p = packs[0]
-                    kern, plain = k5.fused_convnext_block, k5.fused_convnext_block_plain
-                    faults = k5.planted_faults(p)
-                else:
-                    p = k5.stack_blocks(packs)
-                    kern, plain = k6.fused_convnext_stage, k6.fused_convnext_stage_plain
-                    faults = k6.chain_faults(packs)
-                what = f"{name} {call:8s} N={n} H={h:2d} C={c:3d} blocks={nb}"
-                for k, (xin, out, ref) in enumerate(fused_steps(k5, k6, name, kern, x, p)):
-                    scale = (ref.float() - xin.float()).abs().max().item()
-                    step = what + (f" block {k}" if name == "K6" else "")
-                    err, rel, ulps = compare(torch, km, step, out, ref, xin, scale, tol)
-                    rec["err"] = max(rec["err"], err)
-                    rec["ulps"] = max(rec["ulps"], ulps)
-                    log(f"{step} max|diff|={err:.3e} rel={rel:.3e} ulps={ulps:.3f} (limit {tol})")
-                for fname, bad in faults.items():
-                    # refused when any step fails; the steps after it are not run
-                    worst = 0.0
-                    for k, (xin, out, ref) in enumerate(fused_steps(k5, k6, name, kern, x, bad, p)):
-                        scale = (ref.float() - xin.float()).abs().max().item()
-                        worst = max(worst, km.bf16_ulp_error(out, ref, xin, scale))
-                        if worst > tol:
-                            break
-                    rec["planted_min"] = min(rec["planted_min"], worst)
-                    log(f"  {name} planted: "
-                        + must_fail(torch, km, fname + (f" (block {k})" if name == "K6" else ""),
-                                    out, ref, xin, scale, tol))
-                del xin, ref, out, faults
-                folds = [b.fold() for b in blks]
-                xc = x.permute(0, 3, 1, 2)   # the NCHW channels_last view
-
-                def cudnn_dw_k1():
-                    v = xc
-                    for b, f in zip(blks, folds):
-                        v = km.ln_mlp_residual(_nhwc(b.dw(v)), _nhwc(v), f).permute(0, 3, 1, 2)
-                    return v
-
-                iters = 10 if n * h * h * c * nb < 5e7 else 5
-                t_k = cuda_ms(torch, lambda: kern(x, p), iters)
-                t_p = cuda_ms(torch, lambda: plain(x, p), 2, 1)
-                t_c = cuda_ms(torch, cudnn_dw_k1, iters)
-            bd, by = fused_bound(n * h * h, c, nb)
-            log(f"{name} time {call:8s} N={n} H={h:2d} C={c:3d} blocks={nb}: kernel {t_k:.4f} "
-                f"ms, plain {t_p:.4f} ms, cuDNN dw + K1 {t_c:.4f} ms, bound {bd:.4f} ms ({by}); "
-                f"x{per_fwd} per forward [{card}]")
-            rec["ms"] += per_fwd * t_k
-            rec["plain_ms"] += per_fwd * t_p
-            rec["cmp_ms"] += per_fwd * t_c
-            rec["bound_ms"] += per_fwd * bd
-            rec["sides"].append((per_fwd * bd, by))
-            del blks, x, packs, p, folds
+            r = check_fused(torch, dev, card, g, name, call, n, h, c, nb)
+            for key in ("err", "ulps"):
+                tot[key] = max(tot[key], r[key])
+            tot["planted_min"] = min(tot["planted_min"], r["planted_min"])
+            for key in ("ms", "plain_ms", "cmp_ms", "bound_ms"):
+                tot[key] += per_fwd * r[key]
+            tot["sides"].append((per_fwd * r["bound_ms"], r["by"]))
+            log(f"  x{per_fwd} per forward")
         launches = K5_PER_FORWARD if name == "K5" else K6_PER_FORWARD
-        log(f"{name} per V=8 ensemble forward ({launches} launches): kernel {rec['ms']:.4f} ms, "
-            f"plain {rec['plain_ms']:.4f} ms, cuDNN dw + K1 {rec['cmp_ms']:.4f} ms, bound "
-            f"{rec['bound_ms']:.4f} ms ({side(rec['sides'])}); max ulps {rec['ulps']:.3f}; "
-            f"planted faults >= {rec['planted_min']:.1f} ulps [{card}]")
-        recs[name] = rec
+        log(f"{name} per V=8 ensemble forward ({launches} launches): kernel {tot['ms']:.4f} ms, "
+            f"plain {tot['plain_ms']:.4f} ms, cuDNN dw + K1 {tot['cmp_ms']:.4f} ms, bound "
+            f"{tot['bound_ms']:.4f} ms ({side(tot['sides'])}); max ulps {tot['ulps']:.3f}; "
+            f"planted faults >= {tot['planted_min']:.1f} ulps [{card}]")
+        recs[name] = tot
+    for model, stage, h, c in K6_WIDE:
+        r = check_fused(torch, dev, card, g, "K6", f"ED {model} s{stage}", 240, h, c,
+                        K6_WIDE_BLOCKS, time_plain=False)
+        recs["K6"]["err"] = max(recs["K6"]["err"], r["err"])
+        log(f"K6 {model} stage {stage} (C={c}, {K6_WIDE_BLOCKS} blocks): kernel {r['ms']:.4f} ms "
+            f"against cuDNN dw + K1 {r['cmp_ms']:.4f} ms ({r['ms'] / r['cmp_ms']:.2f}x), bound "
+            f"{r['bound_ms']:.4f} ms; max ulps {r['ulps']:.3f}; planted faults >= "
+            f"{r['planted_min']:.1f} ulps [{card}]")
     out = []
     for name, fn, src, tpu in (
             ("K5", "fused_convnext_block", "convnext_block.cu",
@@ -926,14 +975,15 @@ def make_plan(pallas: str, int8_mlp: str, int8_heads: bool):
 
 
 def expected_launches(kcuda, pallas: str, int8_mlp: str, int8_heads: bool,
-                       tails: int = 54) -> dict:
+                       tails: int = 54, chains: int = K6_PER_FORWARD) -> dict:
     """Every kernel's launches in one ensemble forward of a configuration
-    (tails: block tails per forward, 54 for convnext_tiny)."""
+    (tails: block tails per forward, 54 for convnext_tiny; chains: K6's
+    launches under pallas='stage', 5 for convnext_tiny)."""
     want = dict.fromkeys(kcuda.launch_counts(), 0)
     if pallas == "1":
         want["fused_convnext_block"] = K5_PER_FORWARD
     elif pallas == "stage":
-        want["fused_convnext_stage"] = K6_PER_FORWARD
+        want["fused_convnext_stage"] = chains
     else:
         want["layer_norm_rows"] = 3
         want["ln_mlp_residual_int8" if int8_mlp else "ln_mlp_residual"] = tails
@@ -948,14 +998,14 @@ def backbone_config(backbone: str):
 
 
 def phase_slice(torch, np, dev, card: str, cfg, backbone: str = "convnext_tiny",
-                tails: int = 54) -> tuple:
+                tails: int = 54, chains: int = K6_PER_FORWARD) -> tuple:
     """The slice's requests through one Predictor of configuration cfg;
     every forward must launch exactly the kernels of its plan."""
     from genconvit_tpu_torch.infer.engine import Predictor
     from genconvit_tpu_torch.ops import cuda as kcuda
 
     name, pallas, int8_mlp, int8_heads = cfg
-    want = expected_launches(kcuda, pallas, int8_mlp, int8_heads, tails)
+    want = expected_launches(kcuda, pallas, int8_mlp, int8_heads, tails, chains)
     t0 = time.perf_counter()
     pred = Predictor(backbone_config(backbone), net="genconvit", device=dev, seed=0,
                      kernel_plan=make_plan(pallas, int8_mlp, int8_heads))
@@ -1076,16 +1126,20 @@ def phase_parity(torch, np, dev, card: str, configs=CONFIGS,
 
 def phase_large(torch, np, dev, card: str, profile: bool) -> dict:
     """Phase 10: convnext_large (the JAX package's `--s large` backbone) at
-    full width and depth through the default plan and through int8 heads +
-    int8_mlp='full': the requests with 108 K1 (or K4) and 3 K2 launches per
-    forward (and K3's one), throughput, parity of both against one float32
-    plain path. Returns each configuration's record."""
+    full width and depth through the default plan, through int8 heads +
+    int8_mlp='full' and through pallas='stage': the requests with 108 K1
+    (or K4) and 3 K2 launches per forward (and K3's one), or 8 K6 launches,
+    throughput, parity of each against one float32 plain path. Returns each
+    configuration's record."""
     import gc
 
     out = {}
     for cfg in LARGE_CONFIGS:
-        pred, totals, peak = phase_slice(torch, np, dev, card, cfg, LARGE, LARGE_K1_PER_FORWARD)
-        rates = phase_throughput(torch, pred, dev, card, f"{cfg[0]}, {LARGE}")
+        pred, totals, peak = phase_slice(torch, np, dev, card, cfg, LARGE, LARGE_K1_PER_FORWARD,
+                                         LARGE_K6_PER_FORWARD)
+        # V=1 is not timed under 'stage' (a third of a second a launch there)
+        rates = phase_throughput(torch, pred, dev, card, f"{cfg[0]}, {LARGE}",
+                                 v1=cfg[1] != "stage")
         if profile and cfg[0] == "default":
             phase_profile(torch, pred, dev, card, f"{cfg[0]}, {LARGE}")
         del pred
@@ -1098,7 +1152,8 @@ def phase_large(torch, np, dev, card: str, profile: bool) -> dict:
     return out
 
 
-def phase_throughput(torch, pred, dev, card: str, name: str) -> dict:
+def phase_throughput(torch, pred, dev, card: str, name: str, v1: bool = True) -> dict:
+    """videos/s at V=8 and, unless v1 is False, the V=1 latencies."""
     g = torch.Generator(device=dev).manual_seed(3)
 
     def run(v: int, iters: int, trials: int = 3):
@@ -1126,6 +1181,9 @@ def phase_throughput(torch, pred, dev, card: str, name: str) -> dict:
     peak8 = torch.cuda.max_memory_allocated(dev) / 2**30
     log(f"throughput [{name}] V=8 best: {best[0]:.2f} videos/s, {best[1]:.2f} ms/launch; "
         f"peak device memory {peak8:.2f} GiB [{card}]")
+    if not v1:
+        return {"v8_videos_s": best[0], "v8_ms": best[1], "v1_ms": None,
+                "v1_sync_median_ms": None, "peak_v8_gib": peak8}
     bufs, mask, r1 = run(1, 24)
     lat = []
     for i in range(10):
@@ -1145,10 +1203,8 @@ def phase_throughput(torch, pred, dev, card: str, name: str) -> dict:
 def convnext_group(key: str) -> str:
     """The scoring path's kernel groups of the profile."""
     k = key.lower()
-    if "fused_block" in k:
-        return "K5 fused_block"
-    if "fused_stage" in k:
-        return "K6 fused_stage"
+    if "fused_wgmma" in k:   # one kernel template, K5's GELU form or K6's
+        return "K5 fused_block" if "geluhp<0>" in k else "K6 fused_stage"
     if "ln_mlp_residual_int8" in k:
         return f"K4 {key}"
     if "wint8" in k:
@@ -1725,8 +1781,9 @@ def main() -> int:
             f"GiB over phase 4's forwards, {r['peak_v8_gib']:.2f} GiB at V=8; "
             f"max|dy_val| vs f32 plain {parity[name]:.3e} [{card}]")
     for name, r in large.items():
+        v1 = "not measured" if r["v1_ms"] is None else f"{r['v1_ms']:.2f} ms/launch"
         log(f"summary [{name}, {LARGE}]: V=8 {r['v8_videos_s']:.2f} videos/s "
-            f"({r['v8_ms']:.2f} ms/launch), V=1 {r['v1_ms']:.2f} ms/launch, peak device "
+            f"({r['v8_ms']:.2f} ms/launch), V=1 {v1}, peak device "
             f"memory {r['peak_v8_gib']:.2f} GiB at V=8; launches {r['launches']}; "
             f"max|dy_val| vs f32 plain {r['dy_val']:.3e} [{card}]")
     for (pname, n), (rate, ms, peak) in swin["rates"].items():

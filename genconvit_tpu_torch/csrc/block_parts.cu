@@ -1,5 +1,6 @@
-// Hand-written Hopper (sm_90a) probe kernel: K5's block tile cut after one
-// of its phases, with a plain C interface loaded through ctypes
+// Hand-written Hopper (sm_90a) probe kernel: the block tile of K5's first
+// design (fused_block.cuh, mlp_tile.cuh) cut after one of its phases, with
+// a plain C interface loaded through ctypes
 // (genconvit_tpu_torch/ops/cuda/block_parts.py). No PyTorch headers.
 //
 // M2  gcv_block_parts  replaces the Pallas kernel `kern` of
@@ -18,10 +19,11 @@
 //       gelu        the first C columns of bf16(GELU(y . w1 + b1))
 //       full        the block output, bf16(x + (h . w2 + b2) * gamma)
 //
-//     The time deltas between phases attribute K5's time to its steps: the
-//     question is in which step K5 loses to cuDNN's depthwise conv + K1 at
-//     C=192 and at 112 px (PERF.md). Every phase launches the same grid as
-//     K5 (BM-row tiles, 8 warps) and runs K5's own tile code up to its cut.
+//     The time deltas between phases attribute the tile's time to its
+//     steps: the question, for K5's first design, was in which step it lost
+//     to cuDNN's depthwise conv + K1 at C=192 and at 112 px (PERF.md). Every
+//     phase launches that design's grid (BM-row tiles, 8 warps) and runs its
+//     tile code up to its cut.
 //     GELU: the tool's is convnext_stage._gelu_f32 with exact_div=False,
 //     e = zc * P * (1 / Q) with the TPU's approximate reciprocal and one
 //     Newton step (genconvit_tpu/ops/pallas/common.py:37-42). The port's
@@ -29,9 +31,10 @@
 //     the probe uses GeluRecip, not K5's GeluErfDiv (zc * (P / Q)).
 //     Weights: the tool's depthwise weights are f32; the probe reads K5's
 //     pack, whose depthwise weights are bf16 (convnext_block.FusedBlockWeights),
-//     so that it times K5's own taps; the tests feed the JAX side
+//     so that it times the tile's own taps; the tests feed the JAX side
 //     bf16-representable f32 weights, on which the two compute the same.
-//     What bounds it on the card, and the design: K5's (convnext_block.cu).
+//     What bounds it on the card: the two matmuls and the 49 f32 taps, as
+//     for K5 (convnext_block.cu).
 //     The cut phases skip what follows them; fc1 and gelu stream no fc2
 //     weight slices.
 //

@@ -60,7 +60,8 @@ __device__ __forceinline__ float gelu_rational(float h, int hp) {
 // compute it. recip = 0: e = zc * (P / Q), the erf form of K5
 // (convnext_block.py:35-41, :92); recip = 1: e = zc * P * (1 / Q), the
 // gelu_f32 form of K6 (ops/pallas/common.py:20-47). Both pin e to sign(z)
-// where |z| >= 3.625.
+// where |z| >= 3.625. The probe M2 computes them so; K5 and K6 run their
+// polynomials on fused multiply-adds (block_wgmma.cuh GeluHp).
 __device__ __forceinline__ float gelu_hp_exact(float h, int recip) {
   const float zmax = 3.625f;
   const float z = __fmul_rn(h, 0.7071067811865476f);

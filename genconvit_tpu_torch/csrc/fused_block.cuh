@@ -1,5 +1,7 @@
-// One row tile of a whole ConvNeXt block, shared by K5 (convnext_block.cu)
-// and K6 (convnext_stage.cu). Rows are pixels of an NHWC activation [N, H,
+// One row tile of a whole ConvNeXt block: the first design of K5 and K6,
+// which the block-phase probe M2 (block_parts.cu) keeps as it was (K5 and
+// K6 now run on the warpgroup-MMA loop, block_wgmma.cuh; "K5" and "K6"
+// below name that first design). Rows are pixels of an NHWC activation [N, H,
 // W, C] in its storage order; per row, as the Pallas kernels compute it
 // (genconvit_tpu/ops/pallas/convnext_block.py:71-98):
 //
@@ -18,8 +20,8 @@
 //
 // Stop (a template argument, the whole block by default) cuts the tile
 // after one of its steps for the block-phase probe (block_parts.cu), which
-// then writes that step's [rows, C] bf16 result to dst; K5 and K6 compile
-// the whole block, to the same code as without the argument.
+// then writes that step's [rows, C] bf16 result to dst; the whole block
+// (kStopFull) compiles to the same code as without the argument.
 #pragma once
 
 #include "mlp_tile.cuh"

@@ -1,6 +1,6 @@
-// The bf16 MLP of one row tile on the tensor cores (WMMA), shared by K5
-// (convnext_block.cu), K6 (convnext_stage.cu) and the block-phase probe M2
-// (block_parts.cu); K1 runs on the warpgroup-MMA loop of mlp_wgmma.cuh:
+// The bf16 MLP of one row tile on the tensor cores (WMMA): the first design
+// of K5's and K6's MLP, now the block-phase probe M2's (block_parts.cu)
+// alone; K1, K4, K5 and K6 run on the warpgroup-MMA loop of mlp_wgmma.cuh:
 //
 //   os[BM, C] = act(ys[BM, C] . w1[C, 4C] + b1) . w2[4C, C]     (f32, no fc2 bias)
 //

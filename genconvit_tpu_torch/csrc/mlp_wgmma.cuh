@@ -1,5 +1,5 @@
 // The MLP of a block tail on warpgroup MMA, the loop of K1 (convnext_mlp.cu)
-// and K4 (convnext_mlp_int8.cu):
+// and K4 (convnext_mlp_int8.cu), and through block_wgmma.cuh of K5 and K6:
 //
 //   o[64, cols of a group] = act(y[64, C] . w1 + b1) . w2[:, group]
 //
@@ -49,9 +49,10 @@
 // the row tiles; the producer runs ahead into the next tile's weights.
 //
 // mlp_consumer is the consumer warpgroups' whole work per tile, shared by
-// both kernels: the caller's prologue (LayerNorm, y into shared memory),
-// the passes, and the epilogue on the fc2 accumulator in registers (the
-// residual add, or the post-LN).
+// K1 and K4: the caller's prologue (LayerNorm, y into shared memory), the
+// passes, and the epilogue on the fc2 accumulator in registers (the
+// residual add, or the post-LN). K5 and K6 run the same passes and ring
+// from their own consumer and schedule (block_wgmma.cuh).
 #pragma once
 
 #include "wgmma.cuh"
@@ -269,22 +270,56 @@ struct MlpWgmma {
     return passes;
   }
 
+  // fc1 stage f of chunk j into ring slot `slot`: w1t rows 64j.. (hidden
+  // units), k-blocks f * kKbs ..; blk >= 0: block blk of a 3-D map (K5, K6)
+  __device__ __forceinline__ void load_fc1(const CUtensorMap* w1t, int slot, int f, int j,
+                                           int blk) const {
+    unsigned char* dst = ring + slot * kStageBytes;
+    mbar_expect_tx(&full[slot], kKbs * 8192);
+    for (int r = 0; r < kKbs; ++r) {
+      if (blk >= 0) {
+        tma_load_3d(dst + r * 8192, w1t, (f * kKbs + r) * F1::kK, 64 * j, blk, &full[slot]);
+      } else {
+        tma_load_2d(dst + r * 8192, w1t, (f * kKbs + r) * F1::kK, 64 * j, &full[slot]);
+      }
+    }
+  }
+
+  // The weight stream of one pass (every chunk's fc1 stages, then its fc2
+  // stages of the pass's groups), from stage q on.
+  __device__ __forceinline__ void produce_pass(const CUtensorMap* w1t, const CUtensorMap* w2t,
+                                               int pass, int blk, uint32_t& q) const {
+    for (int j = 0; j < chunks(); ++j) {
+      for (int f = 0; f < fc1_stages + kFc2; ++f, ++q) {
+        const int slot = q % stages;
+        mbar_wait(&empty[slot], ((q / stages) & 1) ^ 1);
+        unsigned char* dst = ring + slot * kStageBytes;
+        if (f < fc1_stages) {
+          load_fc1(w1t, slot, f, j, blk);
+        } else {
+          // w2t rows (output columns) of group pass * kFc2 + (f - fc1_stages),
+          // hidden 64j..64j+63
+          const int col0 = (pass * kFc2 + f - fc1_stages) * NC;
+          mbar_expect_tx(&full[slot], F2::bytes(NC));
+          if (blk >= 0) {
+            tma_load_3d(dst, w2t, 64 * j, col0, blk, &full[slot]);
+          } else {
+            tma_load_2d(dst, w2t, 64 * j, col0, &full[slot]);
+          }
+        }
+      }
+    }
+  }
+
   // The producer (one thread): the weight stream of the block's work items
   // (item0, item0 + stride, ... below nitems), by TMA from w1t [4C, C]
   // (64 x 128-byte boxes) and w2t [C, 4C] (NC x 64-value boxes), whose maps
   // swizzle as wgmma reads and fill zeros past C. With kRowMax each item
-  // starts with the fc1 stages of every chunk (the row-maxima pass).
+  // starts with the fc1 stages of every chunk (the row-maxima pass). The
+  // block kernels (block_wgmma.cuh) stream their own schedule with
+  // produce_pass.
   __device__ __forceinline__ void produce(const CUtensorMap* w1t, const CUtensorMap* w2t,
                                           int item0, int stride, int nitems) const {
-    // fc1 stage f of chunk j into ring slot `slot`: w1t rows 64j.. (hidden
-    // units), k-blocks f * kKbs ..
-    auto load_fc1 = [&](int slot, int f, int j) {
-      unsigned char* dst = ring + slot * kStageBytes;
-      mbar_expect_tx(&full[slot], kKbs * 8192);
-      for (int r = 0; r < kKbs; ++r) {
-        tma_load_2d(dst + r * 8192, w1t, (f * kKbs + r) * F1::kK, 64 * j, &full[slot]);
-      }
-    };
     uint32_t q = 0;
     for (int item = item0; item < nitems; item += stride) {
       if constexpr (kRowMax) {
@@ -292,26 +327,12 @@ struct MlpWgmma {
           for (int f = 0; f < fc1_stages; ++f, ++q) {
             const int slot = q % stages;
             mbar_wait(&empty[slot], ((q / stages) & 1) ^ 1);
-            load_fc1(slot, f, j);
+            load_fc1(w1t, slot, f, j, -1);
           }
         }
       }
       for (int pass = item_pass0(item); pass < item_pass1(item); ++pass) {
-        for (int j = 0; j < chunks(); ++j) {
-          for (int f = 0; f < fc1_stages + kFc2; ++f, ++q) {
-            const int slot = q % stages;
-            mbar_wait(&empty[slot], ((q / stages) & 1) ^ 1);
-            unsigned char* dst = ring + slot * kStageBytes;
-            if (f < fc1_stages) {
-              load_fc1(slot, f, j);
-            } else {
-              // w2t rows (output columns) of group pass * kFc2 + (f - fc1_stages),
-              // hidden 64j..64j+63
-              mbar_expect_tx(&full[slot], F2::bytes(NC));
-              tma_load_2d(dst, w2t, 64 * j, (pass * kFc2 + f - fc1_stages) * NC, &full[slot]);
-            }
-          }
-        }
+        produce_pass(w1t, w2t, pass, -1, q);
       }
     }
   }

@@ -1,6 +1,7 @@
 // Hopper warpgroup matrix multiply (wgmma) and the barriers around it, for
-// the kernels that run on it: K1 (convnext_mlp.cu) and K4
-// (convnext_mlp_int8.cu), whose loop is mlp_wgmma.cuh, and K3
+// the kernels that run on it: K1 (convnext_mlp.cu), K4
+// (convnext_mlp_int8.cu), K5 (convnext_block.cu) and K6
+// (convnext_stage.cu), whose loop is mlp_wgmma.cuh, and K3
 // (int8_matmul.cu). sm_90a only.
 //
 // Shared-memory operands are K-major tiles of 128-byte rows (64 bf16 or
@@ -161,6 +162,17 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, i
       : "memory");
 }
 
+// The same for a 3-D map (c2: the outermost coordinate, a block of a chain
+// stacked on a leading axis; the zero fill holds per block).
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            int c2, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(smem_u32(bar))
+      : "memory");
+}
+
 // Wait until the barrier's phase of this parity has completed. A wait of
 // more than 2^35 clocks (about 20 s) traps: a lost arrival ends the launch
 // with an error instead of holding the card.
@@ -208,6 +220,26 @@ __host__ inline int box_map(CUtensorMap* map, const void* base, int elem_bytes, 
                         CU_TENSOR_MAP_INTERLEAVE_NONE,
                         box_bytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// A 3-D map of `depth` bf16 [outer, inner] matrices stacked on a leading
+// axis, in boxes of box_outer rows of 128 bytes of one matrix, swizzled by
+// 128 bytes, zero past each matrix's edges.
+__host__ inline int box_map_3d(CUtensorMap* map, const void* base, int inner, int outer,
+                               int depth, int box_outer) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(inner), static_cast<cuuint64_t>(outer),
+                              static_cast<cuuint64_t>(depth)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(inner) * 2,
+                                 static_cast<cuuint64_t>(inner) * outer * 2};
+  const cuuint32_t box[3] = {64, static_cast<cuuint32_t>(box_outer), 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
+                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 

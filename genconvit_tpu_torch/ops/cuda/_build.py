@@ -33,7 +33,7 @@ SOURCES = tuple(os.path.join(_PKG_DIR, "csrc", f) for f in
                  "window_attn.cu", "int8_dot.cu", "dw_moments.cu", "block_parts.cu"))
 HEADERS = tuple(os.path.join(_PKG_DIR, "csrc", f) for f in
                 ("common.cuh", "mlp_tile.cuh", "fused_block.cuh", "wgmma.cuh",
-                 "mlp_wgmma.cuh", "convnext_mlp_int8.cuh"))
+                 "mlp_wgmma.cuh", "convnext_mlp_int8.cuh", "block_wgmma.cuh"))
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
                          "genconvit_tpu_torch")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -53,9 +53,9 @@ _SIGNATURES = {
                                  ctypes.c_int),
     # x, wq, scale, bias, xp, work, out, m, k, n, x_f32, out_f32, stream
     "gcv_matmul_wint8": ([_P] * 7 + [ctypes.c_int] * 5 + [_P], ctypes.c_int),
-    # x, wdw, bdw, lns, lnb, w1, b1, w2, b2, gamma, out, n, h, w, c, stream
+    # x, wdw, bdw, lns, lnb, w1t, b1, w2t, b2, gamma, out, n, h, w, c, stream
     "gcv_fused_block": ([_P] * 11 + [ctypes.c_int] * 4 + [_P], ctypes.c_int),
-    # x, wdw, bdw, lns, lnb, w1, b1, w2, b2, gamma, ws, out, n, h, w, c, nb, stream
+    # x, wdw, bdw, lns, lnb, w1t, b1, w2t, b2, gamma, ws, out, n, h, w, c, nb, stream
     "gcv_fused_stage": ([_P] * 12 + [ctypes.c_int] * 5 + [_P], ctypes.c_int),
     # qkv, bias, mask, out, windows, l, heads, hd, nw, scale, stream
     "gcv_window_attention": ([_P] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 4
@@ -72,6 +72,10 @@ _SIGNATURES = {
     "gcv_wint8_x_rows": ([ctypes.c_int], ctypes.c_int),
     "gcv_mlp_plan": ([ctypes.c_int, _P], ctypes.c_int),
     "gcv_k4_plan": ([ctypes.c_int, ctypes.c_int, _P], ctypes.c_int),
+    "gcv_k5_plan": ([ctypes.c_int, _P], ctypes.c_int),
+    # c, n, hw, sms, out
+    "gcv_k6_plan": ([ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, _P],
+                    ctypes.c_int),
     "gcv_error_string": ([ctypes.c_int], ctypes.c_char_p),
 }
 

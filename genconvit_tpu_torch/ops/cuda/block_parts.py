@@ -1,6 +1,7 @@
-"""M2: K5's fused ConvNeXt block cut after one of its phases, as a
-hand-written CUDA probe kernel (csrc/block_parts.cu, K5's own tile code
-in fused_block.cuh), with its plain PyTorch version.
+"""M2: the fused ConvNeXt block of K5's first design cut after one of its
+phases, as a hand-written CUDA probe kernel (csrc/block_parts.cu, that
+design's tile code in fused_block.cuh and mlp_tile.cuh), with its plain
+PyTorch version.
 
   block_parts  replaces `kern` (built by build()) of tools/microbench_kernel_parts.py
 
@@ -36,7 +37,7 @@ from genconvit_tpu_torch.ops.cuda import _build
 from genconvit_tpu_torch.ops.cuda.convnext_block import (FusedBlockWeights, block_plain,
                                                          check_activation, check_weights)
 from genconvit_tpu_torch.ops.cuda.convnext_block import planted_faults as k5_faults
-from genconvit_tpu_torch.ops.cuda.convnext_mlp import _require, _stream, bf16_ulp_error
+from genconvit_tpu_torch.ops.cuda.convnext_mlp import MAX_C, _require, _stream, bf16_ulp_error
 from genconvit_tpu_torch.ops.cuda.convnext_stage import _GELU
 
 PHASES = ("dma", "dw", "dw_bf16acc", "ln", "fc1", "gelu", "full")   # = TileStop's order
@@ -74,13 +75,15 @@ def block_parts(x: torch.Tensor, p: FusedBlockWeights, phase: str) -> torch.Tens
     if x.device.type == "cpu":
         return block_parts_plain(x, p, phase)
     _require(x.is_cuda, what, f"unsupported device {x.device}")
-    check_activation(what, x)
+    check_activation(what, x, MAX_C)
     n, h, w, c = x.shape
-    check_weights(what, p, c, x.device)
+    fields = ("w_dw", "b_dw", "ln_scale", "ln_bias", "w1", "b1", "w2", "b2", "gamma")
+    check_weights(what, p, c, x.device, fields=fields)
     out = torch.empty_like(x)
+    ops = tuple(getattr(p, f) for f in fields)
     lib = _build.load()
     with torch.cuda.device(x.device):
-        err = lib.gcv_block_parts(x.data_ptr(), *(t.data_ptr() for t in p), out.data_ptr(),
+        err = lib.gcv_block_parts(x.data_ptr(), *(t.data_ptr() for t in ops), out.data_ptr(),
                                   n, h, w, c, PHASES.index(phase), _stream(x.device))
     _build.check(err, what)
     block_parts.launches += 1

@@ -15,35 +15,45 @@ roundings (convnext_block.py:71-98):
         an exact divide, whatever the plan's GELU tier
   out = bf16(x + ((h . w2 + b2) * gamma))   (gamma not folded into w2)
 
-The wrapper takes the JAX layout [N,H,W,C], which is the storage of the
-port's channels_last NCHW activations. On a CPU tensor it runs the plain
+The kernel runs the GELU's polynomials on fused multiply-adds (one
+rounding where the plain version rounds twice: a few float32 ulps of the
+erf, below h's bf16 rounding; the kernel is held to the plain version
+within ULP_TOL). The wrapper takes the JAX layout [N,H,W,C], which is the
+storage of the port's channels_last NCHW activations. On a CPU tensor it runs the plain
 version; on a CUDA tensor it launches the kernel or raises. It counts its
 kernel launches in its `launches` attribute.
 
 `pack_block` lays a block's weights out as K5 and K6 read them, once, in
 `ConvNeXt.prepare_kernels()`; `stack_blocks` stacks a chain's packs on a
 leading axis for K6 (ops/cuda/convnext_stage.py). `planted_faults` makes
-the wrong packs that the card checks must refuse.
+the wrong packs that the card checks must refuse. `k5_plan` mirrors the
+kernel's plan (csrc/block_wgmma.cuh: K1's tile plan and the taps' register
+blocking); `library_k5_plan` asks the built library.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, NamedTuple, Sequence
+import ctypes
+from typing import Callable, Dict, NamedTuple, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 
 from genconvit_tpu_torch.ops.act import _SQRT_HALF, erf_rational
 from genconvit_tpu_torch.ops.cuda import _build
-from genconvit_tpu_torch.ops.cuda.convnext_mlp import (LN_EPS, MAX_C, _check_vec,
-                                                       _require, _stream)
+from genconvit_tpu_torch.ops.cuda.convnext_mlp import (K1_MAX_C, LN_EPS, _check_vec,
+                                                       _require, _stream, mlp_plan)
 
 ULP_TOL = 2.0  # kernel vs plain, elementwise, in bf16 ulps: one rounding of x + o, as K1
 
 
 class FusedBlockWeights(NamedTuple):
     """A block's weights as K5 reads them; K6 reads the same fields stacked
-    on a leading axis of the chain's blocks."""
+    on a leading axis of the chain's blocks. The kernels read the matrices
+    K-major, as warpgroup MMA takes its B operand (w1t, w2t: the torch
+    layouts, which `pack_block` stores); w1 and w2 hold the same values
+    transposed, as the plain version and the block-phase probe M2
+    (ops/cuda/block_parts.py) read them."""
     w_dw: torch.Tensor    # [49, C] bf16: w_dw[dy*7+dx, c] = conv_dw.weight[c, 0, dy, dx]
     b_dw: torch.Tensor    # [C] f32
     ln_scale: torch.Tensor  # [C] f32
@@ -53,6 +63,8 @@ class FusedBlockWeights(NamedTuple):
     w2: torch.Tensor      # [4C, C] bf16: fc2.weight^T
     b2: torch.Tensor      # [C] f32
     gamma: torch.Tensor   # [C] f32
+    w1t: Optional[torch.Tensor] = None   # [4C, C] bf16: fc1.weight (= w1^T)
+    w2t: Optional[torch.Tensor] = None   # [C, 4C] bf16: fc2.weight (= w2^T)
 
 
 @torch.no_grad()
@@ -69,13 +81,15 @@ def pack_block(conv_dw_weight, conv_dw_bias, ln_scale, ln_bias, fc1_weight, fc1_
         w_dw=conv_dw_weight[:, 0].permute(1, 2, 0).reshape(49, c).to(dtype).contiguous(),
         b_dw=vec(conv_dw_bias), ln_scale=vec(ln_scale), ln_bias=vec(ln_bias),
         w1=fc1_weight.t().to(dtype).contiguous(), b1=vec(fc1_bias),
-        w2=fc2_weight.t().to(dtype).contiguous(), b2=vec(fc2_bias), gamma=vec(gamma))
+        w2=fc2_weight.t().to(dtype).contiguous(), b2=vec(fc2_bias), gamma=vec(gamma),
+        w1t=fc1_weight.to(dtype).contiguous(), w2t=fc2_weight.to(dtype).contiguous())
 
 
 @torch.no_grad()
 def stack_blocks(packs: Sequence[FusedBlockWeights]) -> FusedBlockWeights:
     """A chain's packs stacked on a leading axis, as K6 reads them."""
-    return FusedBlockWeights(*(torch.stack(f).contiguous() for f in zip(*packs)))
+    return FusedBlockWeights(*(None if f[0] is None else torch.stack(f).contiguous()
+                               for f in zip(*packs)))
 
 
 def planted_faults(p: FusedBlockWeights) -> Dict[str, FusedBlockWeights]:
@@ -134,27 +148,70 @@ def fused_convnext_block_plain(x: torch.Tensor, p: FusedBlockWeights) -> torch.T
     return block_plain(x, p, gelu_erf_hp)
 
 
-def check_activation(what: str, x: torch.Tensor) -> None:
+def check_activation(what: str, x: torch.Tensor, max_c: int = K1_MAX_C) -> None:
     """What K5 and K6 take: a contiguous 16-byte-aligned bf16 NHWC tensor
-    with C a multiple of 32 and at most MAX_C."""
+    with C a multiple of 32 and at most max_c (K5 and K6: K1's limit)."""
     _require(x.dim() == 4, what, f"expected [N,H,W,C], got shape {tuple(x.shape)}")
     c = x.shape[-1]
     _require(x.dtype == torch.bfloat16, what, f"x must be bfloat16, got {x.dtype}")
     _require(c % 32 == 0, what, f"C={c} must be a multiple of 32")
-    _require(c <= MAX_C, what, f"C={c} exceeds {MAX_C}")
+    _require(c <= max_c, what, f"C={c} exceeds {max_c}")
     _require(x.is_contiguous(), what, "x must be contiguous (NHWC)")
     _require(x.data_ptr() % 16 == 0, what, "x must be 16-byte aligned")
 
 
-def check_weights(what: str, p: FusedBlockWeights, c: int, device, lead=()) -> None:
-    """The packs' shapes, dtypes and placement (lead: K6's chain axis)."""
+def check_weights(what: str, p: FusedBlockWeights, c: int, device, lead=(),
+                  fields: Sequence[str] = FusedBlockWeights._fields) -> None:
+    """The packs' shapes, dtypes and placement (lead: K6's chain axis), of
+    every field (K5, K6) or of `fields` (M2: the layout it reads)."""
     lead = tuple(lead)
     bf, f32 = torch.bfloat16, torch.float32
-    for t, shape, dtype in ((p.w_dw, (49, c), bf), (p.b_dw, (c,), f32),
-                            (p.ln_scale, (c,), f32), (p.ln_bias, (c,), f32),
-                            (p.w1, (c, 4 * c), bf), (p.b1, (4 * c,), f32),
-                            (p.w2, (4 * c, c), bf), (p.b2, (c,), f32), (p.gamma, (c,), f32)):
+    shapes = {"w_dw": ((49, c), bf), "b_dw": ((c,), f32), "ln_scale": ((c,), f32),
+              "ln_bias": ((c,), f32), "w1": ((c, 4 * c), bf), "b1": ((4 * c,), f32),
+              "w2": ((4 * c, c), bf), "b2": ((c,), f32), "gamma": ((c,), f32),
+              "w1t": ((4 * c, c), bf), "w2t": ((c, 4 * c), bf)}
+    for name in fields:
+        t = getattr(p, name)
+        _require(t is not None, what, f"the pack lacks {name} (make it with pack_block)")
+        shape, dtype = shapes[name]
         _check_vec(what, t, lead + shape, dtype, device)
+
+
+def kernel_operands(p: FusedBlockWeights) -> tuple:
+    """The packs K5 and K6 read, in their entry points' order."""
+    return (p.w_dw, p.b_dw, p.ln_scale, p.ln_bias, p.w1t, p.b1, p.w2t, p.b2, p.gamma)
+
+
+class FusedPlan(NamedTuple):
+    """K5's plan at one width (csrc/block_wgmma.cuh block_plan_out): K1's
+    tile plan, and the channel pairs a lane holds in the taps."""
+    rows: int       # rows per tile: 128 (two warpgroups of 64) or 64 (shared)
+    cols: int       # output columns per fc2 group
+    stages: int     # weight ring stages
+    smem: int       # dynamic shared memory bytes
+    pairs: int      # >= C / 64; up to 3 the taps of a run stay in registers
+
+
+def block_pairs(c: int) -> int:
+    """The taps' channel pairs per lane at width c: one instantiation per
+    range of widths."""
+    return 2 if c <= 128 else 3 if c <= 192 else 6 if c <= 384 else 12 if c <= 768 else 24
+
+
+def k5_plan(c: int) -> Optional[FusedPlan]:
+    """K5's plan at width c, as the CUDA source computes it; None where K5
+    does not take c (a multiple of 32 in [32, K1_MAX_C])."""
+    m = mlp_plan(c)
+    if m is None:
+        return None
+    return FusedPlan(*m, block_pairs(c))
+
+
+def library_k5_plan(c: int) -> Optional[FusedPlan]:
+    """K5's plan as the built library computes it (loads the library); the
+    card tests hold `k5_plan` against it."""
+    out = (ctypes.c_int * 5)()
+    return FusedPlan(*out) if _build.load().gcv_k5_plan(c, out) else None
 
 
 def fused_convnext_block(x: torch.Tensor, p: FusedBlockWeights) -> torch.Tensor:
@@ -170,8 +227,8 @@ def fused_convnext_block(x: torch.Tensor, p: FusedBlockWeights) -> torch.Tensor:
     lib = _build.load()
     with torch.cuda.device(x.device):
         err = lib.gcv_fused_block(
-            x.data_ptr(), *(t.data_ptr() for t in p), out.data_ptr(), n, h, w, c,
-            _stream(x.device))
+            x.data_ptr(), *(t.data_ptr() for t in kernel_operands(p)), out.data_ptr(), n, h, w,
+            c, _stream(x.device))
     _build.check(err, what)
     fused_convnext_block.launches += 1
     return out

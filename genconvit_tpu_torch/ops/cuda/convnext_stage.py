@@ -15,13 +15,16 @@ whole chain) or raises. It counts its kernel launches in `launches`.
 
 The kernel is held against its plain version block by block (`stage_steps`),
 each block at K5's bound, so that a fault confined to one block of a long
-chain cannot hide in the chain's accumulated rounding noise.
+chain cannot hide in the chain's accumulated rounding noise. `k6_plan`
+mirrors the kernel's plan (K5's, and the images per work item);
+`library_k6_plan` asks the built library.
 """
 
 from __future__ import annotations
 
+import ctypes
 from functools import partial
-from typing import Callable, Dict, Iterator, Optional, Sequence, Tuple
+from typing import Callable, Dict, Iterator, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -29,6 +32,7 @@ from genconvit_tpu_torch.ops.act import gelu_rational_f32
 from genconvit_tpu_torch.ops.cuda import _build
 from genconvit_tpu_torch.ops.cuda.convnext_block import (FusedBlockWeights, block_plain,
                                                          check_activation, check_weights,
+                                                         k5_plan, kernel_operands,
                                                          planted_faults, stack_blocks)
 from genconvit_tpu_torch.ops.cuda.convnext_mlp import _require, _stream
 
@@ -37,12 +41,12 @@ _GELU = partial(gelu_rational_f32, tier="hp")   # common.gelu_f32(hp=True), exac
 
 def chain_block(blocks: FusedBlockWeights, b: int) -> FusedBlockWeights:
     """Block b's pack from a stacked chain."""
-    return FusedBlockWeights(*(t[b] for t in blocks))
+    return FusedBlockWeights(*(None if t is None else t[b] for t in blocks))
 
 
 def chain_prefix(blocks: FusedBlockWeights, k: int) -> FusedBlockWeights:
     """The chain's first k blocks (views: contiguous, same alignment)."""
-    return FusedBlockWeights(*(t[:k] for t in blocks))
+    return FusedBlockWeights(*(None if t is None else t[:k] for t in blocks))
 
 
 def fused_convnext_stage_plain(x: torch.Tensor, blocks: FusedBlockWeights) -> torch.Tensor:
@@ -86,6 +90,46 @@ def chain_faults(packs: Sequence[FusedBlockWeights]) -> Dict[str, FusedBlockWeig
     return faults
 
 
+class StagePlan(NamedTuple):
+    """K6's plan for one launch (csrc/convnext_stage.cu gcv_k6_plan): K5's
+    plan at the width, and the whole images of a work item."""
+    rows: int
+    cols: int
+    stages: int
+    smem: int
+    pairs: int
+    images: int   # images per work item (block_wgmma.cuh k6_images)
+
+
+def k6_images(n: int, hw: int, tile_rows: int, sms: int) -> int:
+    """Images per work item: the fewest rounds of items over the SMs times
+    an item's row tiles, and of equal costs the most images (fuller tiles,
+    the weights streamed fewer times)."""
+    best, best_cost = 1, None
+    for g in range(1, n + 1):
+        cost = -(-(-(-n // g)) // sms) * -(-(g * hw) // tile_rows)
+        if best_cost is None or cost <= best_cost:
+            best, best_cost = g, cost
+    return best
+
+
+def k6_plan(c: int, n: int, h: int, w: int, sms: int = 132) -> Optional[StagePlan]:
+    """K6's plan for n images of h x w at width c on sms SMs (an H100 SXM
+    has 132), as the CUDA source computes it; None where K6 does not take
+    c (a multiple of 32 in [32, K1_MAX_C])."""
+    p = k5_plan(c)
+    if p is None:
+        return None
+    return StagePlan(*p, k6_images(n, h * w, p.rows, sms) if n > 0 and h * w > 0 else 0)
+
+
+def library_k6_plan(c: int, n: int, h: int, w: int, sms: int) -> Optional[StagePlan]:
+    """K6's plan as the built library computes it (loads the library); the
+    card tests hold `k6_plan` against it."""
+    out = (ctypes.c_int * 6)()
+    return StagePlan(*out) if _build.load().gcv_k6_plan(c, n, h * w, sms, out) else None
+
+
 def fused_convnext_stage(x: torch.Tensor, blocks: FusedBlockWeights) -> torch.Tensor:
     """K6: the chain of blocks (weights stacked [nb, ...]) on x [N,H,W,C];
     returns [N,H,W,C]."""
@@ -103,7 +147,7 @@ def fused_convnext_stage(x: torch.Tensor, blocks: FusedBlockWeights) -> torch.Te
     lib = _build.load()
     with torch.cuda.device(x.device):
         err = lib.gcv_fused_stage(
-            x.data_ptr(), *(t.data_ptr() for t in blocks),
+            x.data_ptr(), *(t.data_ptr() for t in kernel_operands(blocks)),
             None if ws is None else ws.data_ptr(), out.data_ptr(), n, h, w, c, nb,
             _stream(x.device))
     _build.check(err, what)

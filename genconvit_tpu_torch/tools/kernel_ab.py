@@ -1,5 +1,5 @@
-"""K1, K4 and K3 of one checkout of the port, timed on the card, so that two
-checkouts (a change and its parent) can be compared in one session:
+"""K1, K4, K5, K6 and K3 of one checkout of the port, timed on the card, so
+that two checkouts (a change and its parent) can be compared on one card:
 
     python3 genconvit_tpu_torch/tools/kernel_ab.py [--package-dir DIR] [--ptxas]
 
@@ -8,11 +8,14 @@ unpack the parent with `git archive HEAD genconvit_tpu_torch` into a
 directory that .gitignore lists, and run parent, change, change, parent.
 Prints CUDA-event ms per launch of K1 (ln_mlp_residual) and of K4
 (ln_mlp_residual_int8, 'fc1' and 'full') at the 12 block-tail shapes of a
-V=8 convnext_tiny ensemble forward and their depth-weighted sums, and of K3
-(matmul_wint8) on the 25088 x 12544 latent head at M = 15, 30, 120 beside
-F.linear on the bf16 head. With --ptxas, the build's ptxas register and
-spill lines of K1, K4, K5, K6 and M2 (the block-tail kernels),
-anonymous-namespace hashes taken out, for a diff between two checkouts.
+V=8 convnext_tiny ensemble forward and their depth-weighted sums, of K5
+(fused_convnext_block) at its 5 shapes of that forward (x depth: 15
+launches) and of K6 (fused_convnext_stage) at its 5 chains, with their
+per-forward sums, and of K3 (matmul_wint8) on the 25088 x 12544 latent head
+at M = 15, 30, 120 beside F.linear on the bf16 head. With --ptxas, the
+build's ptxas register and spill lines of K1, K4, K5, K6 and M2 (the
+block-tail kernels), anonymous-namespace hashes taken out, for a diff
+between two checkouts.
 Run it by path, not with -m: it chooses which package to import.
 """
 
@@ -36,11 +39,51 @@ def ptxas_lines(log: str) -> list:
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
             name = re.sub(r"_GLOBAL__N__[0-9a-f_]+", "", m.group(1))
-            entry = name if re.search(r"fused_block|fused_stage|block_parts|ln_mlp_residual",
-                                      name) else None
+            entry = name if re.search(
+                r"fused_block|fused_stage|fused_wgmma|block_parts|ln_mlp_residual", name) else None
         elif entry and ("registers" in line or "spill" in line):
-            out.append((entry, line.split("info    :")[-1].strip()))
+            # the advisory lines name a PTX line, which moves with any edit,
+            # and a function with its namespace hash
+            text = re.sub(r"_GLOBAL__N__[0-9a-f_]+", "", line.split("info    :")[-1].strip())
+            out.append((entry, re.sub(r"line \d+", "line _", text)))
     return out
+
+
+def fused_ab(tag: str, dev, g, cuda_ms) -> None:
+    """K5 at its shapes (blocks at H >= 28, H % 14 == 0) and K6 at its chains
+    (stages at H >= 7, C % 128 == 0) of a V=8 forward, on packs made by the
+    checkout's own pack_block from random weights (the timm init's scales,
+    layer scale U(0.1, 1), non-zero biases)."""
+    import torch
+
+    from genconvit_tpu_torch.ops.cuda import convnext_block as k5
+    from genconvit_tpu_torch.ops.cuda import convnext_stage as k6
+
+    def pack(c):
+        def r(*shape, s=1.0):
+            return s * torch.randn(*shape, device=dev, generator=g)
+        return k5.pack_block(r(c, 1, 7, 7, s=0.02), r(c, s=0.1), 1 + r(c, s=0.1), r(c, s=0.1),
+                             r(4 * c, c, s=0.02), r(4 * c, s=0.05), r(c, 4 * c, s=0.02),
+                             r(c, s=0.05), 0.1 + 0.9 * torch.rand(c, device=dev, generator=g),
+                             torch.bfloat16)
+
+    total = {"K5": 0.0, "K6": 0.0}
+    for n, px in CALLS:
+        for si, c in enumerate(DIMS):
+            h = (px // 4) >> si
+            x = torch.randn(n, h, h, c, device=dev, generator=g).to(torch.bfloat16)
+            if h >= 28 and h % 14 == 0:
+                p = pack(c)
+                t = cuda_ms(lambda: k5.fused_convnext_block(x, p), 10)
+                total["K5"] += DEPTHS[si] * t
+                print(f"[{tag}] K5 N={n} H={h} C={c}: {t:.4f} ms (x{DEPTHS[si]})", flush=True)
+            if h >= 7 and c % 128 == 0:
+                p = k5.stack_blocks([pack(c) for _ in range(DEPTHS[si])])
+                t = cuda_ms(lambda: k6.fused_convnext_stage(x, p), 5)
+                total["K6"] += t
+                print(f"[{tag}] K6 N={n} H={h} C={c} blocks={DEPTHS[si]}: {t:.4f} ms", flush=True)
+    for name, t in total.items():
+        print(f"[{tag}] {name} per V=8 forward: {t:.4f} ms", flush=True)
 
 
 def main(argv=None) -> int:
@@ -111,6 +154,7 @@ def main(argv=None) -> int:
             del folds, dw, x
     for name, t in total.items():
         print(f"[{tag}] {name} per V=8 forward (depth-weighted): {t:.4f} ms", flush=True)
+    fused_ab(tag, dev, g, cuda_ms)
     k, n = LATENT
     w16 = (0.01 * torch.randn(n, k, device=dev, generator=g)).to(torch.bfloat16)
     wq, sc = quantize_wint8(w16, dim=1)

@@ -421,7 +421,7 @@ def _stage_holds(x, stack, truth=None):
                in k6.stage_steps(k6.fused_convnext_stage, x, stack, truth))
 
 
-@pytest.mark.parametrize("c", [96, 192, 384, 768])
+@pytest.mark.parametrize("c", [96, 192, 384, 768, 128, 1024, 1536])
 def test_k5_matches_plain(dev, c):
     from genconvit_tpu_torch.ops.cuda import convnext_block as k5
 
@@ -438,9 +438,16 @@ def test_k5_matches_plain(dev, c):
         assert not _fused_check(k5.fused_convnext_block(x, bad), ref, x), name
 
 
+# (3, 7, 7, 384): two images in one 128-row tile; (134, 14, 14, 384): items of
+# two images over four tiles on 132 SMs, an image ending inside a tile;
+# (5, 7, 7, 768): an odd count in 64-row tiles; 1024 and 1536: convnext_base's
+# and convnext_large's last stages; 56 x 56 x 128: convnext_base's stage 0
 @pytest.mark.parametrize("n,h,w,c,nb", [(3, 7, 7, 384, 3), (2, 14, 14, 384, 2),
                                         (2, 7, 7, 768, 2), (2, 9, 5, 128, 1),
-                                        (2, 7, 7, 384, 9)])  # 9: stage 2's chain
+                                        (2, 7, 7, 384, 9),   # 9: stage 2's chain
+                                        (134, 14, 14, 384, 2), (5, 7, 7, 768, 2),
+                                        (3, 7, 7, 1024, 2), (3, 7, 7, 1536, 2),
+                                        (2, 56, 56, 128, 2)])
 def test_k6_matches_plain(dev, n, h, w, c, nb):
     from genconvit_tpu_torch.ops.cuda import convnext_block as k5
     from genconvit_tpu_torch.ops.cuda import convnext_stage as k6
@@ -476,9 +483,11 @@ def test_fused_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         k5.fused_convnext_block(x[0], p)
     with pytest.raises(ValueError, match="multiple of 32"):
         k5.fused_convnext_block(x[..., :48].contiguous(), p)
-    wide = torch.zeros(1, 2, 2, 1536, device=dev, dtype=torch.bfloat16)
+    wide = torch.zeros(1, 2, 2, km.K1_MAX_C + 32, device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="exceeds"):
         k5.fused_convnext_block(wide, p)
+    with pytest.raises(ValueError, match="exceeds"):
+        k6.fused_convnext_stage(wide, k5.stack_blocks([p]))
     with pytest.raises(ValueError, match="expected shape"):
         k5.fused_convnext_block(x, p._replace(w1=p.w2))
     with pytest.raises(ValueError, match="another device"):
@@ -487,6 +496,22 @@ def test_fused_wrappers_raise_on_what_the_kernels_do_not_take(dev):
         k6.fused_convnext_stage(x, p)
     with pytest.raises(ValueError, match="float32"):
         k6.fused_convnext_stage(x, k5.stack_blocks([p._replace(b1=p.b1.half())]))
+
+
+def test_block_plan_mirrors_match_the_library(dev):
+    """K5's and K6's plans as the library computes them, at every width K1
+    takes (and its refusals), and K6's images per item at the scoring
+    path's chains on this card's SMs."""
+    from genconvit_tpu_torch.ops.cuda import convnext_block as k5
+    from genconvit_tpu_torch.ops.cuda import convnext_stage as k6
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for c in list(range(0, km.K1_MAX_C + 97, 32)) + [48, 100]:
+        assert k5.library_k5_plan(c) == k5.k5_plan(c), c
+        assert k6.library_k6_plan(c, 240, 7, 7, sms) == k6.k6_plan(c, 240, 7, 7, sms), c
+    for c, n, h in ((384, 240, 14), (768, 240, 7), (384, 120, 14), (768, 120, 7),
+                    (384, 120, 7), (128, 240, 56), (1536, 3, 7), (384, 134, 14)):
+        assert k6.library_k6_plan(c, n, h, h, sms) == k6.k6_plan(c, n, h, h, sms), (c, n, h)
 
 
 def test_f32_product_on_the_card_is_the_upcast_product(dev):
