@@ -16,13 +16,16 @@ Phases (any failed check raises and the exit code is non-zero):
      and with x = 0, where the output is the MLP branch alone; K1 and K4
      also at the widths past convnext_tiny's: convnext_large's 192, 384, 768
      and 1536 and convnext_base's 1024, at the ED call's rows; K2 at the three
-     stem LNs; K3 at M = 1, 15, 30, 120 and 240 on the 25088x12544 head and
+     stem LNs and at each of its instantiations (its own at C = 96, 128 and
+     192, the generic one at 64, 320 and 1056) on 1013 rows; K3 at M = 1,
+     15, 30, 120 and 240 on the 25088x12544 head and
      at one odd shape); pass: max|diff| / max|ref| <= 3e-2 and every element
      within 2 bf16 ulps (3 for K4: one int8 step, see convnext_mlp_int8),
      since both versions round at the same points; planted faults (K1:
      fc2 bias, LN-bias fold, layer scale dropped; K2: bias dropped; K3:
      bias dropped, scale replaced by its mean; K4: b2g dropped, LN-bias
-     fold dropped, s1 replaced by its mean) must fail that check; CUDA-
+     fold dropped, s1 replaced by its mean) must fail that check; K2's and
+     K7's plans (k2_plan, k7_plan) against the library's; CUDA-
      event times of kernel and plain version, of the plain bf16 graph (K1),
      of K1 at K4's shapes, and of the one PyTorch call that computes the
      same function where there is one (F.layer_norm for K2, F.linear on
@@ -46,11 +49,15 @@ Phases (any failed check raises and the exit code is non-zero):
      to 3 blocks, held, faulted and timed the same way; K5's and K6's plans
      (k5_plan, k6_plan) against the library's at every shape; K7 (Swin window attention) at the four stage
      shapes of swin_tiny and of swin_large at N = 120 (masked at stages 0-2,
-     unmasked at all four), within 2 bf16 ulps of the window-head's largest
-     |out| (window_attn.ulp_error), with planted faults (relative bias
-     dropped, bias taken window-fastest, mask dropped, mask off by one
-     window, hd^-1/2 scale omitted), timed beside its plain version, the
-     one SDPA call with bias + mask as a float attn_mask, and the bound;
+     unmasked at all four) and at head widths 16 and 64 and windows of 16
+     tokens on 2 nW + 5 windows (ragged against the persistent grid),
+     within 2 bf16 ulps of the window-head's largest |out|
+     (window_attn.ulp_error), with planted faults (relative bias dropped,
+     bias taken window-fastest, bias of the neighbouring head group, ring
+     off by one stage, the last query strip's valid rows dropped, mask
+     dropped, mask of the window before, hd^-1/2 scale omitted), timed
+     beside its plain version, the one SDPA call with bias + mask as a
+     float attn_mask, and the bound;
   4. the scoring path through the Predictor: net='genconvit',
      convnext_tiny, 224 px, 15 frames, random weights on the device from a
      seed, the real 25088x12544 VAE heads; V=1, V=2 with masked frames,
@@ -166,6 +173,10 @@ LARGE_CONFIGS = (CONFIGS[0], CONFIGS[3], CONFIGS[5])   # default; int8 heads + '
 K6_WIDE = (("large", 1, 28, 384), ("large", 2, 14, 768), ("large", 3, 7, 1536),
            ("base", 3, 7, 1024))
 K6_WIDE_BLOCKS = 3
+K2_CHECK_WIDTHS = (96, 128, 192, 64, 320, 1056)   # K2's own instantiations, then generic
+K2_CHECK_ROWS = 1013   # ragged against every instantiation's rows per block
+# K7 beyond the Swin stage shapes: (L, heads, hd, windows per mask), B = 2 nW + 5
+K7_EXTRA = ((49, 4, 16, 4), (49, 3, 64, 4), (16, 3, 16, 1), (16, 3, 64, 16))
 M1_TOOL_SHAPE = (240, 56, 128)   # the JAX tools' default n, h, c: M1 (hid 3c) ...
 M3_TOOL_SHAPE = (240, 56, 96)    # ... and M3 (C unpadded)
 
@@ -623,6 +634,22 @@ def phase_kernels(torch, dev, card: str) -> list:
     log(f"K2 per V=8 ensemble forward (3 launches): kernel {k2_ms:.4f} ms, "
         f"plain {k2_plain_ms:.4f} ms, F.layer_norm {k2_lib_ms:.4f} ms, bound "
         f"{k2_bound:.4f} ms [{card}]")
+    # K2 at each instantiation: the stem widths' own and the generic one
+    # (one width past its 1024 columns in registers), rows ragged against a
+    # block's rows, the planted bias drop at each
+    for c in K2_CHECK_WIDTHS:
+        plan, lib = km.k2_plan(c), km.library_k2_plan(c)
+        if plan != lib:
+            raise AssertionError(f"K2's instantiation mirror at C={c}: {plan}, the library's {lib}")
+        x = (3 * torch.randn(K2_CHECK_ROWS, c, device=dev, generator=g) + 0.5).to(torch.bfloat16)
+        s = (1 + 0.1 * torch.randn(c, device=dev, generator=g)).float()
+        b = (0.1 * torch.randn(c, device=dev, generator=g)).float()
+        ref = km.layer_norm_rows_plain(x, s, b)
+        err, rel, ulps = compare(torch, km, f"K2 C={c}", km.layer_norm_rows(x, s, b), ref)
+        k2_err = max(k2_err, err)
+        log(f"K2 C={c} R={K2_CHECK_ROWS} {tuple(plan)} (lanes, chunks, generic): "
+            f"max|diff|={err:.3e} rel={rel:.3e} ulps={ulps:g}; "
+            + must_fail(torch, km, "LN bias dropped", km.layer_norm_rows(x, s, 0 * b), ref))
     k3rec = phase_k3(torch, km, k3, dev, card)
     m120 = [r for r in k3rec["shapes"] if r[0] == 120][0]
     log(f"K3 per V=8 ensemble forward (1 launch, M=120): kernel {m120[1]:.4f} ms, plain "
@@ -635,7 +662,7 @@ def phase_kernels(torch, dev, card: str) -> list:
          "launches": 0, "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1_plain_ms,
          "bound_ms": k1_bound, "bound_by": "bytes", "library_ms": k1_lib_ms},
         {"name": "layer_norm_rows", "route": "cuda",
-         "source": "genconvit_tpu_torch/csrc/convnext_mlp.cu", "replaces": f"{mlp}:244",
+         "source": "genconvit_tpu_torch/csrc/layer_norm_rows.cu", "replaces": f"{mlp}:244",
          "launches": 0, "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms,
          "bound_ms": k2_bound, "bound_by": "bytes", "library_ms": k2_lib_ms},
         {"name": "matmul_wint8", "route": "cuda",
@@ -867,6 +894,52 @@ def k7_bound(b: int, l: int, heads: int, hd: int, nw: int, masked: bool) -> tupl
     return bound(nbytes, {BF16: 4 * l * l * hd * g}, {FP32: 8 * l * l * g})
 
 
+def k7_inputs(torch, np, dev, g, b: int, hw: int, w: int, heads: int, hd: int):
+    """qkv [B, L, 3C] bf16, a bias gathered from a random O(1) table as the
+    model gathers it, and the shifted-window mask of an hw x hw grid."""
+    from genconvit_tpu_torch.models.swin import relative_position_index, shifted_window_mask
+
+    l = w * w
+    qkv = torch.randn(b, l, 3 * heads * hd, device=dev, generator=g).to(torch.bfloat16)
+    table = torch.randn((2 * w - 1) ** 2, heads, device=dev, generator=g)  # O(1)
+    idx = torch.from_numpy(relative_position_index(w).reshape(-1).astype(np.int64))
+    bias = table[idx.to(dev)].view(l, l, heads).permute(2, 0, 1).contiguous()
+    mask = torch.from_numpy(shifted_window_mask(hw, hw, w, w // 2)).to(dev)
+    return qkv, bias, mask
+
+
+def check_k7(torch, k7, what: str, qkv, bias, m, heads: int, wpm: int, nw: int, rec: dict) -> None:
+    """K7 against its plain version (finite, REL_TOL, k7.ULP_TOL ulps of the
+    window-head's largest |out|), its plan against the library's, and every
+    planted fault refused; rec keeps the largest error and ulps and the
+    smallest planted ulps."""
+    b, l, c3 = qkv.shape
+    hd = c3 // (3 * heads)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = k7.k7_plan(l, heads, hd, m is not None, b, sms)
+    lib = k7.library_k7_plan(l, heads, hd, m is not None, b, sms)
+    if plan != lib:
+        raise AssertionError(f"{what}: K7's plan mirror {plan}, the library's {lib}")
+    ref = k7.window_attention_plain(qkv, bias, m, heads, wpm)
+    out = k7.window_attention(qkv, bias, m, heads, wpm)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs().max().item()
+    rel = err / ref.float().abs().max().item()
+    ulps = k7.ulp_error(out, ref, heads)
+    if not (torch.isfinite(out).all() and rel <= REL_TOL and ulps <= k7.ULP_TOL):
+        raise AssertionError(f"{what}: max|diff| {err:.3e}, /max|ref| {rel:.3e} "
+                             f"(limit {REL_TOL}), {ulps} ulps (limit {k7.ULP_TOL})")
+    rec["err"], rec["ulps"] = max(rec["err"], err), max(rec["ulps"], ulps)
+    log(f"{what} max|diff|={err:.3e} rel={rel:.3e} ulps={ulps:.3f}; plan {tuple(plan)} "
+        f"(G, strips, teams, stages, shared bytes, threads, blocks)")
+    for fname, bad in k7.planted_outputs(k7.window_attention, qkv, bias, m, heads, nw).items():
+        bu = k7.ulp_error(bad, ref, heads)
+        if bu <= k7.ULP_TOL:
+            raise AssertionError(f"planted fault {fname} passed the check ({bu} ulps)")
+        rec["planted_min"] = min(rec["planted_min"], bu)
+        log(f"  K7 planted: {fname}: {bu:.1f} ulps -> refused")
+
+
 def phase_k7(torch, dev, card: str) -> dict:
     """K7 at the stage shapes of swin_tiny and swin_large at N=120 against its
     plain version, with planted faults; times of kernel, plain version and
@@ -874,7 +947,6 @@ def phase_k7(torch, dev, card: str) -> dict:
     import numpy as np
     import torch.nn.functional as F
 
-    from genconvit_tpu_torch.models.swin import relative_position_index, shifted_window_mask
     from genconvit_tpu_torch.ops.cuda import window_attn as k7
 
     g = torch.Generator(device=dev).manual_seed(3456)
@@ -883,39 +955,17 @@ def phase_k7(torch, dev, card: str) -> dict:
         tot = {"ms": 0.0, "plain_ms": 0.0, "sdpa_ms": 0.0, "bound_ms": 0.0, "sides": []}
         shapes = k7_shapes(name, SWIN_BATCHES[0])
         for si, hw, b, heads, hd, w, nw, n_masked, n_plain in shapes:
-            l, c = w * w, heads * hd
-            qkv = torch.randn(b, l, 3 * c, device=dev, generator=g).to(torch.bfloat16)
-            table = torch.randn((2 * w - 1) ** 2, heads, device=dev, generator=g)  # O(1)
-            idx = torch.from_numpy(relative_position_index(w).reshape(-1).astype(np.int64))
-            bias = table[idx.to(dev)].view(l, l, heads).permute(2, 0, 1).contiguous()
+            l = w * w
+            qkv, bias, mask = k7_inputs(torch, np, dev, g, b, hw, w, heads, hd)
             variants = [(None, n_plain)]
             if n_masked:
-                mask = torch.from_numpy(shifted_window_mask(hw, hw, w, w // 2)).to(dev)
                 variants.insert(0, (mask, n_masked))
             q, k, v = qkv.view(b, l, 3, heads, hd).permute(2, 0, 3, 1, 4).unbind(0)
             for m, per_fwd in variants:
                 wpm = 1 if m is None else nw
                 what = (f"K7 {name.split('_')[1]:5s} s{si} B={b:5d} heads={heads:2d} L={l} "
                         f"mask={int(m is not None)}")
-                ref = k7.window_attention_plain(qkv, bias, m, heads, wpm)
-                out = k7.window_attention(qkv, bias, m, heads, wpm)
-                torch.cuda.synchronize()
-                err = (out.float() - ref.float()).abs().max().item()
-                rel = err / ref.float().abs().max().item()
-                ulps = k7.ulp_error(out, ref, heads)
-                if not (torch.isfinite(out).all() and rel <= REL_TOL and ulps <= k7.ULP_TOL):
-                    raise AssertionError(f"{what}: max|diff| {err:.3e}, /max|ref| {rel:.3e} "
-                                         f"(limit {REL_TOL}), {ulps} ulps (limit {k7.ULP_TOL})")
-                rec["err"], rec["ulps"] = max(rec["err"], err), max(rec["ulps"], ulps)
-                log(f"{what} max|diff|={err:.3e} rel={rel:.3e} ulps={ulps:.3f}")
-                for fname, bad in k7.planted_outputs(k7.window_attention, qkv, bias, m, heads,
-                                                     nw).items():
-                    bu = k7.ulp_error(bad, ref, heads)
-                    if bu <= k7.ULP_TOL:
-                        raise AssertionError(f"planted fault {fname} passed the check ({bu} ulps)")
-                    rec["planted_min"] = min(rec["planted_min"], bu)
-                    log(f"  K7 planted: {fname}: {bu:.1f} ulps -> refused")
-                del ref, out
+                check_k7(torch, k7, what, qkv, bias, m, heads, wpm, nw, rec)
                 # SDPA's operands, made outside the timing: the views of q, k,
                 # v and bias + mask of each window as one bf16 float mask
                 am = bias[None]
@@ -934,13 +984,22 @@ def phase_k7(torch, dev, card: str) -> dict:
                     tot[key] += per_fwd * t
                 tot["sides"].append((per_fwd * bd, by))
                 del am
-            del qkv, q, k, v, bias, variants
+            del qkv, q, k, v, bias, mask, variants
         launches = sum(s[7] + s[8] for s in shapes)
         log(f"K7 per {name} forward at N={SWIN_BATCHES[0]} ({launches} launches, "
             f"{sum(s[7] for s in shapes)} with a mask): kernel {tot['ms']:.4f} ms, plain "
             f"{tot['plain_ms']:.4f} ms, SDPA {tot['sdpa_ms']:.4f} ms, bound {tot['bound_ms']:.4f} "
             f"ms ({side(tot['sides'])}) [{card}]")
         rec[name] = tot
+    # head widths 16 and 64 and windows of 16 tokens, B = 2 nW + 5 windows:
+    # a work-item count ragged against the persistent grid
+    for l, heads, hd, nw in K7_EXTRA:
+        w = int(round(l ** 0.5))
+        b = 2 * nw + 5
+        qkv, bias, mask = k7_inputs(torch, np, dev, g, b, w * int(round(nw ** 0.5)), w, heads, hd)
+        m = mask if nw > 1 else None
+        check_k7(torch, k7, f"K7 L={l} heads={heads} hd={hd} B={b} mask={int(m is not None)}",
+                 qkv, bias, m, heads, nw if m is not None else 1, max(nw, 4), rec)
     log(f"K7: max ulps {rec['ulps']:.3f} (limit {k7.ULP_TOL}); planted faults >= "
         f"{rec['planted_min']:.1f} ulps [{card}]")
     tiny = rec[SWIN_TINY]

@@ -1,6 +1,7 @@
-// Hand-written Hopper (sm_90a) kernels for the ConvNeXt block tail and the
-// stem LayerNorm, with a plain C interface loaded through ctypes
-// (genconvit_tpu_torch/ops/cuda/convnext_mlp.py). No PyTorch headers.
+// Hand-written Hopper (sm_90a) kernel for the ConvNeXt block tail, with a
+// plain C interface loaded through ctypes
+// (genconvit_tpu_torch/ops/cuda/convnext_mlp.py). No PyTorch headers. K2,
+// the stem LayerNorm of the same Pallas file, is layer_norm_rows.cu.
 //
 // K1  gcv_ln_mlp_residual  replaces the Pallas kernels _mlp_kernel and
 //     _mlp_kernel_post_ln of genconvit_tpu/ops/pallas/convnext_mlp.py
@@ -41,20 +42,11 @@
 //     both warpgroups in cols plans; the f32 values of earlier passes kept
 //     in a caller-given f32 buffer). The GELU tier is a template argument.
 //
-// K2  gcv_layer_norm_rows  replaces the Pallas kernel _ln_rows_kernel
-//     (entry layer_norm_rows) of the same file: a row LayerNorm with f32
-//     statistics and f32 affine, bf16 in and out; on the scoring path it is
-//     the stem LN (C=96). One warp per row; it is bound by HBM bandwidth
-//     (one read, one write of the rows), so it reads and writes bf16 pairs.
-//
 // Every entry point returns cudaGetLastError() after its launch.
 
 #include "mlp_wgmma.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;   // K2
-constexpr int kWarps = kThreads / 32;
 
 struct MlpArgs {
   const bf16* d;
@@ -213,34 +205,6 @@ int launch_mlp(const MlpArgs& a, const MlpPlan& p, cudaStream_t stream) {
               : launch_mlp_tier<NC, COLS, STREAM, 0>(a, p, stream);
 }
 
-__global__ void __launch_bounds__(kThreads)
-layer_norm_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ scale,
-                       const float* __restrict__ bias, bf16* __restrict__ out,
-                       long long rows, int c) {
-  const long long r = static_cast<long long>(blockIdx.x) * kWarps + threadIdx.x / 32;
-  if (r >= rows) return;
-  const int lane = threadIdx.x % 32;
-  const int half_c = c / 2;
-  const float inv_c = 1.0f / static_cast<float>(c);
-  const bf162* xr = reinterpret_cast<const bf162*>(x + r * c);
-  float s1 = 0.f, s2 = 0.f;
-  for (int j = lane; j < half_c; j += 32) {
-    const float2 v = __bfloat1622float2(xr[j]);
-    s1 += v.x + v.y;
-    s2 += v.x * v.x + v.y * v.y;
-  }
-  s1 = warp_sum(s1);
-  s2 = warp_sum(s2);
-  const float mean = s1 * inv_c;
-  const float rstd = rsqrtf(s2 * inv_c - mean * mean + kLnEps);
-  bf162* orow = reinterpret_cast<bf162*>(out + r * c);
-  for (int j = lane; j < half_c; j += 32) {
-    const float2 v = __bfloat1622float2(xr[j]);
-    orow[j] = __floats2bfloat162_rn((v.x - mean) * rstd * scale[2 * j] + bias[2 * j],
-                                    (v.y - mean) * rstd * scale[2 * j + 1] + bias[2 * j + 1]);
-  }
-}
-
 }  // namespace
 
 extern "C" {
@@ -303,18 +267,6 @@ int gcv_ln_mlp_residual(const void* d, const void* x, const void* w1t, const voi
     return p.cols == 128 ? launch_mlp<128, true, true>(a, p, s) : launch_mlp<192, true, true>(a, p, s);
   }
   return p.cols == 128 ? launch_mlp<128, true>(a, p, s) : launch_mlp<192, true>(a, p, s);
-}
-
-// K2. c must be even (the caller checks a multiple of 32).
-int gcv_layer_norm_rows(const void* x, const void* scale, const void* bias, void* out,
-                        long long rows, int c, void* stream) {
-  if (rows <= 0) return static_cast<int>(cudaGetLastError());
-  const long long blocks = (rows + kWarps - 1) / kWarps;
-  layer_norm_rows_kernel<<<static_cast<unsigned int>(blocks), kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const float*>(scale),
-      static_cast<const float*>(bias), static_cast<bf16*>(out), rows, c);
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

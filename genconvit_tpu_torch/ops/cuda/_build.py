@@ -30,7 +30,8 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
 SOURCES = tuple(os.path.join(_PKG_DIR, "csrc", f) for f in
                 ("convnext_mlp.cu", "convnext_mlp_int8.cu", "convnext_mlp_int8_full.cu",
                  "int8_matmul.cu", "convnext_block.cu", "convnext_stage.cu",
-                 "window_attn.cu", "int8_dot.cu", "dw_moments.cu", "block_parts.cu"))
+                 "window_attn.cu", "layer_norm_rows.cu", "int8_dot.cu", "dw_moments.cu",
+                 "block_parts.cu"))
 HEADERS = tuple(os.path.join(_PKG_DIR, "csrc", f) for f in
                 ("common.cuh", "mlp_tile.cuh", "fused_block.cuh", "wgmma.cuh",
                  "mlp_wgmma.cuh", "convnext_mlp_int8.cuh", "block_wgmma.cuh"))
@@ -73,6 +74,9 @@ _SIGNATURES = {
     "gcv_mlp_plan": ([ctypes.c_int, _P], ctypes.c_int),
     "gcv_k4_plan": ([ctypes.c_int, ctypes.c_int, _P], ctypes.c_int),
     "gcv_k5_plan": ([ctypes.c_int, _P], ctypes.c_int),
+    "gcv_k2_plan": ([ctypes.c_int, _P], ctypes.c_int),
+    # l, heads, hd, masked, windows, sms, out
+    "gcv_k7_plan": ([ctypes.c_int] * 4 + [ctypes.c_longlong, ctypes.c_int, _P], ctypes.c_int),
     # c, n, hw, sms, out
     "gcv_k6_plan": ([ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, _P],
                     ctypes.c_int),

@@ -1,5 +1,6 @@
 """K1 and K2: the ConvNeXt block tail and the row LayerNorm as hand-written
-CUDA kernels (csrc/convnext_mlp.cu), with their plain PyTorch versions.
+CUDA kernels (csrc/convnext_mlp.cu, csrc/layer_norm_rows.cu), with their
+plain PyTorch versions.
 
   ln_mlp_residual  replaces fused_ln_mlp_residual (_mlp_kernel,
                    _mlp_kernel_post_ln) of genconvit_tpu/ops/pallas/convnext_mlp.py
@@ -11,8 +12,10 @@ points); on a CUDA tensor it launches the kernel or raises. Each keeps a
 count of its kernel launches in its `launches` attribute, raised where it
 launches and nowhere else.
 
-The kernel's bounds and design are in the note at the top of the CUDA
-source. The LayerNorm affine folds into fc1 and the layer scale into fc2
+The kernels' bounds and designs are in the notes at the top of the CUDA
+sources. K2 has its own instantiations at the stem widths K2_WIDTHS and
+one generic instantiation for every other multiple of 32 (`k2_plan`). The
+LayerNorm affine folds into fc1 and the layer scale into fc2
 (`fold_block_mlp`), once, at engine construction.
 """
 
@@ -30,6 +33,29 @@ LN_EPS = 1e-6
 MAX_C = 768  # the probes M1 and M2: their fc2 accumulator tile holds [16, 768] f32
 K1_MAX_C = 1536  # K1 splits its fc2 sum into output-column groups (mlp_plan)
 ULP_TOL = 2.0  # kernel vs plain, elementwise, in bf16 ulps (bf16_ulp_error)
+K2_WIDTHS = (96, 128, 192)  # the stems of convnext_tiny, _base and _large
+
+
+class K2Plan(NamedTuple):
+    """K2's instantiation at a width (csrc/layer_norm_rows.cu gcv_k2_plan)."""
+    lanes: int     # lanes per row
+    chunks: int    # 16-byte chunks a lane holds in registers
+    generic: int   # 1: the generic instantiation (columns past lanes x chunks x 8 read twice)
+
+
+def k2_plan(c: int) -> Optional[K2Plan]:
+    """K2's instantiation at width c, chosen by the width alone; None where
+    K2 does not take c (not a positive multiple of 32)."""
+    if c <= 0 or c % 32:
+        return None
+    return {96: K2Plan(4, 3, 0), 128: K2Plan(4, 4, 0), 192: K2Plan(8, 3, 0)}.get(
+        c, K2Plan(32, 4, 1))
+
+
+def library_k2_plan(c: int) -> Optional[K2Plan]:
+    """K2's instantiation as the built library chooses it (loads the library)."""
+    out = (ctypes.c_int * 3)()
+    return K2Plan(*out) if _build.load().gcv_k2_plan(c, out) else None
 
 
 class FoldedMLP(NamedTuple):

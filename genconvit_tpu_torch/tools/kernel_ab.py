@@ -1,7 +1,9 @@
-"""K1, K4, K5, K6 and K3 of one checkout of the port, timed on the card, so
-that two checkouts (a change and its parent) can be compared on one card:
+"""K1, K4, K5, K6, K3, K7 and K2 of one checkout of the port, timed on the
+card, so that two checkouts (a change and its parent) can be compared on
+one card:
 
     python3 genconvit_tpu_torch/tools/kernel_ab.py [--package-dir DIR] [--ptxas]
+        [--only k1k4,k5k6,k3,k7,k2]
 
 DIR holds the genconvit_tpu_torch package to load (default: this checkout);
 unpack the parent with `git archive HEAD genconvit_tpu_torch` into a
@@ -11,10 +13,15 @@ Prints CUDA-event ms per launch of K1 (ln_mlp_residual) and of K4
 V=8 convnext_tiny ensemble forward and their depth-weighted sums, of K5
 (fused_convnext_block) at its 5 shapes of that forward (x depth: 15
 launches) and of K6 (fused_convnext_stage) at its 5 chains, with their
-per-forward sums, and of K3 (matmul_wint8) on the 25088 x 12544 latent head
-at M = 15, 30, 120 beside F.linear on the bf16 head. With --ptxas, the
-build's ptxas register and spill lines of K1, K4, K5, K6 and M2 (the
-block-tail kernels), anonymous-namespace hashes taken out, for a diff
+per-forward sums, of K3 (matmul_wint8) on the 25088 x 12544 latent head
+at M = 15, 30, 120 beside F.linear on the bf16 head, of K7
+(window_attention) at the stage shapes of swin_tiny and swin_large at
+N = 120, masked and unmasked, with their per-forward sums (x the blocks of
+each shape), and of K2 (layer_norm_rows) at the three stem LNs of a V=8
+forward at convnext_tiny's C = 96 and convnext_large's C = 192, with their
+per-forward sums. --only picks groups of those. With --ptxas, the build's
+ptxas register and spill lines of K1, K4, K5, K6, M2 (the block-tail
+kernels), K7 and K2, anonymous-namespace hashes taken out, for a diff
 between two checkouts.
 Run it by path, not with -m: it chooses which package to import.
 """
@@ -30,6 +37,9 @@ CALLS = ((240, 224), (120, 224), (120, 112))   # ED, VAE x, VAE x_hat: images, p
 DIMS = (96, 192, 384, 768)
 DEPTHS = (3, 3, 9, 3)
 LATENT = (25088, 12544)
+SWIN = ("swin_tiny_patch4_window7_224", "swin_large_patch4_window7_224")
+SWIN_N = 120     # the V=8 batch of face crops
+GROUPS = ("k1k4", "k5k6", "k3", "k7", "k2")
 
 
 def ptxas_lines(log: str) -> list:
@@ -40,7 +50,8 @@ def ptxas_lines(log: str) -> list:
         if m:
             name = re.sub(r"_GLOBAL__N__[0-9a-f_]+", "", m.group(1))
             entry = name if re.search(
-                r"fused_block|fused_stage|fused_wgmma|block_parts|ln_mlp_residual", name) else None
+                r"fused_block|fused_stage|fused_wgmma|block_parts|ln_mlp_residual|window_attn|"
+                r"layer_norm_rows", name) else None
         elif entry and ("registers" in line or "spill" in line):
             # the advisory lines name a PTX line, which moves with any edit,
             # and a function with its namespace hash
@@ -86,23 +97,139 @@ def fused_ab(tag: str, dev, g, cuda_ms) -> None:
         print(f"[{tag}] {name} per V=8 forward: {t:.4f} ms", flush=True)
 
 
+def k7_ab(tag: str, dev, g, cuda_ms) -> None:
+    """K7 at each stage of swin_tiny and swin_large at N = 120 (224 px),
+    masked (the shifted blocks) and unmasked, on random qkv and an O(1) bias
+    gathered as the model gathers it; per forward: x the blocks of each."""
+    import numpy as np
+    import torch
+
+    from genconvit_tpu_torch.models.swin import (SWIN_CFGS, block_window,
+                                                 relative_position_index, shifted_window_mask)
+    from genconvit_tpu_torch.ops.cuda import window_attn as k7
+
+    for name in SWIN:
+        cfg = SWIN_CFGS[name]
+        hw, dim, total = 224 // 4, cfg["embed_dim"], 0.0
+        for si, (depth, heads) in enumerate(zip(cfg["depths"], cfg["num_heads"])):
+            geo = [block_window((hw, hw), cfg["window"], bi) for bi in range(depth)]
+            w, n_masked = geo[0][0], sum(shift > 0 for _, shift in geo)
+            nw, l, hd = (hw // w) ** 2, w * w, dim // heads
+            b = SWIN_N * nw
+            qkv = torch.randn(b, l, 3 * dim, device=dev, generator=g).to(torch.bfloat16)
+            table = torch.randn((2 * w - 1) ** 2, heads, device=dev, generator=g)
+            idx = torch.from_numpy(relative_position_index(w).reshape(-1).astype(np.int64))
+            bias = table[idx.to(dev)].view(l, l, heads).permute(2, 0, 1).contiguous()
+            mask = torch.from_numpy(shifted_window_mask(hw, hw, w, w // 2)).to(dev)
+            for m, count in ((mask, n_masked), (None, depth - n_masked)):
+                if count:
+                    wpm = nw if m is not None else 1
+                    t = cuda_ms(lambda: k7.window_attention(qkv, bias, m, heads, wpm), 20)
+                    total += count * t
+                    print(f"[{tag}] K7 {name.split('_')[1]} s{si} B={b} heads={heads} L={l} "
+                          f"mask={int(m is not None)}: {t:.4f} ms (x{count})", flush=True)
+            del qkv
+            hw, dim = hw // 2, dim * 2
+        print(f"[{tag}] K7 per {name.split('_')[1]} forward at N={SWIN_N}: {total:.4f} ms",
+              flush=True)
+
+
+def k2_ab(tag: str, dev, g, cuda_ms) -> None:
+    """K2 at the stem LN of each backbone call of a V=8 forward, at
+    convnext_tiny's C = 96 and convnext_large's C = 192; per forward: the
+    three calls' sum."""
+    import torch
+
+    from genconvit_tpu_torch.ops.cuda import convnext_mlp as km
+
+    for c, name in ((DIMS[0], "convnext_tiny"), (192, "convnext_large")):
+        total = 0.0
+        s = (1 + 0.1 * torch.randn(c, device=dev, generator=g)).float()
+        b = (0.1 * torch.randn(c, device=dev, generator=g)).float()
+        for n, px in CALLS:
+            rows = n * (px // 4) ** 2
+            x = (3 * torch.randn(rows, c, device=dev, generator=g) + 0.5).to(torch.bfloat16)
+            t = cuda_ms(lambda: km.layer_norm_rows(x, s, b), 20)
+            total += t
+            print(f"[{tag}] K2 {name} R={rows} C={c}: {t:.4f} ms", flush=True)
+            del x
+        print(f"[{tag}] K2 {name} per V=8 forward (3 launches): {total:.4f} ms", flush=True)
+
+
+def mlp_ab(tag: str, dev, g, cuda_ms) -> None:
+    """K1 and K4 in both modes at the 12 block-tail shapes of a V=8 forward,
+    on folds of random weights at the init's scales; per forward: x depth."""
+    import torch
+
+    from genconvit_tpu_torch.ops.cuda import convnext_mlp as km
+    from genconvit_tpu_torch.ops.cuda import convnext_mlp_int8 as k4
+
+    total = dict.fromkeys(("K1",) + tuple(f"K4 {m}" for m in k4.MODES), 0.0)
+    for n, px in CALLS:
+        for si, c in enumerate(DIMS):
+            rows = n * ((px // 4) >> si) ** 2
+
+            def r(*shape, s=1.0):
+                return s * torch.randn(*shape, device=dev, generator=g)
+            args = (1 + r(c, s=0.1), r(c, s=0.1), r(4 * c, c, s=c ** -0.5), r(4 * c, s=0.05),
+                    r(c, 4 * c, s=(4 * c) ** -0.5), r(c, s=0.05),
+                    0.1 + 0.9 * torch.rand(c, device=dev, generator=g))
+            dw = (2 * r(rows, c)).to(torch.bfloat16)
+            x = r(rows, c).to(torch.bfloat16)
+            folds = {"K1": (km.ln_mlp_residual, km.fold_block_mlp(*args, torch.bfloat16))}
+            for m in k4.MODES:
+                folds[f"K4 {m}"] = (k4.ln_mlp_residual_int8,
+                                    k4.fold_block_mlp_int8(*args, m, torch.bfloat16))
+            line = []
+            for name, (fn, folded) in folds.items():
+                t = cuda_ms(lambda: fn(dw, x, folded), 10)
+                total[name] += DEPTHS[si] * t
+                line.append(f"{name} {t:.4f} ms")
+            print(f"[{tag}] R={rows} C={c}: " + ", ".join(line), flush=True)
+            del folds, dw, x
+    for name, t in total.items():
+        print(f"[{tag}] {name} per V=8 forward (depth-weighted): {t:.4f} ms", flush=True)
+
+
+def k3_ab(tag: str, dev, g, cuda_ms) -> None:
+    """K3 on the latent head at M = 15, 30, 120 beside F.linear on the bf16
+    head."""
+    import torch
+    import torch.nn.functional as F
+
+    from genconvit_tpu_torch.ops.cuda import int8_matmul as k3
+    from genconvit_tpu_torch.ops.quant import quantize_wint8
+
+    k, n = LATENT
+    w16 = (0.01 * torch.randn(n, k, device=dev, generator=g)).to(torch.bfloat16)
+    wq, sc = quantize_wint8(w16, dim=1)
+    b = 0.1 * torch.randn(n, device=dev, generator=g)
+    b16 = b.to(torch.bfloat16)
+    for m in (15, 30, 120):
+        x = torch.randn(m, k, device=dev, generator=g).to(torch.bfloat16)
+        t = cuda_ms(lambda: k3.matmul_wint8(x, wq, sc, b), 20)
+        t_l = cuda_ms(lambda: F.linear(x, w16, b16), 20)
+        print(f"[{tag}] K3 M={m}: {t:.4f} ms, F.linear on the bf16 head {t_l:.4f} ms",
+              flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--package-dir", default=os.path.dirname(os.path.dirname(
         os.path.dirname(os.path.abspath(__file__)))))
     ap.add_argument("--ptxas", action="store_true")
+    ap.add_argument("--only", default=",".join(GROUPS),
+                    help="comma-separated groups to time: " + ", ".join(GROUPS))
     args = ap.parse_args(argv)
+    only = set(args.only.split(","))
+    if not only <= set(GROUPS):
+        ap.error(f"--only: unknown groups {sorted(only - set(GROUPS))}")
     pkg_dir = os.path.abspath(args.package_dir)
     sys.path.insert(0, pkg_dir)
     import torch
-    import torch.nn.functional as F
 
     import genconvit_tpu_torch
     from genconvit_tpu_torch.ops.cuda import _build
-    from genconvit_tpu_torch.ops.cuda import convnext_mlp as km
-    from genconvit_tpu_torch.ops.cuda import convnext_mlp_int8 as k4
-    from genconvit_tpu_torch.ops.cuda import int8_matmul as k3
-    from genconvit_tpu_torch.ops.quant import quantize_wint8
 
     if not torch.cuda.is_available():
         print("kernel_ab: CUDA is not available", file=sys.stderr)
@@ -129,43 +256,10 @@ def main(argv=None) -> int:
         return a.elapsed_time(b) / iters
 
     g = torch.Generator(device=dev).manual_seed(3)
-    total = dict.fromkeys(("K1",) + tuple(f"K4 {m}" for m in k4.MODES), 0.0)
-    for n, px in CALLS:
-        for si, c in enumerate(DIMS):
-            rows = n * ((px // 4) >> si) ** 2
-
-            def r(*shape, s=1.0):
-                return s * torch.randn(*shape, device=dev, generator=g)
-            args = (1 + r(c, s=0.1), r(c, s=0.1), r(4 * c, c, s=c ** -0.5), r(4 * c, s=0.05),
-                    r(c, 4 * c, s=(4 * c) ** -0.5), r(c, s=0.05),
-                    0.1 + 0.9 * torch.rand(c, device=dev, generator=g))
-            dw = (2 * r(rows, c)).to(torch.bfloat16)
-            x = r(rows, c).to(torch.bfloat16)
-            folds = {"K1": (km.ln_mlp_residual, km.fold_block_mlp(*args, torch.bfloat16))}
-            for m in k4.MODES:
-                folds[f"K4 {m}"] = (k4.ln_mlp_residual_int8,
-                                    k4.fold_block_mlp_int8(*args, m, torch.bfloat16))
-            line = []
-            for name, (fn, folded) in folds.items():
-                t = cuda_ms(lambda: fn(dw, x, folded), 10)
-                total[name] += DEPTHS[si] * t
-                line.append(f"{name} {t:.4f} ms")
-            print(f"[{tag}] R={rows} C={c}: " + ", ".join(line), flush=True)
-            del folds, dw, x
-    for name, t in total.items():
-        print(f"[{tag}] {name} per V=8 forward (depth-weighted): {t:.4f} ms", flush=True)
-    fused_ab(tag, dev, g, cuda_ms)
-    k, n = LATENT
-    w16 = (0.01 * torch.randn(n, k, device=dev, generator=g)).to(torch.bfloat16)
-    wq, sc = quantize_wint8(w16, dim=1)
-    b = 0.1 * torch.randn(n, device=dev, generator=g)
-    b16 = b.to(torch.bfloat16)
-    for m in (15, 30, 120):
-        x = torch.randn(m, k, device=dev, generator=g).to(torch.bfloat16)
-        t = cuda_ms(lambda: k3.matmul_wint8(x, wq, sc, b), 20)
-        t_l = cuda_ms(lambda: F.linear(x, w16, b16), 20)
-        print(f"[{tag}] K3 M={m}: {t:.4f} ms, F.linear on the bf16 head {t_l:.4f} ms",
-              flush=True)
+    for group, fn in (("k1k4", mlp_ab), ("k5k6", fused_ab), ("k3", k3_ab), ("k7", k7_ab),
+                      ("k2", k2_ab)):
+        if group in only:
+            fn(tag, dev, g, cuda_ms)
     return 0
 
 

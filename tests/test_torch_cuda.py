@@ -99,6 +99,24 @@ def test_k2_matches_plain(dev):
     assert _agrees(out, km.layer_norm_rows_plain(x, s, b))
 
 
+# K2 at each width with its own instantiation and at generic widths (one
+# past the registers' 1024 columns), rows ragged against a block's rows
+@pytest.mark.parametrize("c", [96, 128, 192, 64, 320, 1056])
+def test_k2_at_every_instantiation(dev, c):
+    g = torch.Generator(device=dev).manual_seed(c)
+    x = (3 * torch.randn(1013, c, device=dev, generator=g) + 0.5).to(torch.bfloat16)
+    s = (1 + 0.1 * torch.randn(c, device=dev, generator=g)).float()
+    b = (0.1 * torch.randn(c, device=dev, generator=g)).float()
+    before = km.layer_norm_rows.launches
+    out = km.layer_norm_rows(x, s, b)
+    torch.cuda.synchronize()
+    assert km.layer_norm_rows.launches == before + 1
+    ref = km.layer_norm_rows_plain(x, s, b)
+    assert _agrees(out, ref)
+    assert not _agrees(km.layer_norm_rows(x, s, 0 * b), ref)   # LN bias dropped
+    assert km.library_k2_plan(c) == km.k2_plan(c)
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     g = torch.Generator(device=dev).manual_seed(1)
     folded = _folded(96, dev, g)
@@ -555,7 +573,7 @@ def _k7_inputs(dev, g, b, l, heads, hd, nw):
 
 
 @pytest.mark.parametrize("l,hd,nw", [(49, 32, 4), (49, 32, 1), (16, 32, 16), (16, 16, 1),
-                                     (49, 64, 4)])
+                                     (49, 64, 4), (49, 16, 4), (16, 64, 1)])
 def test_k7_matches_plain(dev, l, hd, nw):
     from genconvit_tpu_torch.ops.cuda import window_attn as k7
 
@@ -574,6 +592,43 @@ def test_k7_matches_plain(dev, l, hd, nw):
     for name, bad in k7.planted_outputs(k7.window_attention, qkv, bias, mask, heads,
                                         windows).items():
         assert k7.ulp_error(bad, ref, heads) > k7.ULP_TOL, name
+
+
+# K7 at every stage shape of swin_tiny and swin_large: (heads, windows per
+# image), masked where the stage has more than one window; B ragged against
+# the persistent grid (2 nW + 5 windows over the head groups' blocks)
+_K7_STAGES = ((3, 64), (6, 16), (12, 4), (24, 1), (6, 64), (12, 16), (24, 4), (48, 1))
+
+
+@pytest.mark.parametrize("heads,nw", _K7_STAGES)
+def test_k7_at_every_swin_stage_shape(dev, heads, nw):
+    from genconvit_tpu_torch.ops.cuda import window_attn as k7
+
+    g = torch.Generator(device=dev).manual_seed(500 + heads + nw)
+    b = 2 * nw + 5
+    qkv, bias, mask = _k7_inputs(dev, g, b, 49, heads, 32, nw)
+    for m in ([mask, None] if mask is not None else [None]):
+        wpm = nw if m is not None else 1
+        out = k7.window_attention(qkv, bias, m, heads, wpm)
+        ref = k7.window_attention_plain(qkv, bias, m, heads, wpm)
+        torch.cuda.synchronize()
+        assert _rel(out, ref) <= TOL and k7.ulp_error(out, ref, heads) <= k7.ULP_TOL
+        for name, bad in k7.planted_outputs(k7.window_attention, qkv, bias, m, heads,
+                                            nw).items():
+            assert k7.ulp_error(bad, ref, heads) > k7.ULP_TOL, name
+
+
+def test_k7_plan_mirror_matches_the_library(dev):
+    from genconvit_tpu_torch.ops.cuda import window_attn as k7
+
+    for heads, nw in _K7_STAGES:
+        for hd in (16, 32, 64):
+            for masked in (True, False):
+                for windows in (1, 2 * nw + 5, 120 * nw):
+                    for sms in (132, 114):
+                        want = k7.k7_plan(49, heads, hd, masked, windows, sms)
+                        assert k7.library_k7_plan(49, heads, hd, masked, windows, sms) == want
+    assert k7.library_k7_plan(81, 3, 32, False, 8, 132) is None
 
 
 def test_k7_wrapper_raises_on_what_the_kernel_does_not_take(dev):

@@ -173,8 +173,10 @@ def test_k7_check_refuses_every_planted_fault(masked):
     ref = k7.window_attention_plain(qkv, bias, mask, heads, wpm)
     assert k7.ulp_error(k7.window_attention(qkv, bias, mask, heads, wpm), ref, heads) == 0
     faults = k7.planted_outputs(k7.window_attention_plain, qkv, bias, mask, heads, nw)
-    want = {"relative bias dropped", "bias window-fastest", "scale omitted"}
-    assert set(faults) == (want | {"mask dropped", "mask off by one window"} if masked else want)
+    want = {"relative bias dropped", "bias window-fastest", "scale omitted",
+            "ring off by one stage", "last strip's valid rows dropped"}   # G = 3: one group
+    assert set(faults) == (want | {"mask dropped", "mask of the window before"} if masked
+                           else want)
     for name, bad in faults.items():
         assert k7.ulp_error(bad, ref, heads) > k7.ULP_TOL, name
 
