@@ -91,9 +91,11 @@ Phases (any failed check raises and the exit code is non-zero):
      N, peak device memory;
   9. the probes M1-M3 (ops/cuda int8_dot, block_parts, dw_moments; the
      port's microbenchmark tools, which no model path runs), each against
-     its plain version: M1 in both variants at the JAX tool's default shape
-     and at K4's 12 block-tail shapes (hid = 4C), M2 at its 7 phases at K5's
-     5 path shapes, M3 at the JAX tool's default shape and at the 7 shapes
+     its plain version: M1 in both variants at the JAX tool's default shape,
+     at K4's 12 block-tail shapes (hid = 4C) and at convnext_large's four
+     stage widths and convnext_base's 1024 at the ED call's rows, M2 at its 7
+     phases at K5's 5 path shapes and at C = 1024 and 1536 (240 x 7^2), M3
+     at the JAX tool's default shape and at the 7 shapes
      of the LN-folded blocks under pallas='1'; pass: max|diff| / max|ref|
      <= 3e-2 and every element within 2 bf16 ulps (M1 int8: 1 ulp of the
      exact integer sums; M3's mean and var within dw_moments.MOMENT_TOL of
@@ -106,7 +108,8 @@ Phases (any failed check raises and the exit code is non-zero):
      depthwise conv + K1; M3: cuDNN's depthwise conv + the two reductions)
      beside the bound and the term that sets it; M2's per-phase deltas;
      M3's gap between the moments of the f32 sums and of the rounded dw;
-     the HMMA/IMMA count of M1's SASS. Then the three tools' main() at
+     the HGMMA/IGMMA/HMMA/IMMA counts of each M1 instantiation's SASS
+     (warpgroup MMA alone, its three loops there). Then the three tools' main() at
      their default shapes with every count at 0 before: the M kernels'
      launches in the kernels' record come from that run.
 
@@ -177,6 +180,8 @@ K2_CHECK_WIDTHS = (96, 128, 192, 64, 320, 1056)   # K2's own instantiations, the
 K2_CHECK_ROWS = 1013   # ragged against every instantiation's rows per block
 # K7 beyond the Swin stage shapes: (L, heads, hd, windows per mask), B = 2 nW + 5
 K7_EXTRA = ((49, 4, 16, 4), (49, 3, 64, 4), (16, 3, 16, 1), (16, 3, 64, 16))
+# M2 past convnext_tiny's widths: (call, n, H, C, blocks per forward)
+M2_WIDE = (("base ed", 240, 7, 1024, 0), ("large ed", 240, 7, 1536, 0))
 M1_TOOL_SHAPE = (240, 56, 128)   # the JAX tools' default n, h, c: M1 (hid 3c) ...
 M3_TOOL_SHAPE = (240, 56, 96)    # ... and M3 (C unpadded)
 
@@ -1473,10 +1478,15 @@ def folded_shapes() -> list:
             for si, c in enumerate(DIMS) if not block_kernel_applies((px // 4) >> si)]
 
 
+SASS_MMA = ("HGMMA", "IGMMA", "HMMA", "IMMA")   # warpgroup MMA (bf16, s8), then mma.sync's
+
+
 def sass_mma_counts(path: str) -> dict:
-    """HMMA and IMMA instructions per M1 kernel in the built library's SASS
-    (cuobjdump): the products of z's columns past c must be there."""
+    """{M1 instantiation (int8, NC): {opcode: count}} of the tensor-core
+    instructions in the built library's SASS (cuobjdump), for
+    check_m1_sass."""
     import os
+    import re
 
     from genconvit_tpu_torch.ops.cuda._build import nvcc_path
 
@@ -1488,16 +1498,40 @@ def sass_mma_counts(path: str) -> dict:
     counts, fn = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
-            fn = line.split("Function :")[1].strip()
-            fn = fn if "dots_kernel" in fn else None
-        elif fn is not None and ("HMMA" in line or "IMMA" in line):
-            counts[fn] = counts.get(fn, 0) + 1
+            m = re.search(r"dots_kernelILb([01])ELi(\d+)E", line)
+            fn = (m.group(1) == "1", int(m.group(2))) if m else None
+            if fn is not None:
+                counts[fn] = dict.fromkeys(SASS_MMA, 0)
+        elif fn is not None:
+            op = re.search(r"\b(HGMMA|IGMMA|HMMA|IMMA)\b", line)
+            if op:
+                counts[fn][op.group(1)] += 1
     return counts
 
 
+def check_m1_sass(counts: dict) -> None:
+    """Every M1 instantiation on warpgroup MMA alone (HGMMA for bf16, IGMMA
+    for int8; no mma.sync), with at least the wgmma of its three loops (the
+    sink blocks of z past c, the group's z, o): NC / 64 boxes x 4 k steps
+    each, so a dropped sink loop shows."""
+    if not counts:
+        log("M1 SASS: cuobjdump not found; not checked")
+        return
+    for int8, nc in [(False, 64), (False, 128), (True, 64), (True, 128)]:
+        got = counts.get((int8, nc))
+        want = "IGMMA" if int8 else "HGMMA"
+        log(f"M1 SASS dots_kernel<{'int8' if int8 else 'bf16'}, NC={nc}>: {got}")
+        if got is None or got[want] < 3 * (nc // 64) * 4 or got["HMMA"] or got["IMMA"] \
+                or got["IGMMA" if want == "HGMMA" else "HGMMA"]:
+            raise AssertionError(f"M1's SASS at (int8={int8}, NC={nc}): {got}; want only "
+                                 f"{want}, at least {3 * (nc // 64) * 4}")
+
+
 def probe_m1(torch, dev, card: str, g) -> list:
-    """M1 in both variants at the JAX tool's default shape and K4's 12
-    block-tail shapes."""
+    """M1 in both variants at the JAX tool's default shape, K4's 12
+    block-tail shapes and, at the ED call's rows, convnext_large's four
+    stage widths and convnext_base's last (K1_WIDE, as phase 3's K1 and
+    K4; not in the per-forward sums)."""
     from genconvit_tpu_torch.ops.cuda import convnext_mlp as km
     from genconvit_tpu_torch.ops.cuda import int8_dot as m1
     from genconvit_tpu_torch.tools.microbench_int8_dot import dots_bound, make_inputs
@@ -1508,6 +1542,10 @@ def probe_m1(torch, dev, card: str, g) -> list:
         for si, c in enumerate(DIMS):
             h = (px // 4) >> si
             shapes.append((f"K4 {call} s{si}", n * h * h, c, 4 * c, DEPTHS[si]))
+    n, px = CALLS[0][1:]
+    for name, si, c in K1_WIDE:
+        h = (px // 4) >> si
+        shapes.append((f"{name} ed s{si}", n * h * h, c, 4 * c, 0))
     recs = []
     for kind in ("bf16", "int8"):
         fn, plain, tol = ((m1.dots_bf16, m1.dots_bf16_plain, m1.ULP_TOL) if kind == "bf16"
@@ -1519,7 +1557,7 @@ def probe_m1(torch, dev, card: str, g) -> list:
             if kind == "int8":   # scales off 1: a scale on the wrong column must show
                 ops[3] = torch.rand(hid, device=dev, generator=g) + 0.5
                 ops[5] = torch.rand(c, device=dev, generator=g) + 0.5
-            what = f"M1 {kind} {tag:36s} R={rows:6d} C={c:3d} hid={hid:4d}"
+            what = f"M1 {kind} {tag:36s} R={rows:6d} C={c:4d} hid={hid:4d} {m1.m1_plan(c, hid)}"
             ref = plain(*ops)
             err, rel, ulps = compare(torch, km, what, fn(*ops), ref, tol=tol)
             rec["err"], rec["ulps"] = max(rec["err"], err), max(rec["ulps"], ulps)
@@ -1596,7 +1634,9 @@ def probe_m2(torch, dev, card: str, g) -> dict:
     k5_shapes, _ = fused_shapes()
     rec = {"err": 0.0, "ulps": 0.0, "planted_min": float("inf"), "ms": 0.0, "plain_ms": 0.0,
            "lib_ms": 0.0, "bound_ms": 0.0, "sides": []}
-    for call, n, h, c, depth in k5_shapes:
+    # and convnext_base's and convnext_large's last stages at the ED call's
+    # rows (not in the per-forward sums)
+    for call, n, h, c, depth in k5_shapes + list(M2_WIDE):
         blk = random_fused_block(torch, c, dev, g)
         x = torch.randn(n, h, h, c, device=dev, generator=g).to(torch.bfloat16)
         with torch.inference_mode():
@@ -1639,7 +1679,8 @@ def probe_m2(torch, dev, card: str, g) -> dict:
         for key, t in (("ms", times["full"][0]), ("plain_ms", times["full"][1]),
                        ("lib_ms", t_full), ("bound_ms", bd)):
             rec[key] += depth * t
-        rec["sides"].append((depth * bd, by))
+        if depth:
+            rec["sides"].append((depth * bd, by))
         del blk, x, p, folded
     log(f"M2 'full' per V=8 forward at K5's shapes ({K5_PER_FORWARD} launches): kernel "
         f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, cuDNN dw + K1 {rec['lib_ms']:.4f} "
@@ -1733,10 +1774,7 @@ def phase_probes(torch, dev, card: str, lib_path: str) -> tuple:
     from genconvit_tpu_torch.tools import (microbench_dwshift, microbench_int8_dot,
                                            microbench_kernel_parts)
 
-    counts = sass_mma_counts(lib_path)
-    log("M1 SASS, mma instructions per kernel: " + (", ".join(
-        f"{k.split('dots_kernel')[1][:14]} {v}" for k, v in sorted(counts.items()))
-        or "cuobjdump not found"))
+    check_m1_sass(sass_mma_counts(lib_path))
     g = torch.Generator(device=dev).manual_seed(5678)
     recs = probe_m1(torch, dev, card, g) + [probe_m2(torch, dev, card, g),
                                             probe_m3(torch, dev, card, g)]

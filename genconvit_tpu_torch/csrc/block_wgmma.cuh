@@ -52,7 +52,17 @@
 //   passes run.
 //   The weights come through 3-D tensor maps, block index outermost, so the
 //   zero fill past C holds per block.
+// - The cut (Stop, a template argument of the consumer and the producer;
+//   the whole block by default, which K5 and K6 instantiate): the probe M2
+//   (block_parts.cu, block_parts_kernel) runs K5's schedule with K6's GELU
+//   and stops after one phase, writing that phase's [rows, C] bf16 to the
+//   output: x copied (dma), the taps' f32 sums rounded (dw) or the taps
+//   summed in bf16 (dw_bf16acc), the LayerNorm's y (ln), the first C columns
+//   of the hidden before or after the GELU (fc1, gelu; the whole 4C
+//   computed, no fc2 weights streamed), or the block's output (full).
 #pragma once
+
+#include <type_traits>
 
 #include "mlp_wgmma.cuh"
 
@@ -73,6 +83,10 @@ struct BlockArgs {
   long long item_rows;  // rows per work item: a row tile (K5), whole images (K6)
   int h, w, c, nb, stages;
 };
+
+// Where a block stops: M2's phases (block_parts.PHASES, in this order);
+// K5 and K6 run the whole block (kStopFull).
+enum BlockStop : int { kStopDma, kStopDw, kStopDwBf16, kStopLn, kStopFc1, kStopGelu, kStopFull };
 
 // Channel pairs a lane holds in the taps (P >= C / 64), one instantiation
 // per range of widths, and the rows a warp's taps run at once.
@@ -100,11 +114,12 @@ __host__ inline int k6_images(int n, long long hw, int tile_rows, int sms) {
 }
 
 // K5's GELU (the erf form, zc * (P / Q): RECIP 0) and K6's (gelu_f32, zc *
-// P * (1 / Q): RECIP 1), the hp coefficients with the correctly rounded
-// divide or reciprocal. The polynomials run on fused multiply-adds, which
-// round once where the plain version's product and sum round twice: a few
-// f32 ulps of e, below the bf16 rounding of h (gelu_hp_exact keeps every
-// rounding, at about twice the instructions; the probe M2 uses it).
+// P * (1 / Q): RECIP 1; also the probe M2's), the hp coefficients with the
+// correctly rounded divide or reciprocal. The polynomials run on fused
+// multiply-adds, which round once where the plain version's product and
+// sum round twice: a few f32 ulps of e, below the bf16 rounding of h
+// except where h lies next to a rounding boundary (M2's 'gelu' cut writes
+// h itself and shows such a flip as one ulp).
 template <int RECIP>
 struct GeluHp {
   __device__ __forceinline__ float operator()(float h) const {
@@ -125,6 +140,11 @@ struct GeluHp {
     if (fabsf(z) >= zmax) e = copysignf(1.0f, z);
     return 0.5f * h * (1.0f + e);
   }
+};
+
+// M2's fc1 cut: the hidden before the GELU.
+struct ActNone {
+  __device__ __forceinline__ float operator()(float h) const { return h; }
 };
 
 // A weight pair, through the read-only path, as two f32.
@@ -226,7 +246,7 @@ __device__ __forceinline__ void taps_quads(const BlockArgs& a, const uint2* xk, 
   }
 }
 
-template <int RB>
+template <int RB, int Stop>
 __device__ __forceinline__ void taps_rows_to_y_quads(const BlockArgs& a, const bf16* src, int blk,
                                                      unsigned char* ytiles, long long tile0,
                                                      int r0, int nrows, long long row_end,
@@ -272,6 +292,17 @@ __device__ __forceinline__ void taps_rows_to_y_quads(const BlockArgs& a, const b
         ++n;
       }
     }
+    if constexpr (Stop == kStopDw) {   // M2: the sums rounded, no LayerNorm
+#pragma unroll
+      for (int i = 0; i < RB; ++i) {
+        if (i < nv && lj) {
+          *reinterpret_cast<uint2*>(a.out + (g0 + i) * c + 4 * lane) =
+              make_uint2(bf162_bits(__floats2bfloat162_rn(acc[i].x, acc[i].y)),
+                         bf162_bits(__floats2bfloat162_rn(acc[i].z, acc[i].w)));
+        }
+      }
+      continue;
+    }
     const float4 sc = lj ? *reinterpret_cast<const float4*>(a.lns + vb + 4 * lane) : zero;
     const float4 bi = lj ? *reinterpret_cast<const float4*>(a.lnb + vb + 4 * lane) : zero;
 #pragma unroll
@@ -297,8 +328,12 @@ __device__ __forceinline__ void taps_rows_to_y_quads(const BlockArgs& a, const b
             __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(v.z, mean), rstd), sc.z), bi.z),
             __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(v.w, mean), rstd), sc.w), bi.w)));
       }
-      *reinterpret_cast<uint2*>(ytiles + (lane / 16) * 8192 +
-                                swz128((r0 + rb + i) % 64, (4 * lane) % 64)) = y;
+      if constexpr (Stop == kStopLn) {   // M2: y to the output, not the tiles
+        if (i < nv && lj) *reinterpret_cast<uint2*>(a.out + (g0 + i) * c + 4 * lane) = y;
+      } else {
+        *reinterpret_cast<uint2*>(ytiles + (lane / 16) * 8192 +
+                                  swz128((r0 + rb + i) % 64, (4 * lane) % 64)) = y;
+      }
     }
   }
 }
@@ -308,7 +343,7 @@ __device__ __forceinline__ void taps_rows_to_y_quads(const BlockArgs& a, const b
 // over the taps; each image row's raw pairs are fetched one row ahead. (A
 // FULL fast path as the quads' made this width 1.3x slower: six copies of
 // the loop body, k by FULL, outgrew the instruction cache.)
-template <int P, int RB>
+template <int P, int RB, int Stop>
 __device__ __forceinline__ void taps_rows_to_y_pairs(const BlockArgs& a, const bf16* src,
                                                      int blk, unsigned char* ytiles,
                                                      long long tile0, int r0, int nrows,
@@ -409,6 +444,20 @@ __device__ __forceinline__ void taps_rows_to_y_pairs(const BlockArgs& a, const b
         ++n;
       }
     }
+    if constexpr (Stop == kStopDw) {   // M2: the sums rounded, no LayerNorm
+#pragma unroll
+      for (int i = 0; i < RB; ++i) {
+#pragma unroll
+        for (int k = 0; k < P; ++k) {
+          const int j = lane + 32 * k;
+          if (i < nv && j < half_c) {
+            *reinterpret_cast<bf162*>(a.out + (g0 + i) * c + 2 * j) =
+                __floats2bfloat162_rn(acc[i][k].x, acc[i][k].y);
+          }
+        }
+      }
+      continue;
+    }
     // the LayerNorm of each row, its affine, y into the tiles
 #pragma unroll
     for (int i = 0; i < RB; ++i) {
@@ -439,7 +488,11 @@ __device__ __forceinline__ void taps_rows_to_y_pairs(const BlockArgs& a, const b
               __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(acc[i][k].x, mean), rstd), sc.x), bi.x),
               __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(acc[i][k].y, mean), rstd), sc.y), bi.y));
         }
-        *reinterpret_cast<bf162*>(ytiles + (j / 32) * 8192 + swz128(r, (2 * j) % 64)) = y;
+        if constexpr (Stop == kStopLn) {   // M2: y to the output, not the tiles
+          if (live && j < half_c) *reinterpret_cast<bf162*>(a.out + (g0 + i) * c + 2 * j) = y;
+        } else {
+          *reinterpret_cast<bf162*>(ytiles + (j / 32) * 8192 + swz128(r, (2 * j) % 64)) = y;
+        }
       }
     }
   }
@@ -507,7 +560,7 @@ __device__ __forceinline__ void taps_pair(const BlockArgs& a, const bf16* src, c
 // for y. The recomputed sums are the same, in the same order; the second
 // pass costs 98 f32 operations a row and channel, small beside the 16 * C
 // tensor-core operations from C = 224 on.
-template <int RB>
+template <int RB, int Stop>
 __device__ __forceinline__ void taps_rows_to_y_twice(const BlockArgs& a, const bf16* src, int blk,
                                                      unsigned char* ytiles, long long tile0,
                                                      int r0, int nrows, long long row_end,
@@ -537,6 +590,22 @@ __device__ __forceinline__ void taps_rows_to_y_twice(const BlockArgs& a, const b
     float s[RB], s2[RB], mean[RB], rstd[RB];
 #pragma unroll
     for (int i = 0; i < RB; ++i) s[i] = s2[i] = 0.f;
+    if constexpr (Stop == kStopDw) {   // M2: one pass, the sums rounded
+#pragma unroll 1
+      for (int k = 0; 32 * k < half_c; ++k) {
+        const int j = lane + 32 * k;
+        float2 acc[RB];
+        taps_pair<RB>(a, src, wdw, bdw, k, nv, n, py, px, acc);
+#pragma unroll
+        for (int i = 0; i < RB; ++i) {
+          if (i < nv && j < half_c) {
+            *reinterpret_cast<bf162*>(a.out + (g0 + i) * c + 2 * j) =
+                __floats2bfloat162_rn(acc[i].x, acc[i].y);
+          }
+        }
+      }
+      continue;
+    }
 #pragma unroll 1
     for (int k = 0; 32 * k < half_c; ++k) {
       float2 acc[RB];
@@ -557,8 +626,10 @@ __device__ __forceinline__ void taps_rows_to_y_twice(const BlockArgs& a, const b
       rstd[i] = rsqrtf(__fadd_rn(__fsub_rn(__fmul_rn(t2, inv_c), __fmul_rn(mean[i], mean[i])),
                                  kLnEps));
     }
+    // nkb * 32 pairs: the zero k past C too (M2's ln: the pairs inside C)
+    const int kend = Stop == kStopLn ? (half_c + 31) / 32 : nkb;
 #pragma unroll 1
-    for (int k = 0; k < nkb; ++k) {   // nkb * 32 pairs: the zero k past C too
+    for (int k = 0; k < kend; ++k) {
       const int j = lane + 32 * k;
       float2 acc[RB];
       if (32 * k < half_c) taps_pair<RB>(a, src, wdw, bdw, k, nv, n, py, px, acc);
@@ -575,8 +646,12 @@ __device__ __forceinline__ void taps_rows_to_y_twice(const BlockArgs& a, const b
               __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(acc[i].x, mean[i]), rstd[i]), sc.x), bi.x),
               __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(acc[i].y, mean[i]), rstd[i]), sc.y), bi.y));
         }
-        *reinterpret_cast<bf162*>(ytiles + (j / 32) * 8192 +
-                                  swz128((r0 + rb + i) % 64, (2 * j) % 64)) = y;
+        if constexpr (Stop == kStopLn) {   // M2: y to the output, not the tiles
+          if (i < nv && j < half_c) *reinterpret_cast<bf162*>(a.out + (g0 + i) * c + 2 * j) = y;
+        } else {
+          *reinterpret_cast<bf162*>(ytiles + (j / 32) * 8192 +
+                                    swz128((r0 + rb + i) % 64, (2 * j) % 64)) = y;
+        }
       }
     }
   }
@@ -585,26 +660,216 @@ __device__ __forceinline__ void taps_rows_to_y_twice(const BlockArgs& a, const b
 // A warp's rows [tile0 + r0, + nrows) of block blk: the depthwise taps from
 // src, the LayerNorm and its affine, y in bf16 into the swizzled y tiles
 // (row (r0 + i) % 64 of each 64-row tile set); rows at or past row_end and
-// k past C are zero. P channel pairs a lane, RB rows a run.
-template <int P, int RB>
+// k past C are zero. P channel pairs a lane, RB rows a run. M2's dw and ln
+// cuts (Stop) write the rounded sums or y to a.out instead, rows before
+// row_end only.
+template <int P, int RB, int Stop = kStopFull>
 __device__ __forceinline__ void taps_rows_to_y(const BlockArgs& a, const bf16* src, int blk,
                                                unsigned char* ytiles, long long tile0, int r0,
                                                int nrows, long long row_end, int nkb) {
   if constexpr (P == 2) {
-    taps_rows_to_y_quads<RB>(a, src, blk, ytiles, tile0, r0, nrows, row_end, nkb);
+    taps_rows_to_y_quads<RB, Stop>(a, src, blk, ytiles, tile0, r0, nrows, row_end, nkb);
   } else if constexpr (P == 3) {
-    taps_rows_to_y_pairs<P, RB>(a, src, blk, ytiles, tile0, r0, nrows, row_end, nkb);
+    taps_rows_to_y_pairs<P, RB, Stop>(a, src, blk, ytiles, tile0, r0, nrows, row_end, nkb);
   } else {
-    taps_rows_to_y_twice<RB>(a, src, blk, ytiles, tile0, r0, nrows, row_end, nkb);
+    taps_rows_to_y_twice<RB, Stop>(a, src, blk, ytiles, tile0, r0, nrows, row_end, nkb);
   }
+}
+
+// M2's dma cut: a warp's rows of x, a channel pair a lane as the taps read
+// them, written to a.out.
+__device__ __forceinline__ void copy_rows(const BlockArgs& a, long long tile0, int r0, int nrows,
+                                          long long row_end) {
+  const int half_c = a.c / 2;
+  for (int i = 0; i < nrows; ++i) {
+    const long long r = tile0 + r0 + i;
+    if (r >= row_end) break;
+    const bf162* xr = reinterpret_cast<const bf162*>(a.x) + r * half_c;
+    bf162* orow = reinterpret_cast<bf162*>(a.out) + r * half_c;
+    for (int j = threadIdx.x % 32; j < half_c; j += 32) orow[j] = xr[j];
+  }
+}
+
+// M2's dw_bf16acc cut (the JAX tool's fp32dw=False): a warp's rows of the
+// depthwise conv with the bias, each product and each sum rounded to bf16
+// (mul.rn / add.rn, never fused), taps in (dy, dx) order, on taps_pair's
+// sliding window (the halo's zero taps add nothing, as the plain version's
+// zero padding adds nothing); a channel pair a lane, RB rows a run.
+__device__ __forceinline__ void taps_rows_bf16acc(const BlockArgs& a, long long tile0, int r0,
+                                                  int nrows, long long row_end) {
+  constexpr int RB = kTapRows;
+  const int c = a.c;
+  const int half_c = c / 2;
+  const int lane = threadIdx.x % 32;
+  const long long hw = static_cast<long long>(a.h) * a.w;
+  const bf162* wdw = reinterpret_cast<const bf162*>(a.wdw);
+  const bf162 zero = __floats2bfloat162_rn(0.f, 0.f);
+  for (int rb = 0; rb < nrows; rb += RB) {
+    const long long g0 = tile0 + r0 + rb;
+    const long long left = row_end - g0;
+    const int nv = left <= 0 ? 0 : left < RB ? static_cast<int>(left) : RB;
+    long long n0 = 0;
+    int py0 = 0, px0 = 0;
+    if (nv > 0) {
+      n0 = g0 / hw;
+      const int rem = static_cast<int>(g0 - n0 * hw);
+      py0 = rem / a.w;
+      px0 = rem - py0 * a.w;
+    }
+#pragma unroll 1
+    for (int k = 0; 32 * k < half_c; ++k) {
+      const int j = lane + 32 * k;
+      const bool lj = j < half_c;
+      bf162 acc[RB];
+      const bf162 b = lj ? __floats2bfloat162_rn(a.bdw[2 * j], a.bdw[2 * j + 1]) : zero;
+#pragma unroll
+      for (int i = 0; i < RB; ++i) acc[i] = b;
+      long long n = n0;
+      int py = py0, px = px0;
+      for (int s0 = 0; s0 < nv;) {
+        const int s1 = nv < s0 + a.w - px ? nv : s0 + a.w - px;
+        const int cb = px - s0 - 3;
+        for (int dy = 0; dy < 7; ++dy) {
+          const int yy = py + dy - 3;
+          if (yy < 0 || yy >= a.h) continue;
+          const bf162* xr = reinterpret_cast<const bf162*>(a.x + (n * a.h + yy) * a.w * c) + j;
+          bf162 wt[7], win[RB + 6];
+#pragma unroll
+          for (int dx = 0; dx < 7; ++dx) wt[dx] = lj ? wdw[(dy * 7 + dx) * half_c + j] : zero;
+#pragma unroll
+          for (int q = 0; q < RB + 6; ++q) {
+            const int col = cb + q;
+            win[q] = lj && q >= s0 && q < s1 + 6 && col >= 0 && col < a.w ? xr[col * half_c] : zero;
+          }
+#pragma unroll
+          for (int i = 0; i < RB; ++i) {
+            if (i >= s0 && i < s1) {
+#pragma unroll
+              for (int dx = 0; dx < 7; ++dx) {
+                acc[i] = bf16x2_add_rn(acc[i], bf16x2_mul_rn(win[i + dx], wt[dx]));
+              }
+            }
+          }
+        }
+        s0 = s1;
+        px = 0;
+        if (++py == a.h) {
+          py = 0;
+          ++n;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < RB; ++i) {
+        if (i < nv && lj) reinterpret_cast<bf162*>(a.out + (g0 + i) * c)[j] = acc[i];
+      }
+    }
+  }
+}
+
+// M2's cuts before the MLP (dma, dw, dw_bf16acc, ln): K5's schedule (work
+// items of row tiles, a warp's rows as block_consumer's prologue takes
+// them), each warp writing its rows' phase output; no weights, no y tiles.
+template <bool COLS, int P, int Stop>
+__device__ __forceinline__ void prologue_consumer(const BlockArgs& a) {
+  const int W = threadIdx.x / 128;
+  const int ww = (threadIdx.x / 32) % 4;
+  const int wrows = COLS ? 8 : 16;
+  const int wr0 = COLS ? 8 * (4 * W + ww) : 64 * W + 16 * ww;
+  const int nitems = static_cast<int>((a.rows + a.item_rows - 1) / a.item_rows);
+  for (int item = blockIdx.x; item < nitems; item += gridDim.x) {
+    const long long tile0 = static_cast<long long>(item) * a.item_rows;
+    const long long r_end = tile0 + a.item_rows < a.rows ? tile0 + a.item_rows : a.rows;
+    if constexpr (Stop == kStopDma) {
+      copy_rows(a, tile0, wr0, wrows, r_end);
+    } else if constexpr (Stop == kStopDwBf16) {
+      taps_rows_bf16acc(a, tile0, wr0, wrows, r_end);
+    } else {
+      taps_rows_to_y<P, kTapRows, Stop>(a, a.x, 0, nullptr, tile0, wr0, wrows, r_end,
+                                        (a.c + 63) / 64);
+    }
+    if (item + gridDim.x < nitems) {
+      prefetch_rows(a.x, static_cast<long long>(item + gridDim.x) * a.item_rows + wr0, wrows,
+                    a.rows, a.c);
+    }
+  }
+}
+
+// M2's fc1 and gelu cuts: every 64-column chunk of the tile's 4C hidden,
+// fc1 from the loop's ring as the block's passes run it (in turns, or stage
+// by stage where the ring is too short for a turn), then b1 (and the GELU)
+// and the rounding to bf16 of the chunk functor: fc2's A fragments. Chunks
+// inside C are written to a.out (in cols plans, where both warpgroups hold
+// the same rows, warpgroup w the chunks j % 2 == w); every other value goes
+// into a sum that only a never-taken store reads, so that none of the
+// hidden's work can be dropped.
+template <class Mlp, class Chunk>
+__device__ __forceinline__ void hidden_pass(const BlockArgs& a, const Mlp& mlp, int w, int yw,
+                                            Chunk& ch, uint32_t& q, long long ra,
+                                            long long r_end, bool last, uint32_t* sink) {
+  const int t = threadIdx.x % 4;
+  const int n = mlp.chunks();
+  uint32_t keep = 0;
+  float z[32];
+  uint32_t hf[4][4];
+  for (int j = 0; j < n; ++j) {
+    ch.load(j);
+#pragma unroll
+    for (int e = 0; e < 32; ++e) z[e] = 0.f;
+    if constexpr (Mlp::kStream) {
+      for (int f = 0; f < mlp.fc1_stages; ++f, ++q) {
+        mlp.wait_full(q);
+        wgmma_fence();
+        const unsigned char* st = mlp.ring + (q % mlp.stages) * Mlp::kStageBytes;
+#pragma unroll
+        for (int r = 0; r < Mlp::kKbs; ++r) {
+          const int kb = f * Mlp::kKbs + r;
+          const uint64_t da = sw128_desc(mlp.y_tile(yw, kb < mlp.nkb ? kb : 0));
+          const uint64_t db = sw128_desc(st + r * 8192);
+#pragma unroll
+          for (int s = 0; s < 4; ++s) wgmma_ss_n64(z, da + 2 * s, db + 2 * s, 1);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs<32>(z);
+        mlp.release(q, q + 1);
+      }
+    } else {
+      mlp.turn_begin(w);
+      mlp.issue_fc1(z, yw, q);
+      wgmma_commit();
+      mlp.turn_end(w, !(last && j == n - 1 && w == 1));   // as MlpWgmma::pass
+      wgmma_wait<0>();
+      fence_regs<32>(z);
+      mlp.release(q, q + mlp.fc1_stages);
+      q += mlp.fc1_stages;
+    }
+    ch.convert(z, hf);
+    // hf[i / 2][(i % 2) * 2 + h]: columns 64 j + 8 i + 2 t, + 1 of row ra + 8 h
+    if (64 * j < a.c && (!Mlp::kCols || j % 2 == w)) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (ra + 8 * h >= r_end) continue;
+        uint32_t* orow = reinterpret_cast<uint32_t*>(a.out + (ra + 8 * h) * a.c + 64 * j) + t;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          if (64 * j + 8 * i + 2 * t < a.c) orow[4 * i] = hf[i / 2][(i % 2) * 2 + h];
+        }
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) keep ^= hf[i][0] ^ hf[i][1] ^ hf[i][2] ^ hf[i][3];
+    }
+  }
+  if (sink != nullptr) sink[threadIdx.x] = keep;
 }
 
 // Consumer warpgroup W: every work item of its thread block, for each block
 // of the chain, each row tile: the prologue, the passes, the epilogue. In
 // rows plans W owns rows 64 W.. of each 128-row tile; in cols plans both
 // share a 64-row tile and W takes groups W, W + 2, ...
-template <int P, class Gelu, class Mlp>
-__device__ __forceinline__ void block_consumer(const BlockArgs& a, const Mlp& mlp) {
+template <int P, class Gelu, class Mlp, int Stop = kStopFull>
+__device__ __forceinline__ void block_consumer(const BlockArgs& a, const Mlp& mlp,
+                                               uint32_t* sink = nullptr) {
   constexpr int NC = Mlp::NC;
   constexpr bool COLS = Mlp::kCols;
   constexpr int kTile = Mlp::kRows;
@@ -665,6 +930,10 @@ __device__ __forceinline__ void block_consumer(const BlockArgs& a, const Mlp& ml
         //    group's columns: o[4i + 2h + e] is column grp * NC + 8i + 2t + e
         //    of row 16 ww + g + 8h
         const long long ra = row0 + 16 * ww + g;
+        if constexpr (Stop == kStopFc1 || Stop == kStopGelu) {   // M2: the hidden alone
+          hidden_pass(a, mlp, W, yw, ch, q, ra, r_end, last_item && tile == tiles - 1, sink);
+          continue;
+        }
         const float* b2 = a.b2 + vb;
         const float* gam = a.gamma + vb;
         for (int ps = 0; ps < mlp.passes; ++ps) {
@@ -716,10 +985,12 @@ __device__ __forceinline__ void block_consumer(const BlockArgs& a, const Mlp& ml
 }
 
 // The producer thread: the weights of the consumers' order, each item's
-// blocks in turn, each block's tiles, each tile's passes.
-template <class Mlp>
+// blocks in turn, each block's tiles, each tile's passes (M2's fc1 and gelu
+// cuts: one pass of fc1 stages a tile; its earlier cuts read no weights).
+template <class Mlp, int Stop = kStopFull>
 __device__ __forceinline__ void block_produce(const BlockArgs& a, const Mlp& mlp,
                                               const CUtensorMap* tm1, const CUtensorMap* tm2) {
+  if constexpr (Stop < kStopFc1) return;
   const int nitems = static_cast<int>((a.rows + a.item_rows - 1) / a.item_rows);
   uint32_t q = 0;
   for (int item = blockIdx.x; item < nitems; item += gridDim.x) {
@@ -728,7 +999,17 @@ __device__ __forceinline__ void block_produce(const BlockArgs& a, const Mlp& mlp
     const int tiles = static_cast<int>((r_end - r_begin + Mlp::kRows - 1) / Mlp::kRows);
     for (int b = 0; b < a.nb; ++b) {
       for (int tile = 0; tile < tiles; ++tile) {
-        for (int ps = 0; ps < mlp.passes; ++ps) mlp.produce_pass(tm1, tm2, ps, b, q);
+        if constexpr (Stop == kStopFull) {
+          for (int ps = 0; ps < mlp.passes; ++ps) mlp.produce_pass(tm1, tm2, ps, b, q);
+        } else {
+          for (int j = 0; j < mlp.chunks(); ++j) {
+            for (int f = 0; f < mlp.fc1_stages; ++f, ++q) {
+              const int slot = q % mlp.stages;
+              mbar_wait(&mlp.empty[slot], ((q / mlp.stages) & 1) ^ 1);
+              mlp.load_fc1(tm1, slot, f, j, b);
+            }
+          }
+        }
       }
     }
   }
@@ -752,53 +1033,140 @@ fused_wgmma_kernel(const BlockArgs a, const __grid_constant__ CUtensorMap tm1,
   }
 }
 
-template <class Gelu, int NC, bool COLS, bool STREAM, int P>
+// M2 (block_parts.cu): K5's schedule with K6's GELU (the fc1 cut: none),
+// cut after phase Stop; its entries are named apart from K5's and K6's.
+// sink: null, the never-taken store of the fc1 and gelu cuts.
+template <int NC, bool COLS, bool STREAM, int P, int Stop>
+__global__ void __launch_bounds__(kMlpThreads, 1)
+block_parts_kernel(const BlockArgs a, const __grid_constant__ CUtensorMap tm1,
+                   const __grid_constant__ CUtensorMap tm2, uint32_t* sink) {
+  using Mlp = MlpWgmma<NC, COLS, STREAM>;
+  using Gelu = typename std::conditional<Stop == kStopFc1, ActNone, GeluHp<1>>::type;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const Mlp mlp(align1024(smem_raw), a.c, a.stages, false);
+  if (threadIdx.x == 0) mlp.init_barriers();
+  __syncthreads();
+  if (threadIdx.x / 32 >= 8) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n" ::: "memory");
+    if (threadIdx.x == 256) block_produce<Mlp, Stop>(a, mlp, &tm1, &tm2);
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n" ::: "memory");
+    if constexpr (Stop < kStopFc1) {
+      prologue_consumer<COLS, P, Stop>(a);
+    } else {
+      block_consumer<P, Gelu, Mlp, Stop>(a, mlp, sink);
+    }
+  }
+}
+
+constexpr int kWholeBlock = -1;   // the launches' Stop for K5 and K6
+
+// One launch of K5's and K6's kernel (Stop kWholeBlock) or of M2's cut
+// after phase Stop, on the grid of its work items.
+template <class Gelu, int NC, bool COLS, bool STREAM, int P, int Stop = kWholeBlock>
 int launch_block_inst(const BlockArgs& a, const void* w1t, const void* w2t, const MlpPlan& p,
                       cudaStream_t stream) {
   if (block_pairs(a.c) > P) return static_cast<int>(cudaErrorInvalidValue);
   static size_t smem_configured = 0;  // per instantiation, on the current device
   const size_t smem = static_cast<size_t>(p.smem);
-  const int err =
-      raise_smem_limit(fused_wgmma_kernel<NC, COLS, STREAM, P, Gelu>, smem, &smem_configured);
+  int err;
+  if constexpr (Stop == kWholeBlock) {
+    err = raise_smem_limit(fused_wgmma_kernel<NC, COLS, STREAM, P, Gelu>, smem, &smem_configured);
+  } else {
+    err = raise_smem_limit(block_parts_kernel<NC, COLS, STREAM, P, Stop>, smem, &smem_configured);
+  }
   if (err) return err;
   CUtensorMap tm1, tm2;
   int e = box_map_3d(&tm1, w1t, a.c, 4 * a.c, a.nb, 64);
   if (e == 0) e = box_map_3d(&tm2, w2t, 4 * a.c, a.c, a.nb, NC);
   if (e) return e;
   const long long items = (a.rows + a.item_rows - 1) / a.item_rows;
-  const long long blocks = items < sm_count() ? items : sm_count();
-  fused_wgmma_kernel<NC, COLS, STREAM, P, Gelu>
-      <<<static_cast<unsigned int>(blocks), kMlpThreads, smem, stream>>>(a, tm1, tm2);
+  const unsigned int blocks = static_cast<unsigned int>(items < sm_count() ? items : sm_count());
+  if constexpr (Stop == kWholeBlock) {
+    fused_wgmma_kernel<NC, COLS, STREAM, P, Gelu><<<blocks, kMlpThreads, smem, stream>>>(a, tm1, tm2);
+  } else {
+    block_parts_kernel<NC, COLS, STREAM, P, Stop>
+        <<<blocks, kMlpThreads, smem, stream>>>(a, tm1, tm2, nullptr);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 // The launch at plan p (mlp_wgmma_plan(a.c)): the instantiations of every
 // (rows, NC, stream, P) that some width in [32, 1536] takes.
-template <class Gelu>
+template <class Gelu, int Stop = kWholeBlock>
 int launch_block_kernel(const BlockArgs& a, const void* w1t, const void* w2t, const MlpPlan& p,
                         cudaStream_t s) {
   const int pairs = block_pairs(a.c);
   if (p.rows == 128) {
     switch (p.cols) {
       case 96:
-        return pairs == 2 ? launch_block_inst<Gelu, 96, false, false, 2>(a, w1t, w2t, p, s)
-                          : launch_block_inst<Gelu, 96, false, false, 6>(a, w1t, w2t, p, s);
+        return pairs == 2 ? launch_block_inst<Gelu, 96, false, false, 2, Stop>(a, w1t, w2t, p, s)
+                          : launch_block_inst<Gelu, 96, false, false, 6, Stop>(a, w1t, w2t, p, s);
       case 128:
-        return pairs == 2 ? launch_block_inst<Gelu, 128, false, false, 2>(a, w1t, w2t, p, s)
-                          : launch_block_inst<Gelu, 128, false, false, 6>(a, w1t, w2t, p, s);
+        return pairs == 2 ? launch_block_inst<Gelu, 128, false, false, 2, Stop>(a, w1t, w2t, p, s)
+                          : launch_block_inst<Gelu, 128, false, false, 6, Stop>(a, w1t, w2t, p, s);
       default:
-        return pairs == 3 ? launch_block_inst<Gelu, 192, false, false, 3>(a, w1t, w2t, p, s)
-                          : launch_block_inst<Gelu, 192, false, false, 6>(a, w1t, w2t, p, s);
+        return pairs == 3 ? launch_block_inst<Gelu, 192, false, false, 3, Stop>(a, w1t, w2t, p, s)
+                          : launch_block_inst<Gelu, 192, false, false, 6, Stop>(a, w1t, w2t, p, s);
     }
   }
   const bool stream = mlp_wgmma_stream(a.c, p);
   if (p.cols == 128) {
-    return stream ? launch_block_inst<Gelu, 128, true, true, 24>(a, w1t, w2t, p, s)
-                  : launch_block_inst<Gelu, 128, true, false, 12>(a, w1t, w2t, p, s);
+    return stream ? launch_block_inst<Gelu, 128, true, true, 24, Stop>(a, w1t, w2t, p, s)
+                  : launch_block_inst<Gelu, 128, true, false, 12, Stop>(a, w1t, w2t, p, s);
   }
-  if (!stream) return launch_block_inst<Gelu, 192, true, false, 12>(a, w1t, w2t, p, s);
-  return pairs == 12 ? launch_block_inst<Gelu, 192, true, true, 12>(a, w1t, w2t, p, s)
-                     : launch_block_inst<Gelu, 192, true, true, 24>(a, w1t, w2t, p, s);
+  if (!stream) return launch_block_inst<Gelu, 192, true, false, 12, Stop>(a, w1t, w2t, p, s);
+  return pairs == 12 ? launch_block_inst<Gelu, 192, true, true, 12, Stop>(a, w1t, w2t, p, s)
+                     : launch_block_inst<Gelu, 192, true, true, 24, Stop>(a, w1t, w2t, p, s);
+}
+
+// M2's cuts before the MLP (block_parts.cu) read no weights and use no
+// ring: one instantiation per (rows a warp, pairs a lane) of the taps for
+// dw and ln, per rows a warp alone for dma and dw_bf16acc; the launch takes
+// plan p's shared memory and grid, as K5's.
+template <int Stop>
+int launch_prologue_cut(const BlockArgs& a, const void* w1t, const void* w2t, const MlpPlan& p,
+                        cudaStream_t s) {
+  using G = GeluHp<1>;
+  const int pairs = block_pairs(a.c);
+  if constexpr (Stop == kStopDma || Stop == kStopDwBf16) {
+    return p.rows == 128 ? launch_block_inst<G, 128, false, false, 6, Stop>(a, w1t, w2t, p, s)
+                         : launch_block_inst<G, 128, true, false, 24, Stop>(a, w1t, w2t, p, s);
+  } else {
+    if (p.rows == 128) {
+      return pairs == 2   ? launch_block_inst<G, 128, false, false, 2, Stop>(a, w1t, w2t, p, s)
+             : pairs == 3 ? launch_block_inst<G, 128, false, false, 3, Stop>(a, w1t, w2t, p, s)
+                          : launch_block_inst<G, 128, false, false, 6, Stop>(a, w1t, w2t, p, s);
+    }
+    return pairs == 12 ? launch_block_inst<G, 128, true, false, 12, Stop>(a, w1t, w2t, p, s)
+                       : launch_block_inst<G, 128, true, false, 24, Stop>(a, w1t, w2t, p, s);
+  }
+}
+
+// M2's arguments: one block on K5's schedule (a work item is a row tile of
+// plan p), the packs as K5 reads them.
+inline BlockArgs parts_args(const void* x, const void* wdw, const void* bdw, const void* lns,
+                            const void* lnb, const void* b1, const void* b2, const void* gamma,
+                            void* out, int n, int h, int w, int c, const MlpPlan& p) {
+  BlockArgs a;
+  a.x = static_cast<const bf16*>(x);
+  a.ws = nullptr;
+  a.out = static_cast<bf16*>(out);
+  a.wdw = static_cast<const bf16*>(wdw);
+  a.bdw = static_cast<const float*>(bdw);
+  a.lns = static_cast<const float*>(lns);
+  a.lnb = static_cast<const float*>(lnb);
+  a.b1 = static_cast<const float*>(b1);
+  a.b2 = static_cast<const float*>(b2);
+  a.gamma = static_cast<const float*>(gamma);
+  a.rows = static_cast<long long>(n) * h * w;
+  a.item_rows = p.rows;
+  a.h = h;
+  a.w = w;
+  a.c = c;
+  a.nb = 1;
+  a.stages = p.stages;
+  return a;
 }
 
 // A block kernel's plan at width c: K1's tile plan and the taps' pairs a

@@ -55,38 +55,6 @@ __device__ __forceinline__ float gelu_rational(float h, int hp) {
   return 0.5f * h * (1.0f + e);
 }
 
-// GELU with the hp rational erf and an exact divide, every product and sum
-// rounded on its own (no fused multiply-add), as the plain PyTorch versions
-// compute it. recip = 0: e = zc * (P / Q), the erf form of K5
-// (convnext_block.py:35-41, :92); recip = 1: e = zc * P * (1 / Q), the
-// gelu_f32 form of K6 (ops/pallas/common.py:20-47). Both pin e to sign(z)
-// where |z| >= 3.625. The probe M2 computes them so; K5 and K6 run their
-// polynomials on fused multiply-adds (block_wgmma.cuh GeluHp).
-__device__ __forceinline__ float gelu_hp_exact(float h, int recip) {
-  const float zmax = 3.625f;
-  const float z = __fmul_rn(h, 0.7071067811865476f);
-  const float zc = fminf(fmaxf(z, -zmax), zmax);
-  const float t = __fmul_rn(zc, zc);
-  float p = -1.0666330908322879e-06f;
-  p = __fadd_rn(__fmul_rn(p, t), 0.00015586043306483894f);
-  p = __fadd_rn(__fmul_rn(p, t), 0.0057354856364086396f);
-  p = __fadd_rn(__fmul_rn(p, t), 0.057255831726436376f);
-  p = __fadd_rn(__fmul_rn(p, t), 0.2571863689937213f);
-  p = __fadd_rn(__fmul_rn(p, t), 1.1283791233432234f);
-  float q = 0.0013449923247288303f;
-  q = __fadd_rn(__fmul_rn(q, t), 0.018689943146010534f);
-  q = __fadd_rn(__fmul_rn(q, t), 0.13783698081066592f);
-  q = __fadd_rn(__fmul_rn(q, t), 0.5612572789010719f);
-  q = __fadd_rn(__fmul_rn(q, t), 1.0f);
-  float e = recip ? __fmul_rn(__fmul_rn(zc, p), __frcp_rn(q)) : __fmul_rn(zc, __fdiv_rn(p, q));
-  if (fabsf(z) >= zmax) e = copysignf(1.0f, z);
-  return __fmul_rn(__fmul_rn(0.5f, h), __fadd_rn(1.0f, e));
-}
-
-__host__ __device__ __forceinline__ constexpr size_t align128(size_t n) {
-  return (n + 127) & ~static_cast<size_t>(127);
-}
-
 // Raise a kernel's dynamic shared-memory limit to `bytes` once per
 // instantiation (kernel is that instantiation's function; `configured` its
 // own static).
@@ -104,18 +72,6 @@ __host__ int raise_smem_limit(Kernel kernel, size_t bytes, size_t* configured) {
 __device__ __forceinline__ void cp_async16(void* smem_dst, const void* gmem_src) {
   const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem_src));
-}
-
-// 16-byte copy that reads src_bytes (0 or 16) and zero-fills the rest.
-__device__ __forceinline__ void cp_async16_zfill(void* smem_dst, const void* gmem_src,
-                                                 int src_bytes) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               ::"r"(dst), "l"(gmem_src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
 }
 
 // Wait until at most N of this thread's newest copy groups are pending.

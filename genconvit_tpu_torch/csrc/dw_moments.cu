@@ -29,8 +29,8 @@
 //     channel pairs, one pair per lane at a time: per image row dy it
 //     loads the 7 weights and the 14 pixels of the window once and feeds
 //     them to 56 fused multiply-adds, so a tap costs about one instruction
-//     and the 49-fold reuse of x is served from registers and L1 (K5's
-//     window, fused_block.cuh). The per-pixel sums of acc and acc^2
+//     and the 49-fold reuse of x is served from registers and L1 (the
+//     sliding window of K5's taps, block_wgmma.cuh). The per-pixel sums of acc and acc^2
 //     collect in registers across the pairs and meet in one warp reduction
 //     per pixel; lane 0 writes mean and var. No shared memory, no padded
 //     copy of x.

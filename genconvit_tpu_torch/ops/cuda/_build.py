@@ -31,10 +31,10 @@ SOURCES = tuple(os.path.join(_PKG_DIR, "csrc", f) for f in
                 ("convnext_mlp.cu", "convnext_mlp_int8.cu", "convnext_mlp_int8_full.cu",
                  "int8_matmul.cu", "convnext_block.cu", "convnext_stage.cu",
                  "window_attn.cu", "layer_norm_rows.cu", "int8_dot.cu", "dw_moments.cu",
-                 "block_parts.cu"))
+                 "block_parts.cu", "block_parts_hidden.cu", "block_parts_full.cu"))
 HEADERS = tuple(os.path.join(_PKG_DIR, "csrc", f) for f in
-                ("common.cuh", "mlp_tile.cuh", "fused_block.cuh", "wgmma.cuh",
-                 "mlp_wgmma.cuh", "convnext_mlp_int8.cuh", "block_wgmma.cuh"))
+                ("common.cuh", "wgmma.cuh", "mlp_wgmma.cuh", "convnext_mlp_int8.cuh",
+                 "block_wgmma.cuh"))
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
                          "genconvit_tpu_torch")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -67,13 +67,15 @@ _SIGNATURES = {
     "gcv_dots_int8": ([_P] * 7 + [ctypes.c_longlong] + [ctypes.c_int] * 2 + [_P], ctypes.c_int),
     # M3: x, k, b, dw, mu, var, n, h, w, c, stream
     "gcv_dw_moments": ([_P] * 6 + [ctypes.c_int] * 4 + [_P], ctypes.c_int),
-    # M2: x, wdw, bdw, lns, lnb, w1, b1, w2, b2, gamma, out, n, h, w, c, phase, stream
+    # M2: x, wdw, bdw, lns, lnb, w1t, b1, w2t, b2, gamma, out, n, h, w, c, phase, stream
     "gcv_block_parts": ([_P] * 11 + [ctypes.c_int] * 5 + [_P], ctypes.c_int),
     "gcv_wint8_splits": ([ctypes.c_int] * 3, ctypes.c_int),
     "gcv_wint8_x_rows": ([ctypes.c_int], ctypes.c_int),
     "gcv_mlp_plan": ([ctypes.c_int, _P], ctypes.c_int),
     "gcv_k4_plan": ([ctypes.c_int, ctypes.c_int, _P], ctypes.c_int),
     "gcv_k5_plan": ([ctypes.c_int, _P], ctypes.c_int),
+    # M1: c, hid, out
+    "gcv_m1_plan": ([ctypes.c_int, ctypes.c_int, _P], ctypes.c_int),
     "gcv_k2_plan": ([ctypes.c_int, _P], ctypes.c_int),
     # l, heads, hd, masked, windows, sms, out
     "gcv_k7_plan": ([ctypes.c_int] * 4 + [ctypes.c_longlong, ctypes.c_int, _P], ctypes.c_int),

@@ -1,13 +1,13 @@
-"""M2: the fused ConvNeXt block of K5's first design cut after one of its
-phases, as a hand-written CUDA probe kernel (csrc/block_parts.cu, that
-design's tile code in fused_block.cuh and mlp_tile.cuh), with its plain
-PyTorch version.
+"""M2: K5's fused ConvNeXt block (csrc/block_wgmma.cuh) cut after one of
+its phases, as a hand-written CUDA probe kernel (csrc/block_parts.cu, with
+its MLP cuts in block_parts_hidden.cu and block_parts_full.cu), with its
+plain PyTorch version.
 
   block_parts  replaces `kern` (built by build()) of tools/microbench_kernel_parts.py
 
 The phases, each writing [N, H, W, C] bf16 (microbench_kernel_parts.py:62-99):
 
-  dma         x copied through the tile
+  dma         x's rows copied as the taps read them
   dw          bf16(acc), acc = b_dw + the 49 taps, f32 sums (K5's)
   dw_bf16acc  the bias and every product and sum rounded to bf16 (the
               tool's fp32dw=False), no fused multiply-add
@@ -16,10 +16,13 @@ The phases, each writing [N, H, W, C] bf16 (microbench_kernel_parts.py:62-99):
   gelu        the first C columns of bf16(GELU(y . w1 + b1))
   full        the block output bf16(x + (h . w2 + b2) * gamma)
 
-The GELU is the tool's (convnext_stage._gelu_f32: e = zc * P * (1 / Q), hp
-coefficients), K6's form, not K5's zc * (P / Q). The weights are K5's pack
-(`convnext_block.FusedBlockWeights`): the depthwise weights are bf16, where
-the tool's are f32. It is a tool
+Every phase runs K5's schedule and plan (`m2_plan` = `convnext_block.k5_plan`)
+up to its cut, so the per-phase time deltas attribute K5's time to its
+steps; C up to K1_MAX_C = 1536. The GELU is the tool's
+(convnext_stage._gelu_f32: e = zc * P * (1 / Q), hp coefficients), K6's
+form, not K5's zc * (P / Q). The weights are K5's pack
+(`convnext_block.FusedBlockWeights`, the kernel reads w1t and w2t): the
+depthwise weights are bf16, where the tool's are f32. It is a tool
 (genconvit_tpu_torch/tools/microbench_kernel_parts.py); no model path runs it.
 
 On a CPU tensor the wrapper runs the plain version; on a CUDA tensor it
@@ -35,13 +38,15 @@ import torch.nn.functional as F
 
 from genconvit_tpu_torch.ops.cuda import _build
 from genconvit_tpu_torch.ops.cuda.convnext_block import (FusedBlockWeights, block_plain,
-                                                         check_activation, check_weights)
+                                                         check_activation, check_weights,
+                                                         k5_plan, kernel_operands)
 from genconvit_tpu_torch.ops.cuda.convnext_block import planted_faults as k5_faults
-from genconvit_tpu_torch.ops.cuda.convnext_mlp import MAX_C, _require, _stream, bf16_ulp_error
+from genconvit_tpu_torch.ops.cuda.convnext_mlp import _require, _stream, bf16_ulp_error
 from genconvit_tpu_torch.ops.cuda.convnext_stage import _GELU
 
-PHASES = ("dma", "dw", "dw_bf16acc", "ln", "fc1", "gelu", "full")   # = TileStop's order
+PHASES = ("dma", "dw", "dw_bf16acc", "ln", "fc1", "gelu", "full")   # = BlockStop's order
 ULP_TOL = 2.0  # kernel vs plain, elementwise, in bf16 ulps (ulp_error), as K5
+m2_plan = k5_plan   # M2 runs K5's plan at every width: None where it takes no c
 
 
 def dw_bf16acc_plain(x: torch.Tensor, p: FusedBlockWeights) -> torch.Tensor:
@@ -75,16 +80,15 @@ def block_parts(x: torch.Tensor, p: FusedBlockWeights, phase: str) -> torch.Tens
     if x.device.type == "cpu":
         return block_parts_plain(x, p, phase)
     _require(x.is_cuda, what, f"unsupported device {x.device}")
-    check_activation(what, x, MAX_C)
+    check_activation(what, x)
     n, h, w, c = x.shape
-    fields = ("w_dw", "b_dw", "ln_scale", "ln_bias", "w1", "b1", "w2", "b2", "gamma")
-    check_weights(what, p, c, x.device, fields=fields)
+    check_weights(what, p, c, x.device)
     out = torch.empty_like(x)
-    ops = tuple(getattr(p, f) for f in fields)
     lib = _build.load()
     with torch.cuda.device(x.device):
-        err = lib.gcv_block_parts(x.data_ptr(), *(t.data_ptr() for t in ops), out.data_ptr(),
-                                  n, h, w, c, PHASES.index(phase), _stream(x.device))
+        err = lib.gcv_block_parts(x.data_ptr(), *(t.data_ptr() for t in kernel_operands(p)),
+                                  out.data_ptr(), n, h, w, c, PHASES.index(phase),
+                                  _stream(x.device))
     _build.check(err, what)
     block_parts.launches += 1
     return out

@@ -52,8 +52,7 @@ class FusedBlockWeights(NamedTuple):
     on a leading axis of the chain's blocks. The kernels read the matrices
     K-major, as warpgroup MMA takes its B operand (w1t, w2t: the torch
     layouts, which `pack_block` stores); w1 and w2 hold the same values
-    transposed, as the plain version and the block-phase probe M2
-    (ops/cuda/block_parts.py) read them."""
+    transposed, as the plain version reads them."""
     w_dw: torch.Tensor    # [49, C] bf16: w_dw[dy*7+dx, c] = conv_dw.weight[c, 0, dy, dx]
     b_dw: torch.Tensor    # [C] f32
     ln_scale: torch.Tensor  # [C] f32
@@ -149,12 +148,12 @@ def fused_convnext_block_plain(x: torch.Tensor, p: FusedBlockWeights) -> torch.T
 
 
 def check_activation(what: str, x: torch.Tensor, max_c: int = K1_MAX_C) -> None:
-    """What K5 and K6 take: a contiguous 16-byte-aligned bf16 NHWC tensor
-    with C a multiple of 32 and at most max_c (K5 and K6: K1's limit)."""
+    """What K5, K6 and the probe M2 take: a contiguous 16-byte-aligned bf16
+    NHWC tensor with C a multiple of 32 and at most max_c (K1's limit)."""
     _require(x.dim() == 4, what, f"expected [N,H,W,C], got shape {tuple(x.shape)}")
     c = x.shape[-1]
     _require(x.dtype == torch.bfloat16, what, f"x must be bfloat16, got {x.dtype}")
-    _require(c % 32 == 0, what, f"C={c} must be a multiple of 32")
+    _require(c % 32 == 0 and c > 0, what, f"C={c} must be a positive multiple of 32")
     _require(c <= max_c, what, f"C={c} exceeds {max_c}")
     _require(x.is_contiguous(), what, "x must be contiguous (NHWC)")
     _require(x.data_ptr() % 16 == 0, what, "x must be 16-byte aligned")
@@ -163,7 +162,7 @@ def check_activation(what: str, x: torch.Tensor, max_c: int = K1_MAX_C) -> None:
 def check_weights(what: str, p: FusedBlockWeights, c: int, device, lead=(),
                   fields: Sequence[str] = FusedBlockWeights._fields) -> None:
     """The packs' shapes, dtypes and placement (lead: K6's chain axis), of
-    every field (K5, K6) or of `fields` (M2: the layout it reads)."""
+    every field or of `fields`."""
     lead = tuple(lead)
     bf, f32 = torch.bfloat16, torch.float32
     shapes = {"w_dw": ((49, c), bf), "b_dw": ((c,), f32), "ln_scale": ((c,), f32),

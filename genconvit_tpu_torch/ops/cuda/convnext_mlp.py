@@ -30,7 +30,6 @@ from genconvit_tpu_torch.ops.act import gelu_rational_f32
 from genconvit_tpu_torch.ops.cuda import _build
 
 LN_EPS = 1e-6
-MAX_C = 768  # the probes M1 and M2: their fc2 accumulator tile holds [16, 768] f32
 K1_MAX_C = 1536  # K1 splits its fc2 sum into output-column groups (mlp_plan)
 ULP_TOL = 2.0  # kernel vs plain, elementwise, in bf16 ulps (bf16_ulp_error)
 K2_WIDTHS = (96, 128, 192)  # the stems of convnext_tiny, _base and _large

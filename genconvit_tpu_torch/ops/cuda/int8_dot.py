@@ -17,23 +17,59 @@ reach the output: the probe times K4's two products (fc1 [R, C] x [C, 4C],
 fc2 [R, 4C] x [4C, C]) without K4's quantization passes. It is a tool
 (genconvit_tpu_torch/tools/microbench_int8_dot.py); no model path runs it.
 
-On a CPU tensor a wrapper runs the plain version; on a CUDA tensor it
-launches the kernel or raises. Each counts its launches in `launches`.
+The kernels take c a multiple of 32 up to K1_MAX_C = 1536 and hid a
+multiple of 32 in [c, 4c]; `m1_plan` mirrors their plan (work items of 128
+rows and one group of `cols` output columns, the ring's stages and shared
+memory, csrc/int8_dot.cu dot_plan), `library_m1_plan` asks the built
+library. On a CPU tensor a wrapper runs the plain version; on a CUDA tensor
+it launches the kernel or raises. Each counts its launches in `launches`.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import ctypes
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
 from genconvit_tpu_torch.ops.cuda import _build
-from genconvit_tpu_torch.ops.cuda.convnext_mlp import (MAX_C, _check_vec, _require,
-                                                       bf16_ulp_error, _stream)
+from genconvit_tpu_torch.ops.cuda.convnext_mlp import (K1_MAX_C, _SMEM_MAX, _check_vec,
+                                                       _require, bf16_ulp_error, _stream)
 from genconvit_tpu_torch.ops.cuda.convnext_mlp_int8 import _int_dot
 
 ULP_TOL = 2.0       # bf16 variant vs plain, elementwise, in bf16 ulps: one rounding
 ULP_TOL_INT8 = 1.0  # int8 variant: exact integer sums, the same f32 epilogue
+
+
+class M1Plan(NamedTuple):
+    """M1's plan at (c, hid) (csrc/int8_dot.cu dot_plan)."""
+    rows: int     # rows of a work item: 64 for each of two consumer warpgroups
+    cols: int     # output columns of a work item (and z's column blocks)
+    stages: int   # ring stages: an A tile of y or h and a B tile of w1 or w2 each
+    smem: int     # dynamic shared memory bytes
+
+
+def m1_plan(c: int, hid: int) -> Optional[M1Plan]:
+    """M1's plan, as the CUDA source computes it; None where the kernels do
+    not take (c, hid): c a multiple of 32 in [32, K1_MAX_C], hid a multiple
+    of 32 in [c, 4c]. The group width is the one of 64 and 128 that computes
+    the fewest columns of o and of z (all hid columns), 128 on a tie."""
+    if c < 32 or c > K1_MAX_C or c % 32 or hid % 32 or not c <= hid <= 4 * c:
+        return None
+
+    def cost(nc):
+        return (-(-c // nc) - (-hid // nc)) * nc
+    nc = 64 if cost(64) < cost(128) else 128
+    stage = 16384 + nc * 128
+    stages = min(8, (_SMEM_MAX - 1024 - 256) // stage)
+    return M1Plan(128, nc, stages, 1024 + stages * stage + 256)
+
+
+def library_m1_plan(c: int, hid: int) -> Optional[M1Plan]:
+    """M1's plan as the built library computes it (loads the library); the
+    card tests hold `m1_plan` against it."""
+    out = (ctypes.c_int * 4)()
+    return M1Plan(*out) if _build.load().gcv_m1_plan(c, hid, out) else None
 
 
 def dots_bf16_plain(y: torch.Tensor, h: torch.Tensor, w1: torch.Tensor,
@@ -59,15 +95,17 @@ def dots_int8_plain(yq: torch.Tensor, hq: torch.Tensor, w1q: torch.Tensor, s1: t
 
 def _check(what: str, acts, weights, dtype: torch.dtype) -> Tuple[int, int, int]:
     """What the kernels take: contiguous 16-byte-aligned rows y [rows, c],
-    h [rows, hid] and weights w1 [hid, c], w2 [c, hid] of `dtype`, c a
-    multiple of 32 up to MAX_C, hid a multiple of 32 in [c, 4c]."""
+    h [rows, hid] and weights w1 [hid, c], w2 [c, hid] of `dtype`, (c, hid)
+    one `m1_plan` takes: c a multiple of 32 up to K1_MAX_C, hid a multiple of
+    32 in [c, 4c]."""
     y, h = acts
     w1, w2 = weights
     _require(y.dim() == 2 and h.dim() == 2, what, "y and h must be [rows, c] and [rows, hid]")
     rows, c = y.shape
     hid = h.shape[1]
     _require(h.shape[0] == rows, what, f"h has {h.shape[0]} rows, y {rows}")
-    _require(c % 32 == 0 and c <= MAX_C, what, f"c={c} must be a multiple of 32 up to {MAX_C}")
+    _require(c % 32 == 0 and 0 < c <= K1_MAX_C, what,
+             f"c={c} must be a multiple of 32 up to {K1_MAX_C}")
     _require(hid % 32 == 0 and c <= hid <= 4 * c, what,
              f"hid={hid} must be a multiple of 32 in [c, 4c] = [{c}, {4 * c}]")
     for t in (y, h):

@@ -1,9 +1,9 @@
-"""K1, K4, K5, K6, K3, K7 and K2 of one checkout of the port, timed on the
-card, so that two checkouts (a change and its parent) can be compared on
-one card:
+"""K1, K4, K5, K6, K3, K7, K2 and the probes M1 and M2 of one checkout of the
+port, timed on the card, so that two checkouts (a change and its parent)
+can be compared on one card:
 
     python3 genconvit_tpu_torch/tools/kernel_ab.py [--package-dir DIR] [--ptxas]
-        [--only k1k4,k5k6,k3,k7,k2]
+        [--only k1k4,k5k6,k3,k7,k2,m1m2]
 
 DIR holds the genconvit_tpu_torch package to load (default: this checkout);
 unpack the parent with `git archive HEAD genconvit_tpu_torch` into a
@@ -19,10 +19,15 @@ at M = 15, 30, 120 beside F.linear on the bf16 head, of K7
 N = 120, masked and unmasked, with their per-forward sums (x the blocks of
 each shape), and of K2 (layer_norm_rows) at the three stem LNs of a V=8
 forward at convnext_tiny's C = 96 and convnext_large's C = 192, with their
-per-forward sums. --only picks groups of those. With --ptxas, the build's
-ptxas register and spill lines of K1, K4, K5, K6, M2 (the block-tail
-kernels), K7 and K2, anonymous-namespace hashes taken out, for a diff
-between two checkouts.
+per-forward sums, and of the probes (m1m2): M1 (dots_bf16, dots_int8) at
+K4's 12 shapes (hid = 4C; per forward: x depth) and at convnext_large's
+four stage widths and convnext_base's 1024 at the ED call's rows, M2
+(block_parts) at its 7 phases with the deltas between them and K5 on the
+same pack at K5's 5 shapes (per forward: x depth); a kernel that refuses
+a shape (a parent's narrower probe) is printed "refused". --only picks
+groups of those. With --ptxas, the build's ptxas register and spill lines
+of K1, K4, K5, K6, M2 (the block-tail kernels), K7, K2 and M1,
+anonymous-namespace hashes taken out, for a diff between two checkouts.
 Run it by path, not with -m: it chooses which package to import.
 """
 
@@ -39,7 +44,10 @@ DEPTHS = (3, 3, 9, 3)
 LATENT = (25088, 12544)
 SWIN = ("swin_tiny_patch4_window7_224", "swin_large_patch4_window7_224")
 SWIN_N = 120     # the V=8 batch of face crops
-GROUPS = ("k1k4", "k5k6", "k3", "k7", "k2")
+GROUPS = ("k1k4", "k5k6", "k3", "k7", "k2", "m1m2")
+# past convnext_tiny's widths, at the ED call's rows: (backbone, stage, C)
+WIDE = (("large", 0, 192), ("large", 1, 384), ("large", 2, 768), ("large", 3, 1536),
+        ("base", 3, 1024))
 
 
 def ptxas_lines(log: str) -> list:
@@ -51,7 +59,7 @@ def ptxas_lines(log: str) -> list:
             name = re.sub(r"_GLOBAL__N__[0-9a-f_]+", "", m.group(1))
             entry = name if re.search(
                 r"fused_block|fused_stage|fused_wgmma|block_parts|ln_mlp_residual|window_attn|"
-                r"layer_norm_rows", name) else None
+                r"layer_norm_rows|dots_kernel", name) else None
         elif entry and ("registers" in line or "spill" in line):
             # the advisory lines name a PTX line, which moves with any edit,
             # and a function with its namespace hash
@@ -60,23 +68,32 @@ def ptxas_lines(log: str) -> list:
     return out
 
 
+def block_pack(c: int, dev, g):
+    """A block's pack made by the checkout's own pack_block from random
+    weights (the timm init's scales, layer scale U(0.1, 1), non-zero
+    biases)."""
+    import torch
+
+    from genconvit_tpu_torch.ops.cuda import convnext_block as k5
+
+    def r(*shape, s=1.0):
+        return s * torch.randn(*shape, device=dev, generator=g)
+    return k5.pack_block(r(c, 1, 7, 7, s=0.02), r(c, s=0.1), 1 + r(c, s=0.1), r(c, s=0.1),
+                         r(4 * c, c, s=0.02), r(4 * c, s=0.05), r(c, 4 * c, s=0.02),
+                         r(c, s=0.05), 0.1 + 0.9 * torch.rand(c, device=dev, generator=g),
+                         torch.bfloat16)
+
+
 def fused_ab(tag: str, dev, g, cuda_ms) -> None:
     """K5 at its shapes (blocks at H >= 28, H % 14 == 0) and K6 at its chains
-    (stages at H >= 7, C % 128 == 0) of a V=8 forward, on packs made by the
-    checkout's own pack_block from random weights (the timm init's scales,
-    layer scale U(0.1, 1), non-zero biases)."""
+    (stages at H >= 7, C % 128 == 0) of a V=8 forward, on block_pack's."""
     import torch
 
     from genconvit_tpu_torch.ops.cuda import convnext_block as k5
     from genconvit_tpu_torch.ops.cuda import convnext_stage as k6
 
     def pack(c):
-        def r(*shape, s=1.0):
-            return s * torch.randn(*shape, device=dev, generator=g)
-        return k5.pack_block(r(c, 1, 7, 7, s=0.02), r(c, s=0.1), 1 + r(c, s=0.1), r(c, s=0.1),
-                             r(4 * c, c, s=0.02), r(4 * c, s=0.05), r(c, 4 * c, s=0.02),
-                             r(c, s=0.05), 0.1 + 0.9 * torch.rand(c, device=dev, generator=g),
-                             torch.bfloat16)
+        return block_pack(c, dev, g)
 
     total = {"K5": 0.0, "K6": 0.0}
     for n, px in CALLS:
@@ -95,6 +112,62 @@ def fused_ab(tag: str, dev, g, cuda_ms) -> None:
                 print(f"[{tag}] K6 N={n} H={h} C={c} blocks={DEPTHS[si]}: {t:.4f} ms", flush=True)
     for name, t in total.items():
         print(f"[{tag}] {name} per V=8 forward: {t:.4f} ms", flush=True)
+
+
+def probes_ab(tag: str, dev, g, cuda_ms) -> None:
+    """M1 in both modes at K4's 12 shapes (hid = 4C, the tool's operands)
+    and at WIDE, M2 at its 7 phases beside K5 on the same block_pack at
+    K5's 5 shapes; per forward: x depth. A shape the checkout's probe
+    refuses is printed "refused"."""
+    import torch
+
+    from genconvit_tpu_torch.ops.cuda import block_parts as m2
+    from genconvit_tpu_torch.ops.cuda import convnext_block as k5
+    from genconvit_tpu_torch.ops.cuda import int8_dot as m1
+    from genconvit_tpu_torch.tools.microbench_int8_dot import make_inputs
+
+    def timed(fn, iters):
+        try:
+            return cuda_ms(fn, iters)
+        except ValueError:
+            return None
+
+    shapes = [(n * ((px // 4) >> si) ** 2, c, DEPTHS[si]) for n, px in CALLS
+              for si, c in enumerate(DIMS)]
+    shapes += [(CALLS[0][0] * ((CALLS[0][1] // 4) >> si) ** 2, c, 0) for _, si, c in WIDE]
+    total = {"bf16": 0.0, "int8": 0.0}
+    for rows, c, depth in shapes:
+        line = []
+        for kind, fn in (("bf16", m1.dots_bf16), ("int8", m1.dots_int8)):
+            ops = make_inputs(kind, rows, c, 4 * c, dev, g)
+            t = timed(lambda: fn(*ops), 10)
+            line.append(f"M1 {kind} " + ("refused" if t is None else f"{t:.4f} ms"))
+            total[kind] += depth * (t or 0.0)
+            del ops
+        print(f"[{tag}] R={rows} C={c} hid={4 * c} (x{depth}): " + ", ".join(line), flush=True)
+    for kind, t in total.items():
+        print(f"[{tag}] M1 {kind} per V=8 forward at K4's shapes: {t:.4f} ms", flush=True)
+    ptotal = dict.fromkeys(m2.PHASES + ("K5",), 0.0)
+    for n, px in CALLS:
+        for si, c in enumerate(DIMS):
+            h = (px // 4) >> si
+            if not (h >= 28 and h % 14 == 0):
+                continue
+            p = block_pack(c, dev, g)
+            x = torch.randn(n, h, h, c, device=dev, generator=g).to(torch.bfloat16)
+            times = {ph: cuda_ms(lambda: m2.block_parts(x, p, ph), 10) for ph in m2.PHASES}
+            times["K5"] = cuda_ms(lambda: k5.fused_convnext_block(x, p), 10)
+            for name, t in times.items():
+                ptotal[name] += DEPTHS[si] * t
+            print(f"[{tag}] M2 N={n} H={h} C={c} (x{DEPTHS[si]}): " + ", ".join(
+                f"{name} {t:.4f}" for name, t in times.items()) + " ms", flush=True)
+    prev, line = 0.0, []
+    for name in m2.PHASES:
+        line.append(f"{name} {ptotal[name]:.4f}"
+                    + ("" if name == "dw_bf16acc" else f" (+{ptotal[name] - prev:.4f})"))
+        prev = prev if name == "dw_bf16acc" else ptotal[name]
+    print(f"[{tag}] M2 per V=8 forward at K5's shapes (15 launches a phase): "
+          + ", ".join(line) + f" ms; K5 {ptotal['K5']:.4f} ms", flush=True)
 
 
 def k7_ab(tag: str, dev, g, cuda_ms) -> None:
@@ -257,7 +330,7 @@ def main(argv=None) -> int:
 
     g = torch.Generator(device=dev).manual_seed(3)
     for group, fn in (("k1k4", mlp_ab), ("k5k6", fused_ab), ("k3", k3_ab), ("k7", k7_ab),
-                      ("k2", k2_ab)):
+                      ("k2", k2_ab), ("m1m2", probes_ab)):
         if group in only:
             fn(tag, dev, g, cuda_ms)
     return 0

@@ -25,13 +25,15 @@ from genconvit_tpu_torch.tools._timing import clock_label, resolve_device, time_
 def make_pack(c: int, dev, g) -> FusedBlockWeights:
     """The JAX tool's weights (:119-128) as K5's pack: vectors N(0, 0.05^2)
     but the LN scale N(0, 1) and the layer scale N(0, 0.5^2), matrices
-    N(0, 0.05^2) in bf16, and the depthwise weights in bf16 too."""
+    N(0, 0.05^2) in bf16 (and transposed, as the kernel reads them), and
+    the depthwise weights in bf16 too."""
     def mk(*shape, s=0.05):
         return s * torch.randn(*shape, device=dev, generator=g)
     e = 4 * c
+    w1, w2 = mk(c, e).to(torch.bfloat16), mk(e, c).to(torch.bfloat16)
     return FusedBlockWeights(w_dw=mk(49, c).to(torch.bfloat16), b_dw=mk(c), ln_scale=mk(c, s=1.0),
-                             ln_bias=mk(c), w1=mk(c, e).to(torch.bfloat16), b1=mk(e),
-                             w2=mk(e, c).to(torch.bfloat16), b2=mk(c), gamma=mk(c, s=0.5))
+                             ln_bias=mk(c), w1=w1, b1=mk(e), w2=w2, b2=mk(c), gamma=mk(c, s=0.5),
+                             w1t=w1.t().contiguous(), w2t=w2.t().contiguous())
 
 
 def main(argv=None) -> int:

@@ -688,7 +688,10 @@ def _m1_inputs(kind, rows, c, hid, dev, g):
     return ops
 
 
-@pytest.mark.parametrize("rows,c,hid", [(1037, 96, 288), (188160, 192, 768)])
+# 1037 rows: a ragged last tile; at 96, 768 and convnext_base's and
+# convnext_large's last stages (1024, 1536), the tool's hid = 3c and K4's 4c
+@pytest.mark.parametrize("rows,c,hid", [(188160, 192, 768)] + [
+    (1037, c, m * c) for c in (96, 768, 1024, 1536) for m in (3, 4)])
 @pytest.mark.parametrize("kind", ["bf16", "int8"])
 def test_m1_matches_plain(dev, kind, rows, c, hid):
     from genconvit_tpu_torch.ops.cuda import int8_dot as m1
@@ -704,12 +707,15 @@ def test_m1_matches_plain(dev, kind, rows, c, hid):
     ref = plain(*ops)
     assert _rel(out, ref) <= TOL and m1.ulp_error(out, ref) <= tol
     s1, w2 = (ops[3], ops[4]) if kind == "int8" else (None, ops[3])
-    b1, bs1, b2 = m1.planted_faults(kind, ops[2], s1, w2)["w2 transposed"]
-    bad = ops[:2] + ([b1, bs1, b2, ops[5]] if kind == "int8" else [b1, b2])
-    assert m1.ulp_error(fn(*bad), ref) > tol
+    faults = m1.planted_faults(kind, ops[2], s1, w2)
+    for name in ("w2 transposed",) + (("s1 by its mean",) if kind == "int8" else ()):
+        b1, bs1, b2 = faults[name]
+        bad = ops[:2] + ([b1, bs1, b2, ops[5]] if kind == "int8" else [b1, b2])
+        assert m1.ulp_error(fn(*bad), ref) > tol, name
 
 
-@pytest.mark.parametrize("n,h,c", [(2, 15, 96), (120, 28, 96)])   # 15: ragged row tiles
+# 15: ragged row tiles; 192 and convnext_large's 1536 (64-row cols plans)
+@pytest.mark.parametrize("n,h,c", [(2, 15, 96), (120, 28, 96), (2, 9, 192), (2, 7, 1536)])
 @pytest.mark.parametrize("phase", ["dma", "dw", "dw_bf16acc", "ln", "fc1", "gelu", "full"])
 def test_m2_matches_plain(dev, phase, n, h, c):
     from genconvit_tpu_torch.ops.cuda import block_parts as m2
@@ -725,6 +731,14 @@ def test_m2_matches_plain(dev, phase, n, h, c):
     assert _rel(out, ref) <= TOL and m2.ulp_error(out, ref, x, phase) <= m2.ULP_TOL
     for name, bad in m2.planted_faults(p, phase).items():
         assert m2.ulp_error(m2.block_parts(x, bad, phase), ref, x, phase) > m2.ULP_TOL, name
+
+
+def test_m1_plan_mirror_matches_the_library(dev):
+    from genconvit_tpu_torch.ops.cuda import int8_dot as m1
+
+    for c in list(range(0, km.K1_MAX_C + 97, 32)) + [48, 100]:
+        for hid in {c - 32, c, c + 16, 3 * c, 4 * c, 4 * c + 32}:
+            assert m1.library_m1_plan(c, hid) == m1.m1_plan(c, hid), (c, hid)
 
 
 @pytest.mark.parametrize("n,h,c", [(2, 13, 96), (240, 14, 384)])   # 13: a ragged last run
@@ -769,3 +783,13 @@ def test_probe_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="multiple of 32"):
         m2.block_parts(torch.zeros(2, 7, 7, 80, dtype=bf, device=dev),
                        _fused_block_weights(96, dev, g), "ln")
+    # past the probes' limit, K1's 1536
+    wide = km.K1_MAX_C + 32
+    with pytest.raises(ValueError, match="up to 1536"):
+        m1.dots_bf16(torch.zeros(64, wide, dtype=bf, device=dev),
+                     torch.zeros(64, 3 * wide, dtype=bf, device=dev),
+                     torch.zeros(3 * wide, wide, dtype=bf, device=dev),
+                     torch.zeros(wide, 3 * wide, dtype=bf, device=dev))
+    with pytest.raises(ValueError, match="exceeds 1536"):
+        m2.block_parts(torch.zeros(1, 2, 2, wide, dtype=bf, device=dev),
+                       _fused_block_weights(96, dev, g), "full")

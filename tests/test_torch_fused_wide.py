@@ -47,7 +47,7 @@ def _instantiations():
         src = f.read()
     out = set()
     for nc, cols, stream, pairs in re.findall(
-            r"launch_block_inst<Gelu, (\d+), (true|false), (true|false), (\d+)>", src):
+            r"launch_block_inst<Gelu, (\d+), (true|false), (true|false), (\d+), Stop>", src):
         out.add((64 if cols == "true" else 128, int(nc), stream == "true", int(pairs)))
     return out
 
