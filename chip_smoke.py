@@ -95,14 +95,17 @@ Phases (any failed check raises and the exit code is non-zero):
      at K4's 12 block-tail shapes (hid = 4C) and at convnext_large's four
      stage widths and convnext_base's 1024 at the ED call's rows, M2 at its 7
      phases at K5's 5 path shapes and at C = 1024 and 1536 (240 x 7^2), M3
-     at the JAX tool's default shape and at the 7 shapes
-     of the LN-folded blocks under pallas='1'; pass: max|diff| / max|ref|
+     at the JAX tool's default shape, at the 7 shapes of the LN-folded
+     blocks under pallas='1' and at convnext_large's and convnext_base's
+     widest ones at the ED call's rows (M3_WIDE), two launches giving the
+     same bits; pass: max|diff| / max|ref|
      <= 3e-2 and every element within 2 bf16 ulps (M1 int8: 1 ulp of the
      exact integer sums; M3's mean and var within dw_moments.MOMENT_TOL of
      their scales); planted faults (M1: z's add dropped, s1 by its mean, w2
      transposed; M2 from 'dw' on: dw bias dropped, dw kernel transposed,
      from 'ln' on: LN bias dropped; M3: bias dropped, kernel transposed, var
-     without - mean^2) must fail; CUDA-event times of kernel, plain version
+     without - mean^2, the halo rows from the image before, the last
+     channel slice out of the moments) must fail; CUDA-event times of kernel, plain version
      and library yardstick (M1: two torch.matmul or torch._int_mm calls and
      the epilogue; M2 'dw': cuDNN's depthwise conv, 'full': cuDNN's
      depthwise conv + K1; M3: cuDNN's depthwise conv + the two reductions)
@@ -184,6 +187,11 @@ K7_EXTRA = ((49, 4, 16, 4), (49, 3, 64, 4), (16, 3, 16, 1), (16, 3, 64, 16))
 M2_WIDE = (("base ed", 240, 7, 1024, 0), ("large ed", 240, 7, 1536, 0))
 M1_TOOL_SHAPE = (240, 56, 128)   # the JAX tools' default n, h, c: M1 (hid 3c) ...
 M3_TOOL_SHAPE = (240, 56, 96)    # ... and M3 (C unpadded)
+# M3 past convnext_tiny's widths: the widest LN-folded shapes of
+# convnext_large (stages 2, 3) and convnext_base (stage 3) at the ED call's
+# rows, (call, n, H, C, blocks per forward)
+M3_WIDE = (("large s2", 240, 14, 768, 0), ("large s3", 240, 7, 1536, 0),
+           ("base s3", 240, 7, 1024, 0))
 
 
 def log(msg: str) -> None:
@@ -1695,12 +1703,20 @@ def probe_m2(torch, dev, card: str, g) -> dict:
 
 
 def probe_m3(torch, dev, card: str, g) -> dict:
-    """M3 at the JAX tool's default shape and the 7 LN-folded block shapes
-    under pallas='1'."""
+    """M3 at the JAX tool's default shape, the 7 LN-folded block shapes
+    under pallas='1' and M3_WIDE: against the plain version, the same bits
+    from two launches, its planted faults refused, timed beside cuDNN dw + 2
+    reductions and the bound (the taps inside the image only)."""
     from genconvit_tpu_torch.ops.cuda import dw_moments as m3
+    from genconvit_tpu_torch.tools._timing import FP32, bound_ms
     from genconvit_tpu_torch.tools.microbench_dwshift import dw_bound, make_inputs
 
-    shapes = [("tool",) + M3_TOOL_SHAPE + (0,)] + folded_shapes()
+    def same_bits(a, b):
+        return all(torch.equal(u.view(torch.int16 if u.dtype == torch.bfloat16 else torch.int32),
+                               v.view(torch.int16 if v.dtype == torch.bfloat16 else torch.int32))
+                   for u, v in zip(a, b))
+
+    shapes = [("tool",) + M3_TOOL_SHAPE + (0,)] + folded_shapes() + list(M3_WIDE)
     rec = {"err": 0.0, "worst": {}, "planted": [], "ms": 0.0, "plain_ms": 0.0, "lib_ms": 0.0,
            "bound_ms": 0.0, "sides": []}
     for call, n, h, c, depth in shapes:
@@ -1719,13 +1735,17 @@ def probe_m3(torch, dev, card: str, g) -> dict:
         rec["err"] = max(rec["err"], dw_abs)
         for key, v in err.items():
             rec["worst"][key] = max(rec["worst"].get(key, 0.0), v)
+        if not same_bits(out, m3.dw_moments(x, k, b)):
+            raise AssertionError(f"{what}: two launches gave different bits")
         gap = m3.moments_rounding_gap(*out)
         log(f"{what} dw max|diff|={dw_abs:.3e} rel={rel:.3e} ulps={err['dw_ulps']:g}; mean "
             f"{err['mean_rel']:.2e}, var {err['var_rel']:.2e} (limit {m3.MOMENT_TOL:g}); moments "
             f"of the rounded dw (the yardstick's) vs the f32 sums': mean {gap[0]:.2e}, var "
-            f"{gap[1]:.2e}")
+            f"{gap[1]:.2e}; two launches: the same bits")
         faults = {name: m3.dw_moments(x, *args) for name, args in m3.planted_faults(k, b).items()}
         faults["var without - mean^2"] = (out[0], out[1], m3.var_without_mean_sq(out[1], out[2]))
+        faults["halo from the image before"] = m3.dw_moments(m3.halo_from_neighbour(x), k, b)
+        faults["last slice out of the moments"] = m3.moments_without_last_slice(x, k, b)
         for name, bad in faults.items():
             e = m3.ulp_error(bad, ref)
             if m3.agrees(e):
@@ -1735,14 +1755,16 @@ def probe_m3(torch, dev, card: str, g) -> dict:
             log(f"  M3 planted: {name}: dw {e['dw_ulps']:.1f} ulps, mean {e['mean_rel']:.2e}, "
                 f"var {e['var_rel']:.2e} -> refused")
         del out, ref, faults
-        iters = 20 if n * h * h * c < 2e7 else 10
+        iters = max(10, min(200, int(2e8 // (n * h * h * c))))   # the small shapes' noise
         t_k = cuda_ms(torch, lambda: m3.dw_moments(x, k, b), iters)
         t_p = cuda_ms(torch, lambda: m3.dw_moments_plain(x, k, b), 1, 1)
         t_l = cuda_ms(torch, lambda: m3.dw_moments_library(x, k, b), iters)
         bd, by = dw_bound(n, h, h, c)
+        px = n * h * h
+        every_tap = bound_ms(px * c * 4 + px * 8 + 200 * c, {FP32: 98 * px * c})[0]
         log(f"M3 time {call:8s} N={n} H={h:2d} C={c:3d}: kernel {t_k:.4f} ms, plain {t_p:.4f} "
-            f"ms, cuDNN dw + 2 reductions {t_l:.4f} ms, bound {bd:.4f} ms ({by}); x{depth} per "
-            f"forward [{card}]")
+            f"ms, cuDNN dw + 2 reductions {t_l:.4f} ms, bound {bd:.4f} ms ({by}; the taps inside "
+            f"the image; all 49 taps counted {every_tap:.4f} ms); x{depth} per forward [{card}]")
         rec["ms"] += depth * t_k
         rec["plain_ms"] += depth * t_p
         rec["lib_ms"] += depth * t_l

@@ -77,6 +77,8 @@ _SIGNATURES = {
     # M1: c, hid, out
     "gcv_m1_plan": ([ctypes.c_int, ctypes.c_int, _P], ctypes.c_int),
     "gcv_k2_plan": ([ctypes.c_int, _P], ctypes.c_int),
+    # M3: h, w, c, out
+    "gcv_m3_plan": ([ctypes.c_int] * 3 + [_P], ctypes.c_int),
     # l, heads, hd, masked, windows, sms, out
     "gcv_k7_plan": ([ctypes.c_int] * 4 + [ctypes.c_longlong, ctypes.c_int, _P], ctypes.c_int),
     # c, n, hw, sms, out

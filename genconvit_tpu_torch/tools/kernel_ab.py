@@ -1,9 +1,9 @@
-"""K1, K4, K5, K6, K3, K7, K2 and the probes M1 and M2 of one checkout of the
-port, timed on the card, so that two checkouts (a change and its parent)
-can be compared on one card:
+"""K1, K4, K5, K6, K3, K7, K2 and the probes M1, M2 and M3 of one checkout of
+the port, timed on the card, so that two checkouts (a change and its
+parent) can be compared on one card:
 
     python3 genconvit_tpu_torch/tools/kernel_ab.py [--package-dir DIR] [--ptxas]
-        [--only k1k4,k5k6,k3,k7,k2,m1m2]
+        [--only k1k4,k5k6,k3,k7,k2,m1m2,m3]
 
 DIR holds the genconvit_tpu_torch package to load (default: this checkout);
 unpack the parent with `git archive HEAD genconvit_tpu_torch` into a
@@ -23,11 +23,18 @@ per-forward sums, and of the probes (m1m2): M1 (dots_bf16, dots_int8) at
 K4's 12 shapes (hid = 4C; per forward: x depth) and at convnext_large's
 four stage widths and convnext_base's 1024 at the ED call's rows, M2
 (block_parts) at its 7 phases with the deltas between them and K5 on the
-same pack at K5's 5 shapes (per forward: x depth); a kernel that refuses
-a shape (a parent's narrower probe) is printed "refused". --only picks
-groups of those. With --ptxas, the build's ptxas register and spill lines
-of K1, K4, K5, K6, M2 (the block-tail kernels), K7, K2 and M1,
-anonymous-namespace hashes taken out, for a diff between two checkouts.
+same pack at K5's 5 shapes (per forward: x depth), and (m3) M3
+(dw_moments) at the JAX tool's default (240 x 56^2 x 96), at the 7 shapes
+of the LN-folded blocks under pallas='1' (per forward: x depth, 39
+launches) and at convnext_base's and convnext_large's widest LN-folded
+shapes at the ED call's rows, with the kernel's device time from
+torch.profiler beside the events' time, beside cuDNN's depthwise conv and
+the two reductions and the bound with only the taps inside the image
+counted (m3_bound, the same for every checkout); a kernel that refuses a shape (a
+parent's narrower probe) is printed "refused". --only picks groups of
+those. With --ptxas, the build's ptxas register and spill lines of K1, K4,
+K5, K6, M2 (the block-tail kernels), K7, K2, M1 and M3, anonymous-namespace
+hashes taken out, for a diff between two checkouts.
 Run it by path, not with -m: it chooses which package to import.
 """
 
@@ -44,10 +51,15 @@ DEPTHS = (3, 3, 9, 3)
 LATENT = (25088, 12544)
 SWIN = ("swin_tiny_patch4_window7_224", "swin_large_patch4_window7_224")
 SWIN_N = 120     # the V=8 batch of face crops
-GROUPS = ("k1k4", "k5k6", "k3", "k7", "k2", "m1m2")
+GROUPS = ("k1k4", "k5k6", "k3", "k7", "k2", "m1m2", "m3")
 # past convnext_tiny's widths, at the ED call's rows: (backbone, stage, C)
 WIDE = (("large", 0, 192), ("large", 1, 384), ("large", 2, 768), ("large", 3, 1536),
         ("base", 3, 1024))
+# M3: the JAX tool's default, then the widest LN-folded shapes of
+# convnext_large (stages 2 and 3) and convnext_base (stage 3) at the ED
+# call's rows: (name, n, H, C)
+M3_EXTRA = (("tool", 240, 56, 96), ("large s2", 240, 14, 768), ("large s3", 240, 7, 1536),
+            ("base s3", 240, 7, 1024))
 
 
 def ptxas_lines(log: str) -> list:
@@ -59,7 +71,7 @@ def ptxas_lines(log: str) -> list:
             name = re.sub(r"_GLOBAL__N__[0-9a-f_]+", "", m.group(1))
             entry = name if re.search(
                 r"fused_block|fused_stage|fused_wgmma|block_parts|ln_mlp_residual|window_attn|"
-                r"layer_norm_rows|dots_kernel", name) else None
+                r"layer_norm_rows|dots_kernel|dw_moments", name) else None
         elif entry and ("registers" in line or "spill" in line):
             # the advisory lines name a PTX line, which moves with any edit,
             # and a function with its namespace hash
@@ -168,6 +180,82 @@ def probes_ab(tag: str, dev, g, cuda_ms) -> None:
         prev = prev if name == "dw_bf16acc" else ptotal[name]
     print(f"[{tag}] M2 per V=8 forward at K5's shapes (15 launches a phase): "
           + ", ".join(line) + f" ms; K5 {ptotal['K5']:.4f} ms", flush=True)
+
+
+def m3_bound(n: int, h: int, w: int, c: int) -> tuple:
+    """M3's bound, (ms, 'bytes' or 'operations'), whatever the checkout's
+    tool says: x in and dw out (bf16), mean and var out (f32), the weights
+    once; 2 f32 operations for each tap whose input lies inside the image."""
+    from genconvit_tpu_torch.tools._timing import FP32, bound_ms
+
+    def taps(length):
+        return sum(min(p, 3) + min(length - 1 - p, 3) + 1 for p in range(length))
+    px = n * h * w
+    return bound_ms(px * c * 4 + px * 8 + 200 * c, {FP32: 2 * n * c * taps(h) * taps(w)})
+
+
+def kernel_device_ms(fn, iters: int, name: str) -> float:
+    """Device ms per launch of the kernels whose name holds `name` (one a
+    call of fn), from torch.profiler over iters calls: the kernel's own
+    time, which CUDA events around back-to-back calls read only where it
+    exceeds the caller's host time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if name in e.key]
+    us = sum(getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+             for e in events)
+    # per launch of the kernels the trace holds (one a call): a trace that
+    # drops launches leaves the mean right
+    return us / max(1, sum(e.count for e in events)) / 1e3
+
+
+def m3_ab(tag: str, dev, g, cuda_ms) -> None:
+    """M3 at M3_EXTRA's shapes (x0) and at the LN-folded blocks of a V=8
+    forward under pallas='1' (x depth), on the tool's operands: CUDA events
+    around back-to-back wrapper calls and the kernel's device time from the
+    profiler, beside cuDNN dw + 2 reductions and m3_bound; per forward: x
+    depth."""
+    import torch
+
+    from genconvit_tpu_torch.ops.cuda import dw_moments as m3
+    from genconvit_tpu_torch.tools.microbench_dwshift import make_inputs
+
+    shapes = [M3_EXTRA[0] + (0,)]
+    for call, (n, px) in zip(("ED", "VAE x", "x_hat"), CALLS):
+        for si, c in enumerate(DIMS):
+            h = (px // 4) >> si
+            if not (h >= 28 and h % 14 == 0):   # K5's rule leaves the block out
+                shapes.append((f"{call} s{si}", n, h, c, DEPTHS[si]))
+    shapes += [extra + (0,) for extra in M3_EXTRA[1:]]
+    total = {"kernel": 0.0, "device": 0.0, "library": 0.0, "bound": 0.0}
+    for name, n, h, c, depth in shapes:
+        x, k, b = make_inputs(n, h, c, dev, g)
+        iters = max(10, min(200, int(2e8 // (n * h * h * c))))
+        try:
+            t = cuda_ms(lambda: m3.dw_moments(x, k, b), iters)
+            t_d = kernel_device_ms(lambda: m3.dw_moments(x, k, b), iters, "dw_moments")
+        except ValueError:
+            t = t_d = None
+        t_l = cuda_ms(lambda: m3.dw_moments_library(x, k, b), iters)
+        bd, side = m3_bound(n, h, h, c)
+        total["kernel"] += depth * (t or 0.0)
+        total["device"] += depth * (t_d or 0.0)
+        total["library"] += depth * t_l
+        total["bound"] += depth * bd
+        shown = "refused" if t is None else f"{t:.4f} ms (device {t_d:.4f})"
+        print(f"[{tag}] M3 {name} N={n} H={h} C={c} (x{depth}): {shown}, library "
+              f"{t_l:.4f} ms, bound {bd:.4f} ms ({side})", flush=True)
+        del x, k, b
+    print(f"[{tag}] M3 per V=8 forward at the LN-folded blocks (39 launches): kernel "
+          f"{total['kernel']:.4f} ms (device {total['device']:.4f}), library "
+          f"{total['library']:.4f} ms, bound {total['bound']:.4f} ms", flush=True)
 
 
 def k7_ab(tag: str, dev, g, cuda_ms) -> None:
@@ -330,7 +418,7 @@ def main(argv=None) -> int:
 
     g = torch.Generator(device=dev).manual_seed(3)
     for group, fn in (("k1k4", mlp_ab), ("k5k6", fused_ab), ("k3", k3_ab), ("k7", k7_ab),
-                      ("k2", k2_ab), ("m1m2", probes_ab)):
+                      ("k2", k2_ab), ("m1m2", probes_ab), ("m3", m3_ab)):
         if group in only:
             fn(tag, dev, g, cuda_ms)
     return 0

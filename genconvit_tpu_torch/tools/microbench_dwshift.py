@@ -35,11 +35,21 @@ def make_inputs(n: int, h: int, c: int, dev, g) -> tuple:
     return x, k, b
 
 
+def in_image_taps(length: int) -> int:
+    """The taps of a 7-tap line whose input lies inside an axis of `length`,
+    summed over its positions: min(p, 3) + min(length - 1 - p, 3) + 1 at
+    position p."""
+    return sum(min(p, 3) + min(length - 1 - p, 3) + 1 for p in range(length))
+
+
 def dw_bound(n: int, h: int, w: int, c: int) -> tuple:
     """M3's bound: x in and dw out once (bf16), mean and var out (f32), the
-    weights once; 2 * 49 f32 operations a channel of a pixel."""
+    weights once; 2 f32 operations for each tap whose input lies inside the
+    image (a tap in the zero halo adds nothing and need not run), per
+    channel: 2 * n * c * in_image_taps(h) * in_image_taps(w)."""
     px = n * h * w
-    return bound_ms(px * c * 4 + px * 8 + 4 * 50 * c, {FP32: 98 * px * c})
+    return bound_ms(px * c * 4 + px * 8 + 4 * 50 * c,
+                    {FP32: 2 * n * c * in_image_taps(h) * in_image_taps(w)})
 
 
 def main(argv=None) -> int:

@@ -741,8 +741,15 @@ def test_m1_plan_mirror_matches_the_library(dev):
             assert m1.library_m1_plan(c, hid) == m1.m1_plan(c, hid), (c, hid)
 
 
-@pytest.mark.parametrize("n,h,c", [(2, 13, 96), (240, 14, 384)])   # 13: a ragged last run
+# 13: a ragged last run; 7 and 1536: 6 slices of 8 groups; 3: W < 7; 200: a
+# ragged last slice (4 + 3 groups, the last one partial); 6: C % 8 != 0 (the
+# producer's copies); 56: the tool's width, in bands of rows
+@pytest.mark.parametrize("n,h,c", [(2, 13, 96), (240, 14, 384), (3, 7, 1536), (5, 3, 768),
+                                   (4, 14, 200), (2, 9, 6), (2, 56, 96)])
 def test_m3_matches_plain(dev, n, h, c):
+    """Within ULP_TOL and MOMENT_TOL of the plain version (dw bit for bit
+    with these bf16-representable weights, but for the sign of a zero),
+    the same bits from two launches, every planted fault refused."""
     from genconvit_tpu_torch.ops.cuda import dw_moments as m3
     from genconvit_tpu_torch.tools.microbench_dwshift import make_inputs
 
@@ -754,8 +761,25 @@ def test_m3_matches_plain(dev, n, h, c):
     assert m3.dw_moments.launches == before + 1
     ref = m3.dw_moments_plain(x, k, b)
     assert _rel(out[0], ref[0]) <= TOL and m3.agrees(m3.ulp_error(out, ref))
-    bk, bb = m3.planted_faults(k, b)["kernel transposed"]
-    assert not m3.agrees(m3.ulp_error(m3.dw_moments(x, bk, bb), ref))
+    assert torch.equal(out[0].float(), ref[0].float())
+    again = m3.dw_moments(x, k, b)
+    for a, z in zip(out, again):
+        assert torch.equal(a.view(torch.int16) if a.dtype == torch.bfloat16 else a.view(torch.int32),
+                           z.view(torch.int16) if z.dtype == torch.bfloat16 else z.view(torch.int32))
+    for name, (bk, bb) in m3.planted_faults(k, b).items():
+        assert not m3.agrees(m3.ulp_error(m3.dw_moments(x, bk, bb), ref)), name
+    assert not m3.agrees(m3.ulp_error(m3.dw_moments(m3.halo_from_neighbour(x), k, b), ref))
+    assert not m3.agrees(m3.ulp_error(m3.moments_without_last_slice(x, k, b), ref))
+
+
+def test_m3_plan_mirror_matches_the_library(dev):
+    from genconvit_tpu_torch.ops.cuda import dw_moments as m3
+
+    for h in list(range(1, 57)) + [100, 250, 1000]:
+        for c in list(range(2, 1537, 2)) + [1, 97]:
+            assert m3.library_m3_plan(h, h, c) == m3.m3_plan(h, h, c), (h, c)
+    for h, w in ((3, 14), (14, 3), (9, 57), (57, 9), (300, 120)):
+        assert m3.library_m3_plan(h, w, 96) == m3.m3_plan(h, w, 96), (h, w)
 
 
 def test_probe_wrappers_raise_on_what_the_kernels_do_not_take(dev):
