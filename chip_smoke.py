@@ -127,6 +127,39 @@ Phases (any failed check raises and the exit code is non-zero):
      5 (max|dy_val| <= 2e-2, 4e-2 with the int8 tails). It runs after
      phase 5.
 
+  11. the video-to-verdict path (it runs last): (a) seeded random ED and VAE
+     weights at full size (convnext_tiny, 224 px, the real 25088x12544
+     heads, layer scale and heads' last layer as in phase 5) written by the
+     port's writers, the ED as a `.gcv` nested under 'ed', the VAE as a
+     reference-keyed `.pth` with the dead groups added and as a `.gcv`
+     whose two latent-head kernels take flax's chunked form (> 2^30 bytes),
+     each read back by `load_params` equal to the written tensors, and
+     `Predictor(ed_weight=.gcv, vae_weight=.pth)` holding them cast to bf16
+     bit for bit; file sizes and seconds; (b) the committed face detector
+     on the card against the same module on the CPU, float32 with TF32 off,
+     on 512 seeded windows: logits and boxes within 1e-3, post-NMS slots
+     equal wherever the score lies more than 1e-2 from 0.3 (a slot may
+     pick another anchor only on a score tie), the planted fault (anchor
+     offsets unscaled) refused; (c) crop_faces on the card against the CPU
+     on 1080x1920 frames with boxes that up- and downscale, one axis of
+     each, and touch the edges: at most 1 LSB, the planted fault (cv2's
+     coupled fallback dropped) refused; (d) predict_files over eight
+     synthetic videos of 15 frames with drawn faces (1920x1080, 1280x720,
+     640x360, 256x256, two each), a zero-face one and one whose decode
+     raises, with the device detector ('jax'), recorded boxes (a sidecar
+     with up to two boxes a frame, quirk B7) and 'center': None for the
+     failed decode, the default verdict for zero faces (recorded), each
+     recorded verdict within 2e-2 of predict_faces on the same crops, and
+     exactly 54 K1 + 3 K2 launches per forward; the frames in which the
+     detector fired, printed; (e) the CLI (`genconvit_tpu_torch.prediction
+     .main`) in-process over placeholder files with `--face-backend
+     recorded`, weights resolved by name (the ED and the chunked VAE
+     `.gcv`): every video in the result JSON with the JAX package's keys;
+     (f) StageTimers per stage, videos/s of predict_files at video_batch=8
+     and peak device memory. So that the phase runs without cv2 or FFmpeg,
+     the drivers' decode, `engine.extract_frames`, is substituted for the
+     whole phase by an in-memory source of the seeded frames.
+
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Without CUDA it exits non-zero at once.
 """
@@ -1821,6 +1854,470 @@ def phase_probes(torch, dev, card: str, lib_path: str) -> tuple:
     return recs, got
 
 
+VIDEO_SIZES = ((1080, 1920), (720, 1280), (360, 640), (256, 256))   # two videos each
+VIDEO_BATCH = 8
+DET_WINDOWS = 512
+DET_TOL = 1e-3       # detector logits and boxes, card (TF32 off) vs CPU, float32
+DET_THRESH = 0.3     # the device detector's score threshold
+NMS_MARGIN = 1e-2    # post-NMS slots compared where |score - DET_THRESH| > this
+
+
+def draw_faces(np, rng, n: int, h: int, w: int):
+    """n frames [n,h,w,3] uint8: a blocky background with a fixed noise
+    pattern, and a drawn face (skin ellipse, eyes, brows, nose, mouth) that
+    drifts from frame to frame."""
+    bg = rng.integers(50, 130, (h // 90 + 1, w // 90 + 1, 3)).astype(np.uint8)
+    img = np.repeat(np.repeat(bg, 90, 0), 90, 1)[:h, :w].copy()
+    yy, xx = np.ogrid[:h, :w]
+    s = min(h, w) * rng.uniform(0.35, 0.55)
+    cy, cx = h / 2, w / 2 + rng.uniform(-0.1, 0.1) * w
+
+    def ell(y, x, ry, rx, color):
+        img[((yy - y) / ry) ** 2 + ((xx - x) / rx) ** 2 < 1] = color
+
+    ell(cy, cx, 0.55 * s, 0.42 * s, (200, 160, 140))
+    for dx in (-0.17 * s, 0.17 * s):
+        ell(cy - 0.12 * s, cx + dx, 0.05 * s, 0.09 * s, (40, 30, 30))
+        ell(cy - 0.22 * s, cx + dx, 0.015 * s, 0.1 * s, (60, 40, 30))
+    ell(cy + 0.03 * s, cx, 0.09 * s, 0.02 * s, (150, 110, 100))
+    ell(cy + 0.25 * s, cx, 0.05 * s, 0.15 * s, (120, 50, 50))
+    img = np.clip(img.astype(np.int16) + rng.integers(-6, 7, img.shape, dtype=np.int16),
+                  0, 255).astype(np.uint8)
+    return np.stack([np.roll(img, (2 * i, 3 * i), (0, 1)) for i in range(n)])
+
+
+def write_and_check(torch, what: str, path: str, branch: str, write, sd: dict) -> None:
+    """Write one weight file, then read it back through `load_params`: every
+    tensor equal to the written one. Size and seconds of both logged."""
+    import os
+
+    from genconvit_tpu_torch.core.checkpoint import load_params
+
+    t = time.perf_counter()
+    write(path)
+    t_write = time.perf_counter() - t
+    t = time.perf_counter()
+    got, meta = load_params(path, branch)
+    t_read = time.perf_counter() - t
+    bad = [k for k in sd if k not in got or not torch.equal(got[k], sd[k])]
+    if bad or set(got) != set(sd):
+        raise AssertionError(f"{what}: load_params differs from the written tensors at "
+                             f"{bad[:5]} (keys {len(got)} vs {len(sd)})")
+    log(f"video [weights]: wrote {what} {os.path.getsize(path) / 2**20:.1f} MiB in "
+        f"{t_write:.2f} s; load_params {t_read:.2f} s ({meta['source']}), {len(got)} tensors "
+        f"equal to the written ones")
+
+
+def video_weights(torch, dev, wdir: str) -> dict:
+    """11a: seeded random ED and VAE weights (layer scale and heads as in
+    phase 5, so that verdicts are decisive) written through the port's
+    writers: the ED as a `.gcv` nested under 'ed' (train_model's layout),
+    the VAE as a reference-keyed `.pth` nested under 'state_dict' with the
+    dead groups added."""
+    import os
+
+    from genconvit_tpu_torch.core.checkpoint import MAX_CHUNK_SIZE, save_checkpoint
+    from genconvit_tpu_torch.core.convert import tree_from_state_dict
+    from genconvit_tpu_torch.models.convnext import Block
+    from genconvit_tpu_torch.models.genconvit import GenConViT
+    from genconvit_tpu_torch.models.init import init_genconvit_
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    with torch.device("meta"):
+        model = GenConViT(backbone_config("convnext_tiny"))
+    model = model.to_empty(device=dev)
+    init_genconvit_(model, g)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, Block):
+                m.gamma.uniform_(0.1, 1.0, generator=g)
+        for branch in model.branches():
+            branch.fc2.weight.mul_(LOGIT_SCALE)
+            branch.fc2.bias.mul_(LOGIT_SCALE)
+    sd = {b: {k: v.detach().cpu() for k, v in getattr(model, b).state_dict().items()}
+          for b in ("ed", "vae")}
+    del model
+    torch.cuda.empty_cache()
+    heads = sd["vae"]["encoder.mu.weight"]
+    if not heads.element_size() * heads.nelement() > MAX_CHUNK_SIZE:
+        raise AssertionError("the VAE head no longer exceeds the chunk size")
+    dead = {"embedder.patch_embed.proj.weight": torch.randn(96, 3, 4, 4),
+            "embedder.layers.0.blocks.0.attn.relative_position_index": torch.zeros(49, 49,
+                                                                                   dtype=torch.long),
+            "convnext_backbone.patch_embed.backbone.patch_embed.proj.weight": torch.randn(96, 3, 4, 4),
+            "convnext_backbone.patch_embed.proj.weight": torch.randn(768, 1000, 1, 1),
+            "encoder.fc1.weight": torch.randn(256, LATENT[0]), "encoder.fc1.bias": torch.randn(256),
+            "encoder.fc2.weight": torch.randn(128, 256), "encoder.fc2.bias": torch.randn(128),
+            "fc3.weight": torch.randn(500, 1000), "fc3.bias": torch.randn(500)}
+    paths = {"ed": os.path.join(wdir, "genconvit_ed_inference.gcv"),
+             "vae_pth": os.path.join(wdir, "vae_reference.pth"),
+             "vae": os.path.join(wdir, "genconvit_vae_inference.gcv")}
+    write_and_check(torch, "ed .gcv", paths["ed"], "ed", lambda p: save_checkpoint(
+        p, {"ed": tree_from_state_dict(sd["ed"], "ed")}, epoch=1), sd["ed"])
+    write_and_check(torch, "vae .pth", paths["vae_pth"], "vae", lambda p: torch.save(
+        {"epoch": 1, "state_dict": dict(sd["vae"], **dead), "min_loss": 0.5}, p), sd["vae"])
+    return {"sd": sd, "paths": paths}
+
+
+def video_chunked_vae(torch, sd: dict, path: str) -> None:
+    """11a, continued: the VAE as a `.gcv` nested under 'vae', whose two
+    latent-head kernels (> 2^30 bytes each) must take flax's chunked form."""
+    from genconvit_tpu_torch.core.checkpoint import (CHUNKED, _read_file, _unpack_all,
+                                                     save_checkpoint)
+    from genconvit_tpu_torch.core.convert import tree_from_state_dict
+
+    write_and_check(torch, "vae .gcv", path, "vae", lambda p: save_checkpoint(
+        p, {"vae": tree_from_state_dict(sd, "vae")}, epoch=1), sd)
+    chunked = []
+
+    def walk(node, where):
+        if isinstance(node, dict):
+            if CHUNKED in node:
+                chunked.append(where)
+            for k, v in node.items():
+                walk(v, f"{where}/{k}")
+        elif isinstance(node, list):
+            for i, v in enumerate(node):
+                walk(v, f"{where}/{i}")
+
+    walk(_unpack_all(memoryview(_read_file(path))), "")
+    want = ["/params/vae/encoder/mu/kernel", "/params/vae/encoder/var/kernel"]
+    if sorted(chunked) != want:
+        raise AssertionError(f"chunked arrays in the VAE .gcv: {chunked}, want {want}")
+    log(f"video [weights]: the VAE .gcv holds its heads in flax's chunked form: {chunked}")
+
+
+def check_loaded(torch, pred, sd: dict) -> None:
+    """The Predictor's tensors are the written float32 ones cast to its
+    dtype, bit for bit."""
+    for branch, want in pred.state_dicts().items():
+        for k, v in want.items():
+            ref = sd[branch][k]
+            ref = ref.to(v.dtype) if ref.is_floating_point() else ref
+            if not torch.equal(v.cpu(), ref):
+                raise AssertionError(f"Predictor {branch}.{k} differs from the written tensor")
+
+
+def video_detector(torch, np, dev, card: str) -> None:
+    """11b: the committed detector on the card against the same module on
+    the CPU, float32 with TF32 off, on DET_WINDOWS seeded windows (half
+    noise, half drawn faces); a planted fault (the anchor offsets' scale
+    dropped) must fail."""
+    from genconvit_tpu_torch.data.faces import DeviceFaceDetector, default_facedet_checkpoint
+    from genconvit_tpu_torch.models import facedet
+
+    rng = np.random.default_rng(21)
+    wins = np.concatenate([rng.integers(0, 256, (DET_WINDOWS // 2, 128, 128, 3), dtype=np.uint8),
+                           np.concatenate([draw_faces(np, rng, 1, 128, 128)
+                                           for _ in range(DET_WINDOWS // 2)])])
+    ckpt = default_facedet_checkpoint()
+    cpu = DeviceFaceDetector(ckpt, device="cpu")
+    gpu = DeviceFaceDetector(ckpt, device=dev)
+    x = torch.from_numpy(wins)
+    xg = x.to(dev)
+
+    def run(det, xx):
+        with torch.inference_mode():
+            s, b = facedet.decode(det.model((xx.float() / 127.5 - 1.0).permute(0, 3, 1, 2)))
+            ks, kb = facedet.detect_batch(det.model, xx, score_thresh=DET_THRESH)
+        return [t.double().cpu().numpy() for t in (s, b, ks, kb)]
+
+    def errs(a, b):
+        return float(np.abs(a[0] - b[0]).max()), float(np.abs(a[1] - b[1]).max())
+
+    ref = run(cpu, x)
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        got = run(gpu, xg)
+        scale = facedet.OFFSET_SCALE
+        facedet.OFFSET_SCALE = 1.0
+        try:
+            bad = run(gpu, xg)
+        finally:
+            facedet.OFFSET_SCALE = scale
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    on = run(gpu, xg)
+    es, eb = errs(got, ref)
+    if not (es <= DET_TOL and eb <= DET_TOL):
+        raise AssertionError(f"detector card vs CPU: scores {es:.3e}, boxes {eb:.3e} > {DET_TOL}")
+    if not errs(bad, ref)[1] > DET_TOL:
+        raise AssertionError("the planted fault (offsets unscaled) passed the detector check")
+    ks, kb, rs, rb = got[2], got[3], ref[2], ref[3]
+    clear = np.abs(rs - DET_THRESH) > NMS_MARGIN
+    if not ((np.isfinite(ks) == np.isfinite(rs)) | ~clear).all():
+        raise AssertionError("post-NMS kept slots differ between card and CPU")
+    both = clear & np.isfinite(rs) & np.isfinite(ks)
+    moved = np.abs(kb - rb).max(-1) > DET_TOL
+    # a slot may pick another anchor only on a tie (scores within DET_TOL)
+    ties = both & moved & (np.abs(np.subtract(ks, rs, out=np.zeros_like(ks), where=both))
+                           <= DET_TOL)
+    if (both & moved & ~ties).any():
+        raise AssertionError("post-NMS boxes differ between card and CPU")
+    t_ms = cuda_ms(torch, lambda: facedet.detect_batch(gpu.model, xg, score_thresh=DET_THRESH), 5)
+    log(f"video [detector]: {DET_WINDOWS} windows, card (TF32 off) vs CPU: max|d score| {es:.3e}, "
+        f"max|d box| {eb:.3e} (limit {DET_TOL}); with TF32 on {errs(on, ref)[0]:.3e} / "
+        f"{errs(on, ref)[1]:.3e}; planted fault {errs(bad, ref)[1]:.3e}; post-NMS slots kept "
+        f"{int(np.isfinite(rs).sum())} of {rs.size}, {int(both.sum())} compared, {int(ties.sum())} "
+        f"ties; detect_batch {t_ms:.3f} ms per {DET_WINDOWS} windows [{card}]")
+
+
+def video_crops(torch, np, dev, card: str) -> None:
+    """11c: crop_faces on the card against the same function on the CPU, on
+    boxes that up- and downscale, one axis of each, and touch the frame's
+    edges: at most 1 LSB; a planted fault (cv2's coupled-axis fallback
+    dropped) must fail."""
+    from genconvit_tpu_torch.data import faces
+    from genconvit_tpu_torch.ops import resize
+
+    rng = np.random.default_rng(31)
+    frames = draw_faces(np, rng, 3, 1080, 1920)
+    q = IMG // 2
+    boxes = [[(0, 1920, 1080, 0), (100, 250 + 3 * IMG, 100 + q, 250)],   # down; h up, w down
+             [(900, 1920, 1080, 1800), (500, 1500, 1000, 700)],          # edge, up; down
+             [(-20, 300, 200, -10), (300, 1000 + q, 300 + 3 * IMG, 1000)]]  # empty; h down, w up
+    ref = faces.crop_faces(frames, boxes, 6, IMG, device="cpu").numpy().astype(np.int16)
+    x = torch.from_numpy(frames).to(dev)
+
+    def card_crops():
+        return faces.crop_faces(x, boxes, 6, IMG).cpu().numpy().astype(np.int16)
+
+    err = int(np.abs(card_crops() - ref).max())
+    pair = faces.crop_resize_weights_pair
+
+    def uncoupled(h, w, box, out):
+        return (resize.crop_resize_weights(h, box[0], box[2], out),
+                resize.crop_resize_weights(w, box[3], box[1], out))
+
+    faces.crop_resize_weights_pair = uncoupled
+    faces._crop_weights.cache_clear()
+    try:
+        planted = int(np.abs(card_crops() - ref).max())
+    finally:
+        faces.crop_resize_weights_pair = pair
+        faces._crop_weights.cache_clear()
+    if ref.shape != (5, IMG, IMG, 3) or err > 1:
+        raise AssertionError(f"crop_faces card vs CPU: shape {ref.shape}, max {err} LSB")
+    if planted <= 1:
+        raise AssertionError("the planted fault (no coupled fallback) passed the crop check")
+    t_ms = cuda_ms(torch, lambda: faces.crop_faces(x, boxes, 6, IMG), 5)
+    log(f"video [crops]: crop_faces card vs CPU max {err} LSB (limit 1) on 5 crops of 1080x1920 "
+        f"frames; planted fault {planted} LSB; {t_ms:.3f} ms per call [{card}]")
+
+
+def detect_split(torch, np, det, frames_list, dev) -> dict:
+    """The device detector's detect_many on frames_list, step by step with
+    a synchronize after each device step: where the file path's detect
+    stage spends its time."""
+    from genconvit_tpu_torch.models.facedet import detect_batch
+
+    ms = {}
+
+    def step(name, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = fn()
+        torch.cuda.synchronize()
+        ms[name] = round((time.perf_counter() - t) * 1e3, 3)
+        return r
+
+    with torch.inference_mode():
+        wins = [det._windows(*f.shape[1:3]) for f in frames_list]
+        xs = step("upload", lambda: [torch.from_numpy(f).to(dev) for f in frames_list])
+        crops = step("window_crops", lambda: torch.cat(
+            [det.window_crops(x, w) for x, w in zip(xs, wins)]))
+        outs = step("detect_batch", lambda: [detect_batch(det.model, c, max_faces=det.max_faces,
+                                                          score_thresh=det.score_thresh)
+                                             for c in crops.split(det.batch)])
+        sc, bx = step("fetch", lambda: (torch.cat([o[0] for o in outs]).cpu().numpy(),
+                                        torch.cat([o[1] for o in outs]).cpu().numpy()))
+
+    def host():
+        off = 0
+        for f, w in zip(frames_list, wins):
+            h, wd = f.shape[1:3]
+            for _ in range(len(f)):
+                det._merge(det._candidates(sc[off: off + len(w)], bx[off: off + len(w)], w, h, wd))
+                off += len(w)
+
+    step("candidates_merge_host", host)
+    ms["windows"] = int(crops.shape[0])
+    return ms
+
+
+def video_corpus(np):
+    """Eight seeded synthetic videos of FRAMES frames (two at each of
+    VIDEO_SIZES) with drawn faces, a zero-face one (flat gray, and no
+    recorded boxes) and a name whose decode raises."""
+    rng = np.random.default_rng(41)
+    corpus = {}
+    for i, (h, w) in enumerate(s for s in VIDEO_SIZES for _ in range(2)):
+        corpus[f"v{i}_{h}p.mp4"] = draw_faces(np, rng, FRAMES, h, w)
+    corpus["zero_faces.mp4"] = np.full((FRAMES, 360, 640, 3), 128, np.uint8)
+    return corpus
+
+
+def sidecar_boxes(corpus: dict) -> dict:
+    """Recorded boxes: up to two a frame (quirk B7's budget), one that
+    up- and one that downscales; none for the zero-face video."""
+    out = {}
+    for name, frames in corpus.items():
+        h, w = frames.shape[1:3]
+        big = [h // 8, w - w // 6, h - h // 8, w // 6]
+        small = [h // 3, w // 2 + 60, h // 3 + 90, w // 2 - 40]
+        out[name] = [[] if name.startswith("zero") else ([big, small] if k % 2 else [big])
+                     for k in range(FRAMES)]
+    return out
+
+
+def count_forwards(kcuda, what: str, n_scored: int) -> int:
+    """Every forward of the default plan: 54 K1 and 3 K2 launches."""
+    got = kcuda.launch_counts()
+    want = -(-n_scored // VIDEO_BATCH)
+    if got["layer_norm_rows"] != 3 * want or got["ln_mlp_residual"] != 54 * want or any(
+            v for k, v in got.items() if k not in ("layer_norm_rows", "ln_mlp_residual")):
+        raise AssertionError(f"{what}: launches {got}, want {want} forwards of 54 K1 + 3 K2")
+    return want
+
+
+def phase_video(torch, np, dev, card: str) -> dict:
+    """Phase 11: the video-to-verdict path on the card (see the module
+    docstring). So that it runs without cv2 or FFmpeg, the drivers' decode,
+    `engine.extract_frames`, is substituted by an in-memory source of the
+    seeded frames for the whole phase (and put back after)."""
+    import os
+    import tempfile
+
+    from genconvit_tpu_torch import prediction
+    from genconvit_tpu_torch.data.faces import crop_faces, make_detector
+    from genconvit_tpu_torch.infer import engine
+    from genconvit_tpu_torch.infer.aggregate import DEFAULT_VERDICT
+    from genconvit_tpu_torch.ops import cuda as kcuda
+
+    video_detector(torch, np, dev, card)
+    video_crops(torch, np, dev, card)
+    corpus = video_corpus(np)
+
+    def in_memory(path, num_frames, prefer_native=True):
+        name = os.path.basename(path)
+        if name not in corpus:
+            raise IOError(f"cannot open video: {path}")
+        return corpus[name][:num_frames]
+
+    decode = engine.extract_frames
+    engine.extract_frames = in_memory
+    env = os.environ.get("GENCONVIT_FACE_SIDECAR")
+    out = {}
+    try:
+        with tempfile.TemporaryDirectory(prefix="gcv_video_") as tmp:
+            w = video_weights(torch, dev, tmp)
+            t = time.perf_counter()
+            pred = engine.Predictor(backbone_config("convnext_tiny"), device=dev,
+                                    ed_weight=w["paths"]["ed"], vae_weight=w["paths"]["vae_pth"],
+                                    face_backend="jax", deterministic_vae=True)
+            torch.cuda.synchronize()
+            log(f"video [weights]: Predictor(ed_weight=.gcv, vae_weight=.pth) "
+                f"{time.perf_counter() - t:.2f} s, detector {type(pred.detector).__name__}")
+            check_loaded(torch, pred, w["sd"])
+            log("video [weights]: the Predictor's tensors equal the written ones cast to bf16")
+            os.remove(w["paths"]["vae_pth"])   # one 2.5 GB file on disk at a time
+            video_chunked_vae(torch, w["sd"]["vae"], w["paths"]["vae"])
+            side = os.path.join(tmp, "boxes.json")
+            with open(side, "w") as f:
+                json.dump(sidecar_boxes(corpus), f)
+            names = sorted(corpus) + ["broken.mp4"]
+            for backend in ("jax", "recorded", "center"):
+                pred.detector = make_detector(backend, device=dev, **(
+                    {"sidecar_path": side} if backend == "recorded" else {}))
+                kcuda.reset_launch_counts()
+                t = time.perf_counter()
+                res = dict(pred.predict_files(names, FRAMES, video_batch=VIDEO_BATCH))
+                dt = time.perf_counter() - t
+                if res["broken.mp4"] is not None:
+                    raise AssertionError(f"[{backend}] the failed decode gave {res['broken.mp4']}")
+                scored = [n for n in names if res[n] not in (None, DEFAULT_VERDICT)]
+                fwd = count_forwards(kcuda, f"predict_files [{backend}]", len(scored))
+                ys = np.array([res[n][0] for n in scored])
+                vals = np.array([res[n][1] for n in scored], np.float64)
+                check_verdicts(np, ys, vals, len(scored))
+                log(f"video [{backend}]: predict_files of {len(names)} videos {dt:.2f} s, "
+                    f"{len(scored)} scored in {fwd} forwards (54 K1 + 3 K2 each), verdicts "
+                    f"{[(n, res[n]) for n in names]} [{card}]")
+                if backend == "recorded":
+                    if res["zero_faces.mp4"] != DEFAULT_VERDICT:
+                        raise AssertionError(f"zero faces gave {res['zero_faces.mp4']}")
+                    worst = 0.0
+                    for n in scored:
+                        boxes = pred.detector.for_video(n).detect(corpus[n])
+                        crops = crop_faces(corpus[n], boxes, FRAMES, IMG, device=dev)
+                        one = pred.predict_faces(crops, FRAMES)
+                        worst = max(worst, abs(one[1] - res[n][1]))
+                        if abs(one[1] - 0.5) > YVAL_TOL and one[0] != res[n][0]:
+                            raise AssertionError(f"{n}: predict_files {res[n]}, predict_faces {one}")
+                    if not worst <= YVAL_TOL:
+                        raise AssertionError(f"recorded verdicts vs predict_faces: {worst} > {YVAL_TOL}")
+                    log(f"video [recorded]: each verdict vs predict_faces on its crops: max|dy_val| "
+                        f"{worst:.3e} (limit {YVAL_TOL}) [{card}]")
+                if backend == "jax":
+                    fired = [sum(bool(b) for b in boxes) for boxes in pred.detector.detect_many(
+                        [corpus[n] for n in sorted(corpus)])]
+                    log(f"video [jax]: frames in which the detector fired, per video "
+                        f"{dict(zip(sorted(corpus), fired))} of {FRAMES} (synthetic frames: "
+                        f"printed, not checked)")
+            # f. timings: the device detector's path again, warm, decode excluded
+            pred.detector = make_detector("jax", device=dev)
+            pred.timers.reset()
+            torch.cuda.reset_peak_memory_stats(dev)
+            paths = sorted(corpus)[:VIDEO_BATCH]
+            t = time.perf_counter()
+            pred.predict_files(paths, FRAMES, video_batch=VIDEO_BATCH)
+            dt = time.perf_counter() - t
+            out["videos_s"] = len(paths) / dt
+            out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+            out["stages"] = pred.timers.summary()
+            log(f"video [timing]: predict_files 'jax' at video_batch={VIDEO_BATCH}: "
+                f"{out['videos_s']:.2f} videos/s ({dt:.2f} s for {len(paths)} videos, decode "
+                f"substituted by memory), stages {out['stages']}, peak device memory "
+                f"{out['peak_gib']:.2f} GiB [{card}]")
+            out["detect_split"] = detect_split(torch, np, pred.detector,
+                                               [corpus[n] for n in paths], dev)
+            log(f"video [timing]: the device detector on those {len(paths)} videos, ms: "
+                f"{out['detect_split']} (uploads, window crops, detect_batch passes, each "
+                f"synchronized; boxes fetched; candidates and merge on the host) [{card}]")
+            del pred
+            torch.cuda.empty_cache()
+            # e. the CLI in-process: weights resolved by name in --weights-dir
+            vdir = os.path.join(tmp, "videos")
+            os.makedirs(vdir)
+            for n in names:
+                open(os.path.join(vdir, n), "wb").close()
+            t = time.perf_counter()
+            path = prediction.main(["--p", vdir, "--f", str(FRAMES), "--face-backend", "recorded",
+                                    "--face-sidecar", side, "--weights-dir", tmp,
+                                    "--result-dir", os.path.join(tmp, "result")])
+            dt = time.perf_counter() - t
+            with open(path) as f:
+                result = json.load(f)
+            keys = {"name", "pred", "klass", "pred_label", "correct_label"}
+            meta = {"dataset", "network", "num_frames", "runtime_seconds", "timestamp", "framework"}
+            if set(result) != {"video", "metadata"} or set(result["video"]) != keys \
+                    or set(result["metadata"]) != meta or result["video"]["name"] != sorted(names):
+                raise AssertionError(f"CLI result: keys {sorted(result)}, video "
+                                     f"{sorted(result['video'])}, names {result['video']['name']}")
+            log(f"video [CLI]: prediction.main over {len(names)} placeholder files {dt:.2f} s "
+                f"(weights resolved by name: ed .gcv, vae chunked .gcv), labels "
+                f"{result['video']['pred_label']} [{card}]")
+    finally:
+        engine.extract_frames = decode
+        if env is None:
+            os.environ.pop("GENCONVIT_FACE_SIDECAR", None)
+        else:
+            os.environ["GENCONVIT_FACE_SIDECAR"] = env
+    return out
+
+
 def main() -> int:
     import argparse
     import gc
@@ -1893,6 +2390,9 @@ def main() -> int:
     probe_recs, probe_counts = phase_probes(torch, dev, card, info.path)
     kernels += probe_recs
     log(f"phase 9: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    video = phase_video(torch, np, dev, card)
+    log(f"phase 11: {time.perf_counter() - t:.1f} s")
     for name, r in runs.items():
         log(f"summary [{name}]: V=8 {r['v8_videos_s']:.2f} videos/s ({r['v8_ms']:.2f} "
             f"ms/launch), V=1 {r['v1_ms']:.2f} ms/launch (synchronized median "
@@ -1908,6 +2408,8 @@ def main() -> int:
     for (pname, n), (rate, ms, peak) in swin["rates"].items():
         log(f"summary [swin_tiny {pname}] N={n}: {rate:.2f} images/s ({ms:.3f} ms/forward), "
             f"peak device memory {peak:.2f} GiB [{card}]")
+    log(f"summary [video path]: predict_files 'jax' {video['videos_s']:.2f} videos/s at "
+        f"video_batch={VIDEO_BATCH}, peak device memory {video['peak_gib']:.2f} GiB [{card}]")
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_all:.1f} s [{card}]")
     # each kernel's launches: the count of the run whose main path runs it
     # (the counts were set to 0 just before its requests)

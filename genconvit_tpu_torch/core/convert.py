@@ -12,17 +12,26 @@ The inverse of genconvit_tpu/core/convert.py `_conv`/`_convT`/`_linear`/
   LN/BN  scale/bias(/mean/var) -> weight/bias(/running_mean/running_var)
 
 Branches: 'ed', 'vae' (the original variant), 'convnext', 'swin' (a Swin
-tree, timm's keys) and 'hybrid_embed' (the {"backbone", "proj"} tree of
-`init_hybrid_embed`: `backbone.*` and `proj.*`). The 'ed' and 'vae' branches
+tree, timm's keys), 'hybrid_embed' (the {"backbone", "proj"} tree of
+`init_hybrid_embed`: `backbone.*` and `proj.*`) and 'facedet' (the face
+detector of models/facedet.py). The 'ed' and 'vae' branches
 never read the dead parameter groups of the reference checkpoints
 (`embedder`, `hybrid_proj`, `fc3`, VAE `encoder.fc1/fc2`), so their result
 loads into the port's branch modules with `load_state_dict(strict=True)`; a
 converted checkpoint's embedder comes across on its own with
-`state_dict_from_jax(tree["embedder"], "swin")`.
+`state_dict_from_jax(tree["embedder"], "swin")`. Leaves may be numpy
+arrays or torch tensors (the checkpoint reader's bfloat16 leaves).
+
+`state_dict_from_reference` takes the reference's own torch checkpoints
+(the published `.pth` files) to the same state dicts, and
+`tree_from_state_dict` is the bridge's inverse for 'ed', 'vae' and
+'convnext' (the trees the JAX package's `convert_ed`/`convert_vae`/
+`convert_convnext` give, without the dead groups).
 """
 
 from __future__ import annotations
 
+import re
 from typing import Any, Dict, Mapping
 
 import numpy as np
@@ -31,26 +40,34 @@ import torch
 StateDict = Dict[str, torch.Tensor]
 
 
+def _f32(a: Any) -> torch.Tensor:
+    """A float32 tensor of a leaf (no copy of a float32 numpy array)."""
+    if isinstance(a, torch.Tensor):
+        return a.float()
+    a = np.asarray(a, dtype=np.float32)
+    return torch.from_numpy(a if a.flags.writeable else a.copy())
+
+
 def _t(a: Any) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(np.asarray(a, dtype=np.float32)))
+    return _f32(a).contiguous()
 
 
-def _put(sd: StateDict, name: str, p: Mapping[str, Any], weight: np.ndarray) -> None:
-    sd[f"{name}.weight"] = _t(weight)
+def _put(sd: StateDict, name: str, p: Mapping[str, Any], weight: torch.Tensor) -> None:
+    sd[f"{name}.weight"] = weight.contiguous()
     if "bias" in p:
         sd[f"{name}.bias"] = _t(p["bias"])
 
 
 def _conv(sd: StateDict, name: str, p: Mapping[str, Any]) -> None:
-    _put(sd, name, p, np.asarray(p["kernel"]).transpose(3, 2, 0, 1))
+    _put(sd, name, p, _f32(p["kernel"]).permute(3, 2, 0, 1))
 
 
 def _convT(sd: StateDict, name: str, p: Mapping[str, Any]) -> None:
-    _put(sd, name, p, np.asarray(p["kernel"]).transpose(2, 3, 0, 1))
+    _put(sd, name, p, _f32(p["kernel"]).permute(2, 3, 0, 1))
 
 
 def _linear(sd: StateDict, name: str, p: Mapping[str, Any]) -> None:
-    _put(sd, name, p, np.asarray(p["kernel"]).T)
+    _put(sd, name, p, _f32(p["kernel"]).T)
 
 
 def _norm(sd: StateDict, name: str, p: Mapping[str, Any]) -> None:
@@ -106,10 +123,23 @@ def _swin(sd: StateDict, prefix: str, tree: Mapping[str, Any]) -> None:
     _linear(sd, f"{prefix}head", tree["head"])
 
 
+def _facedet(sd: StateDict, tree: Mapping[str, Any]) -> None:
+    _conv(sd, "stem", tree["stem"])
+    for group in ("blocks16", "blocks8"):
+        for i, blk in enumerate(tree[group]):
+            _conv(sd, f"{group}.{i}.dw", blk["dw"])
+            _conv(sd, f"{group}.{i}.pw", blk["pw"])
+    _conv(sd, "head16", tree["head16"])
+    _conv(sd, "head8", tree["head8"])
+
+
 def state_dict_from_jax(tree: Mapping[str, Any], branch: str) -> StateDict:
     """branch: 'ed' | 'vae' (original variant) | 'convnext' | 'swin' |
-    'hybrid_embed'."""
+    'hybrid_embed' | 'facedet'."""
     sd: StateDict = {}
+    if branch == "facedet":
+        _facedet(sd, tree)
+        return sd
     if branch == "convnext":
         _convnext(sd, "", tree)
         return sd
@@ -141,3 +171,120 @@ def state_dict_from_jax(tree: Mapping[str, Any], branch: str) -> StateDict:
     _linear(sd, "fc", tree["fc"])
     _linear(sd, "fc2", tree["fc2"])
     return sd
+
+
+# ------------------------------------------------------------------ reference
+
+
+# The reference checkpoints' parameter groups that no forward reads
+# (genconvit_tpu/core/convert.py:15-19): the Swin embedder, the HybridEmbed
+# copy under the backbone's patch_embed, the VAE encoder's fc1/fc2 and fc3.
+_DEAD = {"ed": re.compile(r"^(embedder\.|backbone\.patch_embed\.)"),
+         "vae": re.compile(r"^(embedder\.|convnext_backbone\.patch_embed\.|"
+                           r"encoder\.fc[12]\.|fc3\.)")}
+
+
+def state_dict_from_reference(obj: Mapping[str, Any], branch: str) -> StateDict:
+    """A reference-keyed torch checkpoint (bare, or nested under
+    'state_dict' as train.py saves it) -> the port's state dict for branch
+    'ed' or 'vae': float16 tensors to float32, the dead groups dropped, so
+    that it loads with `load_state_dict(strict=True)` (the JAX package's
+    `convert_checkpoint` accepts the same files)."""
+    if branch not in _DEAD:
+        raise ValueError(f"unknown branch {branch!r}")
+    if isinstance(obj, Mapping) and "state_dict" in obj:
+        obj = obj["state_dict"]
+    sd: StateDict = {}
+    for k, v in obj.items():
+        if _DEAD[branch].match(k):
+            continue
+        v = v if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v))
+        sd[k] = v.float() if v.dtype == torch.float16 else v
+    return sd
+
+
+# ------------------------------------------------------------------ inverse
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return np.ascontiguousarray(t.detach().float().cpu().numpy())
+
+
+def _with_bias(sd: Mapping[str, torch.Tensor], name: str, kernel: torch.Tensor) -> Dict[str, Any]:
+    out = {"kernel": _np(kernel)}
+    if f"{name}.bias" in sd:
+        out["bias"] = _np(sd[f"{name}.bias"])
+    return out
+
+
+def _conv_tree(sd, name):
+    return _with_bias(sd, name, sd[f"{name}.weight"].permute(2, 3, 1, 0))
+
+
+def _convT_tree(sd, name):
+    return _with_bias(sd, name, sd[f"{name}.weight"].permute(2, 3, 0, 1))
+
+
+def _linear_tree(sd, name):
+    return _with_bias(sd, name, sd[f"{name}.weight"].T)
+
+
+def _norm_tree(sd, name):
+    return {"scale": _np(sd[f"{name}.weight"]), "bias": _np(sd[f"{name}.bias"])}
+
+
+def _count(sd: Mapping[str, Any], pattern: str) -> int:
+    rx = re.compile(pattern)
+    return len({m.group(1) for k in sd for m in [rx.match(k)] if m})
+
+
+def _convnext_tree(sd: Mapping[str, torch.Tensor], prefix: str) -> Dict[str, Any]:
+    tree: Dict[str, Any] = {
+        "stem": {"conv": _conv_tree(sd, f"{prefix}stem.0"),
+                 "norm": _norm_tree(sd, f"{prefix}stem.1")},
+        "stages": [],
+        "head": {"norm": _norm_tree(sd, f"{prefix}head.norm"),
+                 "fc": _linear_tree(sd, f"{prefix}head.fc")}}
+    p = re.escape(prefix)
+    for si in range(_count(sd, rf"{p}stages\.(\d+)\.")):
+        s = f"{prefix}stages.{si}"
+        stage: Dict[str, Any] = {"blocks": []}
+        if f"{s}.downsample.0.weight" in sd:
+            stage["downsample"] = {"norm": _norm_tree(sd, f"{s}.downsample.0"),
+                                   "conv": _conv_tree(sd, f"{s}.downsample.1")}
+        for bi in range(_count(sd, rf"{p}stages\.{si}\.blocks\.(\d+)\.")):
+            b = f"{s}.blocks.{bi}"
+            stage["blocks"].append({
+                "conv_dw": _conv_tree(sd, f"{b}.conv_dw"),
+                "norm": _norm_tree(sd, f"{b}.norm"),
+                "mlp": {"fc1": _linear_tree(sd, f"{b}.mlp.fc1"),
+                        "fc2": _linear_tree(sd, f"{b}.mlp.fc2")},
+                "gamma": _np(sd[f"{b}.gamma"])})
+        tree["stages"].append(stage)
+    return tree
+
+
+def tree_from_state_dict(sd: Mapping[str, torch.Tensor], branch: str) -> Dict[str, Any]:
+    """The inverse of `state_dict_from_jax` for 'ed', 'vae' and 'convnext':
+    the JAX package's tree (float32 numpy leaves), e.g. to write a `.gcv`
+    that both packages read."""
+    if branch == "convnext":
+        return _convnext_tree(sd, "")
+    if branch == "ed":
+        tree = {"encoder": [_conv_tree(sd, f"encoder.features.{i}") for i in (0, 3, 6, 9, 12)],
+                "decoder": [_convT_tree(sd, f"decoder.features.{i}") for i in (0, 2, 4, 6, 8)],
+                "backbone": _convnext_tree(sd, "backbone.")}
+    elif branch == "vae":
+        bns = [dict(_norm_tree(sd, f"encoder.features.{i}"),
+                    mean=_np(sd[f"encoder.features.{i}.running_mean"]),
+                    var=_np(sd[f"encoder.features.{i}.running_var"])) for i in (1, 4, 7, 10)]
+        tree = {"encoder": {"convs": [_conv_tree(sd, f"encoder.features.{i}") for i in (0, 3, 6, 9)],
+                            "bns": bns, "mu": _linear_tree(sd, "encoder.mu"),
+                            "var": _linear_tree(sd, "encoder.var")},
+                "decoder": [_convT_tree(sd, f"decoder.features.{i}") for i in (0, 2, 4, 6)],
+                "backbone": _convnext_tree(sd, "convnext_backbone.")}
+    else:
+        raise ValueError(f"unknown branch {branch!r}")
+    tree["fc"] = _linear_tree(sd, "fc")
+    tree["fc2"] = _linear_tree(sd, "fc2")
+    return tree

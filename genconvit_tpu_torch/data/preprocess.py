@@ -24,10 +24,17 @@ def normalize_batch(frames_u8: torch.Tensor, dtype=torch.float32) -> torch.Tenso
     return x.to(dtype).permute(0, 3, 1, 2)
 
 
-def pad_faces(faces_u8: np.ndarray, num_frames: int,
-              img_size: int = 224) -> Tuple[np.ndarray, np.ndarray]:
-    """[k,S,S,3] uint8 (k may be 0..num_frames) -> fixed ([F,S,S,3], mask [F])."""
+def pad_faces(faces_u8, num_frames: int, img_size: int = 224) -> Tuple:
+    """[k,S,S,3] uint8 (k may be 0..num_frames) -> fixed ([F,S,S,3], mask [F]),
+    numpy for numpy faces, on the faces' device for a tensor."""
     k = len(faces_u8)
+    if isinstance(faces_u8, torch.Tensor):
+        dev = faces_u8.device
+        batch = torch.zeros((num_frames, img_size, img_size, 3), dtype=torch.uint8, device=dev)
+        batch[: min(k, num_frames)] = faces_u8[:num_frames]
+        mask = torch.zeros((num_frames,), dtype=torch.float32, device=dev)
+        mask[: min(k, num_frames)] = 1.0
+        return batch, mask
     batch = np.zeros((num_frames, img_size, img_size, 3), dtype=np.uint8)
     if k:
         batch[:k] = faces_u8[:num_frames]

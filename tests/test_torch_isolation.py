@@ -1,7 +1,8 @@
 """The port stands alone: importing every module of genconvit_tpu_torch
-loads no JAX, flax, yaml or genconvit_tpu and builds no kernel; its sources
-carry no such import and no torch.compile; chip_smoke.py refuses to run
-without CUDA before it builds anything."""
+loads no JAX, flax, yaml, msgpack or genconvit_tpu, no cv2 or sklearn (the
+host libraries stay lazy) and builds no kernel; its sources carry no such
+import and no torch.compile; chip_smoke.py refuses to run without CUDA
+before it builds anything."""
 
 import json
 import os
@@ -22,7 +23,8 @@ for n in names:
     importlib.import_module(n)
 from genconvit_tpu_torch.ops.cuda import _build
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "yaml", "genconvit_tpu", "triton"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "yaml", "msgpack", "genconvit_tpu",
+                                    "triton", "cv2", "sklearn"))
 print(json.dumps({"modules": names, "bad": bad, "built": _build.is_loaded()}))
 """
 
@@ -43,19 +45,23 @@ def test_importing_every_module_loads_nothing_forbidden():
     for name in ("models.swin", "models.hybrid_embed", "ops.cuda.window_attn",
                  "ops.cuda.int8_dot", "ops.cuda.block_parts", "ops.cuda.dw_moments",
                  "tools.microbench_int8_dot", "tools.microbench_kernel_parts",
-                 "tools.microbench_dwshift"):
+                 "tools.microbench_dwshift", "core.checkpoint", "data.faces", "data.video",
+                 "data.native", "data.frames", "models.facedet", "infer.walkers",
+                 "infer.result", "utils.timing", "prediction", "device"):
         assert f"genconvit_tpu_torch.{name}" in rec["modules"]
     assert rec["bad"] == []
     assert rec["built"] is False
 
 
 def test_sources_import_no_jax_and_compile_nothing():
-    pattern = re.compile(r"^\s*(import|from)\s+(jax|flax|yaml|genconvit_tpu)\b"
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|flax|yaml|msgpack|genconvit_tpu)\b"
                          r"|torch\.compile", re.M)
     paths = list(PKG.rglob("*.py"))
     assert {"swin.py", "hybrid_embed.py", "window_attn.py", "int8_dot.py", "block_parts.py",
             "dw_moments.py", "microbench_int8_dot.py", "microbench_kernel_parts.py",
-            "microbench_dwshift.py"} <= {p.name for p in paths}
+            "microbench_dwshift.py", "checkpoint.py", "faces.py", "facedet.py", "video.py",
+            "native.py", "walkers.py", "result.py", "timing.py",
+            "prediction.py"} <= {p.name for p in paths}
     for path in paths + [ROOT / "chip_smoke.py"]:
         assert not pattern.search(path.read_text()), path
 
