@@ -3,8 +3,9 @@ the scoring path and the drivers read, as plain dataclasses.
 
 `load_config` reads the reference's `model/config.yaml` with a reader of
 this module's own (`parse_yaml`): the block-mapping subset that file uses
-(nested `key: value` maps by indentation, comments, scalars resolved as
-PyYAML's safe loader resolves them), without importing yaml.
+(nested `key: value` maps by indentation, comments; null, bools, decimal
+ints, floats and strings resolved as PyYAML's safe loader resolves them),
+without importing yaml.
 """
 
 from __future__ import annotations
@@ -80,19 +81,21 @@ class Config:
 
 _BOOL = {"yes": True, "true": True, "on": True, "no": False, "false": False, "off": False}
 _INT = re.compile(r"[-+]?(0|[1-9][0-9_]*)$")
-_INT_BASE = re.compile(r"[-+]?0(b[01_]+|x[0-9a-fA-F_]+|[0-7_]+)$")
 _FLOAT = re.compile(r"([-+]?[0-9][0-9_]*\.[0-9_]*|\.[0-9_]+)([eE][-+][0-9]+)?$")
-_INF = re.compile(r"[-+]?\.(inf|Inf|INF)$")
-_NAN = re.compile(r"\.(nan|NaN|NAN)$")
 
 
 def _scalar(text: str) -> Any:
-    """A plain or quoted scalar as PyYAML's SafeLoader resolves it (YAML
-    1.1: '1e-4' without a dot stays a string there, so it does here)."""
+    """A plain or quoted scalar of the reference's config.yaml as PyYAML's
+    SafeLoader resolves it: null, bools, decimal ints, floats (YAML 1.1:
+    '1e-4' without a dot stays a string there, so it does here) and
+    strings. Escapes in double quotes raise ValueError."""
     if len(text) >= 2 and text[0] == text[-1] and text[0] in "'\"":
         body = text[1:-1]
-        return body.replace("''", "'") if text[0] == "'" else body.encode().decode(
-            "unicode_escape")
+        if text[0] == "'":
+            return body.replace("''", "'")
+        if "\\" in body:
+            raise ValueError(f"escape sequences are not supported: {text!r}")
+        return body
     low = text.lower()
     if text in ("", "~") or low == "null" and text in ("null", "Null", "NULL"):
         return None
@@ -100,15 +103,6 @@ def _scalar(text: str) -> Any:
         return _BOOL[low]
     if _INT.match(text):
         return int(text.replace("_", ""))
-    if _INT_BASE.match(text):
-        sign = -1 if text[0] == "-" else 1
-        t = text.lstrip("+-").replace("_", "")
-        base = 2 if t[:2] == "0b" else 16 if t[:2] == "0x" else 8
-        return sign * int(t[2:] if base != 8 else t, base)
-    if _INF.match(text):
-        return float("-inf") if text[0] == "-" else float("inf")
-    if _NAN.match(text):
-        return float("nan")
     if _FLOAT.match(text):
         return float(text.replace("_", ""))
     return text

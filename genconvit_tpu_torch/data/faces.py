@@ -450,7 +450,7 @@ class DeviceFaceDetector(FaceDetector):
 
     def __init__(self, checkpoint: Optional[str] = None,
                  score_thresh: float = 0.3, max_faces: int = 4,
-                 allow_random: bool = False, fuse: bool = True, device=None):
+                 fuse: bool = True, device=None):
         # score_thresh 0.3: the JAX package's choice for the committed
         # checkpoint on real frames (top scores 0.33-0.63, :537-540 there)
         from genconvit_tpu_torch.core.checkpoint import load_checkpoint
@@ -462,16 +462,15 @@ class DeviceFaceDetector(FaceDetector):
         self.max_faces = max_faces
         self.fuse = fuse
         self.device = torch.device(device) if device is not None else default_device()
-        model = FaceDet()
-        if checkpoint and os.path.isfile(checkpoint):
-            tree = load_checkpoint(checkpoint)["params"]
-            model.load_state_dict(state_dict_from_jax(tree, "facedet"), strict=True)
-        elif not allow_random:  # structural tests only may run random weights
+        if not (checkpoint and os.path.isfile(checkpoint)):
             # a random-weight detector silently finds nothing, which looks
             # like "no faces in this video": refuse
             raise FileNotFoundError(
                 f"face detector: no trained checkpoint at {checkpoint!r} "
                 f"(set GENCONVIT_FACEDET_CKPT or restore genconvit_tpu/assets/facedet.gcv)")
+        model = FaceDet()
+        tree = load_checkpoint(checkpoint)["params"]
+        model.load_state_dict(state_dict_from_jax(tree, "facedet"), strict=True)
         self.model = model.to(self.device).eval()
 
     @staticmethod

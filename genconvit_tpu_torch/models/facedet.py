@@ -6,7 +6,8 @@ on the device.
 (`blocks16`, strides 1,2,1,2,1) and 8x8 (`blocks8`, strides 2,1) feature
 maps, 2 + 6 anchors per cell (896 in all), each with a score, a center
 offset and a size. Decode and the greedy NMS run batched with static
-shapes. The detector runs in float32; its trained weights are the JAX
+shapes. The detector runs in float32, its convolutions in IEEE float32 on
+cuDNN too (TF32 off for the forward); its trained weights are the JAX
 package's `genconvit_tpu/assets/facedet.gcv` (data/faces.py reads it).
 Keys: stem, blocks16.{i}.dw/pw, blocks8.{i}.dw/pw, head16, head8
 (core/convert.py `state_dict_from_jax(tree, 'facedet')`).
@@ -15,6 +16,7 @@ Keys: stem, blocks16.{i}.dw/pw, blocks8.{i}.dw/pw, head16, head8
 from __future__ import annotations
 
 import functools
+import threading
 from typing import Tuple
 
 import numpy as np
@@ -32,6 +34,11 @@ _CH_8 = ((96, 96), (96, 96))
 TOP_K = 32            # NMS candidates per image
 OFFSET_SCALE = 0.1    # anchor center offsets, in units of the window
 SIZE_SCALE = 0.2      # box sizes: exp(clip(raw, -4, 2)) * SIZE_SCALE
+ALLOW_TF32 = False    # cuDNN's TF32 moves the scores by about 2e-2 against float32
+# torch.backends.cudnn.allow_tf32 is process-wide: one detector forward at a
+# time sets it and puts it back (other threads' float32 convolutions in that
+# window run in IEEE float32 too; bfloat16 ones are unaffected)
+_CUDNN_FLAG = threading.Lock()
 
 
 class SepBlock(nn.Module):
@@ -64,6 +71,15 @@ class FaceDet(nn.Module):
         """x: [N,3,128,128] in [-1, 1] -> raw anchor outputs [N,896,5]
         (score, dy, dx, log h, log w), anchors in the JAX package's order
         (cell row-major, then anchor)."""
+        with _CUDNN_FLAG:
+            prev = torch.backends.cudnn.allow_tf32
+            torch.backends.cudnn.allow_tf32 = ALLOW_TF32
+            try:
+                return self._anchors(x)
+            finally:
+                torch.backends.cudnn.allow_tf32 = prev
+
+    def _anchors(self, x: torch.Tensor) -> torch.Tensor:
         h = F.relu(self.stem(x))
         for blk in self.blocks16:
             h = blk(h)

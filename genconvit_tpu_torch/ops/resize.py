@@ -75,16 +75,6 @@ def _fallback_weights(in_size: int, out_size: int) -> np.ndarray:
     return _crop_area_fallback_weights(in_size, 0.0, float(in_size), out_size)
 
 
-def resize_weight_matrix(in_size: int, out_size: int, method: str = "area") -> np.ndarray:
-    if method == "area":
-        return _area_weights(in_size, out_size)
-    if method == "bilinear_torch":
-        return _bilinear_torch_weights(in_size, out_size)
-    if method == "bilinear":
-        return _bilinear_torch_weights(in_size, out_size, antialias=False)
-    raise ValueError(f"unknown resize method: {method}")
-
-
 def area_weights_pair(in_hw: Tuple[int, int], out_hw: Tuple[int, int]
                       ) -> Tuple[np.ndarray, np.ndarray]:
     """(wh [H, OH], ww [W, OW]) of cv2.resize INTER_AREA from in_hw to
@@ -158,15 +148,14 @@ def round_to_u8(x: torch.Tensor) -> torch.Tensor:
     return torch.round(x).clamp_(0, 255).to(torch.uint8)
 
 
-@functools.lru_cache(maxsize=4096)
-def _bilinear_torch_weights(in_size: int, out_size: int, antialias: bool = True
-                            ) -> np.ndarray:
+@functools.lru_cache(maxsize=64)
+def _bilinear_torch_weights(in_size: int, out_size: int) -> np.ndarray:
     """[in_size, out_size] PIL-style triangle-filter weights: the support
-    scales with the downscale factor (antialias); plain 2-tap lerp when
-    upscaling (align_corners=False mapping)."""
+    scales with the downscale factor; plain 2-tap lerp when upscaling
+    (align_corners=False mapping)."""
     scale = in_size / out_size
     w = np.zeros((in_size, out_size), dtype=np.float64)
-    if antialias and scale > 1.0:
+    if scale > 1.0:
         support = scale
         inv = 1.0 / scale
         for o in range(out_size):

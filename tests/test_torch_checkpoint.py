@@ -261,3 +261,5 @@ def test_config_refuses_what_is_not_ported():
         port_config.Config.from_dict({"model": {"vae_variant": "updated"}})
     with pytest.raises(ValueError):
         port_config.parse_yaml("model:\n  - a\n")
+    with pytest.raises(ValueError, match="escape"):
+        port_config.parse_yaml('weight_dir: "a\\tb"\n')

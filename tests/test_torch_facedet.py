@@ -68,6 +68,24 @@ def test_forward_and_decode_match_facedet_apply(nets):
     np.testing.assert_allclose(b.numpy(), np.asarray(jb), rtol=0, atol=FWD_TOL)
 
 
+@pytest.mark.parametrize("flag", [True, False])
+def test_forward_runs_without_tf32_and_restores_the_flag(nets, flag, monkeypatch):
+    """cuDNN's TF32 flag is process-wide and on by default: the detector's
+    forward turns it off for its own convolutions and puts it back."""
+    model, _ = nets
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", flag)
+    inside = []
+    hook = model.stem.register_forward_hook(
+        lambda *_: inside.append(torch.backends.cudnn.allow_tf32))
+    try:
+        with torch.no_grad():
+            model(torch.zeros(1, 3, 128, 128))
+    finally:
+        hook.remove()
+    assert inside == [False]
+    assert torch.backends.cudnn.allow_tf32 is flag
+
+
 @pytest.mark.parametrize("score_thresh", [0.0, 0.05, 0.3])
 @pytest.mark.parametrize("max_out", [1, 4])
 def test_nms_equals_jax(score_thresh, max_out):

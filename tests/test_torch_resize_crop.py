@@ -42,8 +42,9 @@ def test_resize_area_matches_jax_and_cv2(in_hw, out_hw):
 
 @pytest.mark.parametrize("in_size,out_size", [(120, 48), (48, 64), (1080, 128), (7, 3)])
 def test_weight_matrices_equal_jax(in_size, out_size):
-    for method in ("area", "bilinear_torch", "bilinear"):
-        np.testing.assert_array_equal(resize.resize_weight_matrix(in_size, out_size, method),
+    for method, port in (("area", resize._area_weights),
+                         ("bilinear_torch", resize._bilinear_torch_weights)):
+        np.testing.assert_array_equal(port(in_size, out_size),
                                       jax_resize.resize_weight_matrix(in_size, out_size, method))
     for lo, hi in ((0, in_size), (1, in_size - 1), (in_size // 3, in_size // 3 + 5)):
         for fb in (False, True):
