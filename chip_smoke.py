@@ -127,8 +127,8 @@ Phases (any failed check raises and the exit code is non-zero):
      5 (max|dy_val| <= 2e-2, 4e-2 with the int8 tails). It runs after
      phase 5.
 
-  11. the video-to-verdict path (it runs last): (a) seeded random ED and VAE
-     weights at full size (convnext_tiny, 224 px, the real 25088x12544
+  11. the video-to-verdict path (it runs after phase 9): (a) seeded random
+     ED and VAE weights at full size (convnext_tiny, 224 px, the real 25088x12544
      heads, layer scale and heads' last layer as in phase 5) written by the
      port's writers, the ED as a `.gcv` nested under 'ed', the VAE as a
      reference-keyed `.pth` with the dead groups added and as a `.gcv`
@@ -170,6 +170,36 @@ Phases (any failed check raises and the exit code is non-zero):
      phase runs without cv2 or FFmpeg, the decode of the file paths,
      `engine.extract_frames`, is substituted for the
      whole phase by an in-memory source of the seeded frames.
+
+  12. the serving path and the remaining entry points (it runs after phase
+     11, on its weights, read by name from the same directory, and its
+     corpus; convnext_tiny, 224 px, full width and depth, the default plan,
+     deterministic VAE; `engine.extract_frames` substituted for the whole
+     phase by the corpus in memory, each request body and placeholder file
+     holding the name of the video it stands for): (a) `serve.make_handler`
+     under ThreadingHTTPServer on 127.0.0.1:0 in each mode, 'staged'
+     (StagedPipeline, greedy drain), 'micro' (MicroBatcher, 8 ms window) and
+     'none' (the lock): 64 POSTs (the eight face videos eight times under
+     aliased names) at concurrency 8, each 200 response's pred within 2e-3
+     of `predict_video` on the same video and its y the same where that
+     verdict is decisive; the zero-face video (0, 0.5) with faces_found 0,
+     the failed decode a 500 naming it, an empty body 400, a garbage body
+     500, an unknown path 404, /healthz 200; /statz in 'staged' and 'micro':
+     videos_scored 64, device_launches below that, one launch of two videos
+     or more; in every mode exactly 54 K1 + 3 K2 launches per forward,
+     counted from 0 before the 64 requests; requests/s, p50 and p95 latency,
+     launches and videos per launch; the planted fault (a staged pipeline
+     that hands each drain's results out in reverse order) refused; (b)
+     `predict_videos_stream` over four [8,15,224,224,3] batches equals
+     `predict_videos_batched` on each, bit for bit, timed against the four
+     calls one after the other; (c) `prediction_v2.main` in-process over
+     placeholder files named with and without "fake", recorded boxes: the
+     JAX package's result keys, the metrics block (no sklearn loaded), and
+     the verdicts of the `prediction` CLI on the same files; (d) evaluate's
+     `score_batches` over 64 seeded 224 px face images of an ImageFolder of
+     placeholders (`folder.load_image` substituted) at batch 32: P(class 1)
+     within 2e-2 of the port's float32 plain path (TF32 off), the report
+     printed; peak device memory.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Without CUDA it exits non-zero at once.
@@ -2318,13 +2348,13 @@ def planted_assembly_faults(torch, pred, corpus: dict, names: list, dev) -> list
     return refused
 
 
-def phase_video(torch, np, dev, card: str) -> dict:
+def phase_video(torch, np, dev, card: str, tmp: str) -> dict:
     """Phase 11: the video-to-verdict path on the card (see the module
     docstring). So that it runs without cv2 or FFmpeg, the drivers' decode,
     `engine.extract_frames`, is substituted by an in-memory source of the
-    seeded frames for the whole phase (and put back after)."""
+    seeded frames for the whole phase (and put back after). The weights go
+    to `tmp`, where phase 12 reads them."""
     import os
-    import tempfile
 
     from genconvit_tpu_torch import prediction
     from genconvit_tpu_torch.data.faces import make_detector
@@ -2350,118 +2380,522 @@ def phase_video(torch, np, dev, card: str) -> dict:
     env = os.environ.get("GENCONVIT_FACE_SIDECAR")
     out = {}
     try:
-        with tempfile.TemporaryDirectory(prefix="gcv_video_") as tmp:
-            w = video_weights(torch, dev, tmp)
+        w = video_weights(torch, dev, tmp)
+        t = time.perf_counter()
+        pred = engine.Predictor(backbone_config("convnext_tiny"), device=dev,
+                                ed_weight=w["paths"]["ed"], vae_weight=w["paths"]["vae_pth"],
+                                face_backend="jax", deterministic_vae=True)
+        torch.cuda.synchronize()
+        log(f"video [weights]: Predictor(ed_weight=.gcv, vae_weight=.pth) "
+            f"{time.perf_counter() - t:.2f} s, detector {type(pred.detector).__name__}")
+        check_loaded(torch, pred, w["sd"])
+        log("video [weights]: the Predictor's tensors equal the written ones cast to bf16")
+        os.remove(w["paths"]["vae_pth"])   # one 2.5 GB file on disk at a time
+        video_chunked_vae(torch, w["sd"]["vae"], w["paths"]["vae"])
+        side = os.path.join(tmp, "boxes.json")
+        with open(side, "w") as f:
+            json.dump(sidecar_boxes(corpus), f)
+        names = sorted(corpus) + ["broken.mp4"]
+        for backend in ("jax", "recorded", "center"):
+            pred.detector = make_detector(backend, device=dev, **(
+                {"sidecar_path": side} if backend == "recorded" else {}))
+            kcuda.reset_launch_counts()
+            seen = capture_launches(pred)
             t = time.perf_counter()
-            pred = engine.Predictor(backbone_config("convnext_tiny"), device=dev,
-                                    ed_weight=w["paths"]["ed"], vae_weight=w["paths"]["vae_pth"],
-                                    face_backend="jax", deterministic_vae=True)
-            torch.cuda.synchronize()
-            log(f"video [weights]: Predictor(ed_weight=.gcv, vae_weight=.pth) "
-                f"{time.perf_counter() - t:.2f} s, detector {type(pred.detector).__name__}")
-            check_loaded(torch, pred, w["sd"])
-            log("video [weights]: the Predictor's tensors equal the written ones cast to bf16")
-            os.remove(w["paths"]["vae_pth"])   # one 2.5 GB file on disk at a time
-            video_chunked_vae(torch, w["sd"]["vae"], w["paths"]["vae"])
-            side = os.path.join(tmp, "boxes.json")
-            with open(side, "w") as f:
-                json.dump(sidecar_boxes(corpus), f)
-            names = sorted(corpus) + ["broken.mp4"]
-            for backend in ("jax", "recorded", "center"):
-                pred.detector = make_detector(backend, device=dev, **(
-                    {"sidecar_path": side} if backend == "recorded" else {}))
-                kcuda.reset_launch_counts()
-                seen = capture_launches(pred)
-                t = time.perf_counter()
-                try:
-                    res = dict(pred.predict_files(names, FRAMES, video_batch=VIDEO_BATCH))
-                finally:
-                    del pred.forward_batched
-                dt = time.perf_counter() - t
-                if res["broken.mp4"] is not None:
-                    raise AssertionError(f"[{backend}] the failed decode gave {res['broken.mp4']}")
-                scored = [n for n in names if res[n] not in (None, DEFAULT_VERDICT)]
-                fwd = count_forwards(kcuda, f"predict_files [{backend}]", len(scored))
-                ys = np.array([res[n][0] for n in scored])
-                vals = np.array([res[n][1] for n in scored], np.float64)
-                check_verdicts(np, ys, vals, len(scored))
-                log(f"video [{backend}]: predict_files of {len(names)} videos {dt:.2f} s, "
-                    f"{len(scored)} scored in {fwd} forwards (54 K1 + 3 K2 each), verdicts "
-                    f"{[(n, res[n]) for n in names]} [{card}]")
-                if backend == "recorded":
-                    if res["zero_faces.mp4"] != DEFAULT_VERDICT:
-                        raise AssertionError(f"zero faces gave {res['zero_faces.mp4']}")
-                    worst = check_recorded(torch, pred, corpus, res, seen, dev)
-                    refused = planted_assembly_faults(torch, pred, corpus, names, dev)
-                    log(f"video [recorded]: each verdict is its own launch row's (its crops within "
-                        f"1 LSB, its mask exact); vs predict_faces on its crops max|dy_val| "
-                        f"{worst:.3e} (limit {RECORDED_TOL}); planted assembly faults refused: "
-                        f"{refused} [{card}]")
-                if backend == "jax":
-                    fired = [sum(bool(b) for b in boxes) for boxes in pred.detector.detect_many(
-                        [corpus[n] for n in sorted(corpus)])]
-                    log(f"video [jax]: frames in which the detector fired, per video "
-                        f"{dict(zip(sorted(corpus), fired))} of {FRAMES} (synthetic frames: "
-                        f"printed, not checked)")
-                    video_detect_many(torch, np, pred.detector, corpus, card)
-            # f. timings: the device detector's path again, warm, decode excluded:
-            # the eight face videos TIMED_COPIES times, TIMED_RUNS runs
-            pred.detector = make_detector("jax", device=dev)
-            copies = {f"c{k}_{n}": n for k in range(TIMED_COPIES) for n in sorted(corpus)
-                      if not n.startswith("zero")}
-            alias.update(copies)
-            paths = list(copies)   # each group of eight holds the eight videos once
-            torch.cuda.reset_peak_memory_stats(dev)
-            runs = []
-            for _ in range(TIMED_RUNS):
-                pred.timers.reset()
-                t = time.perf_counter()
-                got = pred.predict_files(paths, FRAMES, video_batch=VIDEO_BATCH)
-                dt = time.perf_counter() - t
-                if any(v is None for _, v in got):
-                    raise AssertionError("the timed run lost a video")
-                runs.append((len(paths) / dt, dt, pred.timers.summary()))
-                log(f"video [timing]: predict_files 'jax' over {len(paths)} videos in "
-                    f"{len(paths) // VIDEO_BATCH} groups of {VIDEO_BATCH}: {runs[-1][0]:.2f} "
-                    f"videos/s ({dt:.3f} s), stages {runs[-1][2]} [{card}]")
-            rates = sorted(r[0] for r in runs)
-            med = sorted(runs, key=lambda r: r[0])[len(runs) // 2]
-            out["videos_s"], out["spread"], out["stages"] = med[0], (rates[0], rates[-1]), med[2]
-            out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
-            log(f"video [timing]: predict_files 'jax' at video_batch={VIDEO_BATCH}, {len(paths)} "
-                f"videos (the eight {TIMED_COPIES} times, decode substituted by memory), "
-                f"{TIMED_RUNS} runs: median {out['videos_s']:.2f} videos/s, min {rates[0]:.2f}, "
-                f"max {rates[-1]:.2f}; the median run's stages {out['stages']}; peak device "
-                f"memory {out['peak_gib']:.2f} GiB [{card}]")
-            paths = sorted(corpus)[:VIDEO_BATCH]
-            out["detect_split"] = detect_split(torch, np, pred.detector,
-                                               [corpus[n] for n in paths], dev)
-            log(f"video [timing]: the device detector on those {len(paths)} videos, ms: "
-                f"{out['detect_split']} (uploads, window crops, detect_batch passes, each "
-                f"synchronized; boxes fetched; candidates and merge on the host) [{card}]")
-            del pred
-            torch.cuda.empty_cache()
-            # e. the CLI in-process: weights resolved by name in --weights-dir
-            vdir = os.path.join(tmp, "videos")
-            os.makedirs(vdir)
-            for n in names:
-                open(os.path.join(vdir, n), "wb").close()
-            t = time.perf_counter()
-            path = prediction.main(["--p", vdir, "--f", str(FRAMES), "--face-backend", "recorded",
-                                    "--face-sidecar", side, "--weights-dir", tmp,
-                                    "--result-dir", os.path.join(tmp, "result")])
+            try:
+                res = dict(pred.predict_files(names, FRAMES, video_batch=VIDEO_BATCH))
+            finally:
+                del pred.forward_batched
             dt = time.perf_counter() - t
-            with open(path) as f:
-                result = json.load(f)
-            keys = {"name", "pred", "klass", "pred_label", "correct_label"}
-            meta = {"dataset", "network", "num_frames", "runtime_seconds", "timestamp", "framework"}
-            if set(result) != {"video", "metadata"} or set(result["video"]) != keys \
-                    or set(result["metadata"]) != meta or result["video"]["name"] != sorted(names):
-                raise AssertionError(f"CLI result: keys {sorted(result)}, video "
-                                     f"{sorted(result['video'])}, names {result['video']['name']}")
-            log(f"video [CLI]: prediction.main over {len(names)} placeholder files {dt:.2f} s "
-                f"(weights resolved by name: ed .gcv, vae chunked .gcv), labels "
-                f"{result['video']['pred_label']} [{card}]")
+            if res["broken.mp4"] is not None:
+                raise AssertionError(f"[{backend}] the failed decode gave {res['broken.mp4']}")
+            scored = [n for n in names if res[n] not in (None, DEFAULT_VERDICT)]
+            fwd = count_forwards(kcuda, f"predict_files [{backend}]", len(scored))
+            ys = np.array([res[n][0] for n in scored])
+            vals = np.array([res[n][1] for n in scored], np.float64)
+            check_verdicts(np, ys, vals, len(scored))
+            log(f"video [{backend}]: predict_files of {len(names)} videos {dt:.2f} s, "
+                f"{len(scored)} scored in {fwd} forwards (54 K1 + 3 K2 each), verdicts "
+                f"{[(n, res[n]) for n in names]} [{card}]")
+            if backend == "recorded":
+                if res["zero_faces.mp4"] != DEFAULT_VERDICT:
+                    raise AssertionError(f"zero faces gave {res['zero_faces.mp4']}")
+                worst = check_recorded(torch, pred, corpus, res, seen, dev)
+                refused = planted_assembly_faults(torch, pred, corpus, names, dev)
+                log(f"video [recorded]: each verdict is its own launch row's (its crops within "
+                    f"1 LSB, its mask exact); vs predict_faces on its crops max|dy_val| "
+                    f"{worst:.3e} (limit {RECORDED_TOL}); planted assembly faults refused: "
+                    f"{refused} [{card}]")
+            if backend == "jax":
+                fired = [sum(bool(b) for b in boxes) for boxes in pred.detector.detect_many(
+                    [corpus[n] for n in sorted(corpus)])]
+                log(f"video [jax]: frames in which the detector fired, per video "
+                    f"{dict(zip(sorted(corpus), fired))} of {FRAMES} (synthetic frames: "
+                    f"printed, not checked)")
+                video_detect_many(torch, np, pred.detector, corpus, card)
+        # f. timings: the device detector's path again, warm, decode excluded:
+        # the eight face videos TIMED_COPIES times, TIMED_RUNS runs
+        pred.detector = make_detector("jax", device=dev)
+        copies = {f"c{k}_{n}": n for k in range(TIMED_COPIES) for n in sorted(corpus)
+                  if not n.startswith("zero")}
+        alias.update(copies)
+        paths = list(copies)   # each group of eight holds the eight videos once
+        torch.cuda.reset_peak_memory_stats(dev)
+        runs = []
+        for _ in range(TIMED_RUNS):
+            pred.timers.reset()
+            t = time.perf_counter()
+            got = pred.predict_files(paths, FRAMES, video_batch=VIDEO_BATCH)
+            dt = time.perf_counter() - t
+            if any(v is None for _, v in got):
+                raise AssertionError("the timed run lost a video")
+            runs.append((len(paths) / dt, dt, pred.timers.summary()))
+            log(f"video [timing]: predict_files 'jax' over {len(paths)} videos in "
+                f"{len(paths) // VIDEO_BATCH} groups of {VIDEO_BATCH}: {runs[-1][0]:.2f} "
+                f"videos/s ({dt:.3f} s), stages {runs[-1][2]} [{card}]")
+        rates = sorted(r[0] for r in runs)
+        med = sorted(runs, key=lambda r: r[0])[len(runs) // 2]
+        out["videos_s"], out["spread"], out["stages"] = med[0], (rates[0], rates[-1]), med[2]
+        out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+        log(f"video [timing]: predict_files 'jax' at video_batch={VIDEO_BATCH}, {len(paths)} "
+            f"videos (the eight {TIMED_COPIES} times, decode substituted by memory), "
+            f"{TIMED_RUNS} runs: median {out['videos_s']:.2f} videos/s, min {rates[0]:.2f}, "
+            f"max {rates[-1]:.2f}; the median run's stages {out['stages']}; peak device "
+            f"memory {out['peak_gib']:.2f} GiB [{card}]")
+        paths = sorted(corpus)[:VIDEO_BATCH]
+        out["detect_split"] = detect_split(torch, np, pred.detector,
+                                           [corpus[n] for n in paths], dev)
+        log(f"video [timing]: the device detector on those {len(paths)} videos, ms: "
+            f"{out['detect_split']} (uploads, window crops, detect_batch passes, each "
+            f"synchronized; boxes fetched; candidates and merge on the host) [{card}]")
+        del pred
+        torch.cuda.empty_cache()
+        # e. the CLI in-process: weights resolved by name in --weights-dir
+        vdir = os.path.join(tmp, "videos")
+        os.makedirs(vdir)
+        for n in names:
+            open(os.path.join(vdir, n), "wb").close()
+        t = time.perf_counter()
+        path = prediction.main(["--p", vdir, "--f", str(FRAMES), "--face-backend", "recorded",
+                                "--face-sidecar", side, "--weights-dir", tmp,
+                                "--result-dir", os.path.join(tmp, "result")])
+        dt = time.perf_counter() - t
+        with open(path) as f:
+            result = json.load(f)
+        keys = {"name", "pred", "klass", "pred_label", "correct_label"}
+        meta = {"dataset", "network", "num_frames", "runtime_seconds", "timestamp", "framework"}
+        if set(result) != {"video", "metadata"} or set(result["video"]) != keys \
+                or set(result["metadata"]) != meta or result["video"]["name"] != sorted(names):
+            raise AssertionError(f"CLI result: keys {sorted(result)}, video "
+                                 f"{sorted(result['video'])}, names {result['video']['name']}")
+        log(f"video [CLI]: prediction.main over {len(names)} placeholder files {dt:.2f} s "
+            f"(weights resolved by name: ed .gcv, vae chunked .gcv), labels "
+            f"{result['video']['pred_label']} [{card}]")
+    finally:
+        engine.extract_frames = decode
+        if env is None:
+            os.environ.pop("GENCONVIT_FACE_SIDECAR", None)
+        else:
+            os.environ["GENCONVIT_FACE_SIDECAR"] = env
+    out["corpus"] = corpus
+    return out
+
+
+# ---------------------------------------------------------------- phase 12
+
+SERVE_MODES = (("staged", 0.0), ("micro", 8.0), ("none", None))   # (--batcher, window ms)
+SERVE_TOL = 2e-3     # a served verdict vs predict_video on the same video: the same bf16
+                     # path, only the batch differs (RECORDED_TOL's bound)
+SERVE_COPIES = 8     # each mode scores the eight face videos this many times,
+SERVE_CONCURRENCY = 8  # eight requests at a time
+HTTP_TIMEOUT = 120
+STREAM_BATCHES = 4
+EVAL_IMAGES = 64
+EVAL_BATCH = 32
+
+
+def http_call(url: str, data=None) -> tuple:
+    """(status, JSON body) of one GET (data None) or POST to the local
+    server, with no proxy and a timeout."""
+    import urllib.error
+    import urllib.request
+
+    opener = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+    req = urllib.request.Request(url, data=data, method="GET" if data is None else "POST")
+    try:
+        with opener.open(req, timeout=HTTP_TIMEOUT) as r:
+            return r.status, json.load(r)
+    except urllib.error.HTTPError as e:
+        with e:
+            return e.code, json.load(e)
+
+
+def drive_server(url: str, bodies: list) -> tuple:
+    """POST each body, SERVE_CONCURRENCY at a time: ([(status, JSON,
+    seconds)] in order, wall seconds)."""
+    import concurrent.futures as cf
+
+    def one(body):
+        t = time.perf_counter()
+        code, js = http_call(url + "/predict", body)
+        return code, js, time.perf_counter() - t
+
+    t = time.perf_counter()
+    with cf.ThreadPoolExecutor(max_workers=SERVE_CONCURRENCY) as ex:
+        res = list(ex.map(one, bodies))
+    return res, time.perf_counter() - t
+
+
+def check_served(names: list, res: list, ref: dict) -> float:
+    """Each response is 200 with faces, its pred within SERVE_TOL of
+    predict_video on the same video and its y the same wherever that
+    verdict is decisive. Returns max|d pred|."""
+    worst, bad = 0.0, []
+    for name, (code, js, _) in zip(names, res):
+        y, y_val = ref[name]
+        if code != 200 or js.get("faces_found", 0) <= 0:
+            bad.append((name, code, js))
+            continue
+        d = abs(js["pred"] - y_val)
+        worst = max(worst, d)
+        if d > SERVE_TOL or (abs(y_val - 0.5) > SERVE_TOL and js["y"] != y):
+            bad.append((name, js["y"], js["pred"], ref[name]))
+    if bad:
+        raise AssertionError(f"{len(bad)} of {len(names)} served verdicts differ from "
+                             f"predict_video: {bad[:3]}")
+    return worst
+
+
+class LocalServer:
+    """`serve.make_handler` under ThreadingHTTPServer on 127.0.0.1:0 in a
+    thread, in one mode; shut down with its batching stage on exit."""
+
+    def __init__(self, pred, mode: str, window_ms):
+        from genconvit_tpu_torch import serve
+        from genconvit_tpu_torch.infer.batcher import MicroBatcher
+        from genconvit_tpu_torch.infer.serve_pipeline import StagedPipeline
+
+        self.batcher = (MicroBatcher(pred, FRAMES, window_ms=window_ms, max_batch=VIDEO_BATCH)
+                        if mode == "micro" else None)
+        self.pipeline = (StagedPipeline(pred, FRAMES, max_batch=VIDEO_BATCH, window_ms=window_ms)
+                         if mode == "staged" else None)
+        self.handler = serve.make_handler(pred, FRAMES, self.batcher, self.pipeline)
+
+    def __enter__(self) -> str:
+        import threading
+        from http.server import ThreadingHTTPServer
+
+        self.srv = ThreadingHTTPServer(("127.0.0.1", 0), self.handler)
+        self.thread = threading.Thread(target=self.srv.serve_forever, daemon=True)
+        self.thread.start()
+        return f"http://127.0.0.1:{self.srv.server_port}"
+
+    def __exit__(self, *exc) -> None:
+        self.srv.shutdown()
+        self.srv.server_close()
+        self.thread.join(timeout=30)
+        for stage in (self.batcher, self.pipeline):
+            if stage is not None:
+                stage.close()
+        if self.thread.is_alive():
+            raise AssertionError("the server thread did not stop")
+
+
+def serve_modes(torch, np, pred, card: str, ref: dict, aliases: dict) -> dict:
+    """12a: the server in each mode; then the planted reverse-order fault."""
+    from genconvit_tpu_torch.ops import cuda as kcuda
+
+    names = list(aliases)            # the eight videos, eight times, k-major
+    bodies = [n.encode() for n in names]
+    want = [aliases[n] for n in names]
+    out = {}
+    for mode, window in SERVE_MODES:
+        with LocalServer(pred, mode, window) as url:
+            kcuda.reset_launch_counts()
+            pred.timers.reset()
+            seen = capture_launches(pred)
+            try:
+                res, wall = drive_server(url, bodies)
+            finally:
+                del pred.forward_batched
+            counts = kcuda.launch_counts()
+            stages = {k: (v["total_seconds"], v["count"]) for k, v in pred.timers.summary().items()}
+            statz = http_call(url + "/statz")[1]
+            worst = check_served(want, res, ref)
+            fwd = len(seen)
+            widths = [int(f.shape[0]) for f, _, _ in seen]
+            if counts["ln_mlp_residual"] != 54 * fwd or counts["layer_norm_rows"] != 3 * fwd or any(
+                    v for k, v in counts.items() if k not in ("ln_mlp_residual", "layer_norm_rows")):
+                raise AssertionError(f"[{mode}] launches {counts}, want {fwd} forwards of 54 K1 + 3 K2")
+            if mode == "none":
+                if statz != {"mode": "lock-serialized"} or fwd != len(names):
+                    raise AssertionError(f"[none] /statz {statz}, {fwd} forwards for {len(names)}")
+            elif (statz["mode"] != ("staged" if mode == "staged" else "micro-batched")
+                  or statz["videos_scored"] != len(names) or statz["device_launches"] != fwd
+                  or not fwd < len(names) or max(widths) < 2 or sum(widths) != len(names)):
+                raise AssertionError(f"[{mode}] /statz {statz}, launch widths {widths}")
+            extra = {"zero faces": http_call(url + "/predict", b"zero_faces.mp4"),
+                     "failed decode": http_call(url + "/predict", b"broken.mp4"),
+                     "empty body": http_call(url + "/predict", b""),
+                     "garbage body": http_call(url + "/predict", bytes(range(256)) * 4),
+                     "unknown path": http_call(url + "/nope"),
+                     "unknown POST": http_call(url + "/nope", b"x"),
+                     "healthz": http_call(url + "/healthz")}
+        zero = extra["zero faces"]
+        if zero[0] != 200 or (zero[1]["y"], zero[1]["pred"], zero[1]["faces_found"]) != (0, 0.5, 0):
+            raise AssertionError(f"[{mode}] zero faces: {zero}")
+        if extra["failed decode"][0] != 500 or "broken.mp4" not in extra["failed decode"][1]["error"]:
+            raise AssertionError(f"[{mode}] failed decode: {extra['failed decode']}")
+        codes = {k: extra[k][0] for k in ("empty body", "garbage body", "unknown path",
+                                           "unknown POST", "healthz")}
+        if codes != {"empty body": 400, "garbage body": 500, "unknown path": 404,
+                     "unknown POST": 404, "healthz": 200}:
+            raise AssertionError(f"[{mode}] status codes {codes}")
+        lat = np.array([s for _, _, s in res]) * 1e3
+        out[mode] = {"rps": len(names) / wall, "p50_ms": float(np.percentile(lat, 50)),
+                     "p95_ms": float(np.percentile(lat, 95)), "launches": fwd,
+                     "per_launch": len(names) / fwd, "widths": widths, "worst": worst,
+                     "stages": stages}
+        r = out[mode]
+        log(f"serve [{mode}]: {len(names)} requests at concurrency {SERVE_CONCURRENCY}: "
+            f"{r['rps']:.2f} requests/s ({wall:.3f} s), latency p50 {r['p50_ms']:.1f} ms, p95 "
+            f"{r['p95_ms']:.1f} ms; {fwd} device launches ({r['per_launch']:.2f} videos a launch, "
+            f"widths {widths}); {counts['ln_mlp_residual']} K1 + {counts['layer_norm_rows']} K2; "
+            f"StageTimers (seconds summed over threads, count) {stages}; "
+            f"max|d pred| vs predict_video {worst:.3e} (limit {SERVE_TOL}); /statz {statz}; "
+            f"zero faces {zero[1]}, failed decode 500 '{extra['failed decode'][1]['error']}', "
+            f"codes {codes} [{card}]")
+    # the planted fault: a staged pipeline that hands each drain's results
+    # out in reverse order (a 30 ms window, so that drains hold several videos)
+    launch = pred._launch
+    pred._launch = lambda faces, masks, vb: launch(faces, masks, vb).flip(1)
+    try:
+        with LocalServer(pred, "staged", 30.0) as url:
+            res, _ = drive_server(url, bodies[:2 * VIDEO_BATCH])
+    finally:
+        del pred._launch
+    try:
+        check_served(want[:2 * VIDEO_BATCH], res, ref)
+    except AssertionError as e:
+        log(f"serve [planted]: results handed out in reverse order refused: {str(e)[:160]}")
+    else:
+        raise AssertionError("the planted fault (a drain's results reversed) passed the check")
+    return out
+
+
+def serve_stream(torch, np, pred, card: str) -> dict:
+    """12b: predict_videos_stream over STREAM_BATCHES [8,15,224,224,3]
+    batches equals predict_videos_batched on each, bit for bit; timed
+    against the four calls one after the other."""
+    from genconvit_tpu_torch.ops import cuda as kcuda
+
+    rng = np.random.default_rng(12)
+    batches = []
+    for _ in range(STREAM_BATCHES):
+        mask = np.ones((VIDEO_BATCH, FRAMES), np.float32)
+        mask[1, 9:] = 0
+        batches.append((rng.integers(0, 256, (VIDEO_BATCH, FRAMES, IMG, IMG, 3), np.uint8), mask))
+    kcuda.reset_launch_counts()
+    got = pred.predict_videos_stream(iter(batches))
+    counts = kcuda.launch_counts()
+    if counts["ln_mlp_residual"] != 54 * STREAM_BATCHES or counts["layer_norm_rows"] != 3 * STREAM_BATCHES:
+        raise AssertionError(f"stream launches {counts}")
+    for i, ((gy, gv), (f, m)) in enumerate(zip(got, batches, strict=True)):
+        wy, wv = pred.predict_videos_batched(f, m)
+        if not (np.array_equal(gy, wy) and np.array_equal(gv, wv)):
+            raise AssertionError(f"stream batch {i}: {gy.tolist()} {gv.tolist()} vs batched "
+                                 f"{wy.tolist()} {wv.tolist()}")
+    times = {"stream": [], "sequential": []}
+    for _ in range(2):   # stream, sequential, stream, sequential
+        for kind in times:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            if kind == "stream":
+                pred.predict_videos_stream(iter(batches))
+            else:
+                for f, m in batches:
+                    pred.predict_videos_batched(f, m)
+            times[kind].append((time.perf_counter() - t) * 1e3)
+    log(f"serve [stream]: predict_videos_stream over {STREAM_BATCHES} batches of "
+        f"[{VIDEO_BATCH},{FRAMES},{IMG},{IMG},3] "
+        f"equals predict_videos_batched on each, bit for bit; {counts['ln_mlp_residual']} K1 + "
+        f"{counts['layer_norm_rows']} K2; ms, stream {[round(t, 2) for t in times['stream']]} "
+        f"against {STREAM_BATCHES} predict_videos_batched calls "
+        f"{[round(t, 2) for t in times['sequential']]} [{card}]")
+    return times
+
+
+def serve_prediction_v2(np, tmp: str, corpus: dict, card: str) -> None:
+    """12c: prediction_v2.main in-process over placeholder files named with
+    and without 'fake', recorded boxes: the JAX package's result keys and a
+    metrics block computed with no sklearn; its verdicts are the
+    `prediction` CLI's on the same files."""
+    import os
+
+    from genconvit_tpu_torch import prediction, prediction_v2
+    from genconvit_tpu_torch.infer.result import compute_metrics
+
+    vdir = os.path.join(tmp, "v2")
+    os.makedirs(vdir)
+    boxes = sidecar_boxes(corpus)
+    side = {}
+    for i, n in enumerate(sorted(corpus) + ["broken.mp4"]):
+        fname = f"fake_{n}" if i % 2 == 0 else n
+        with open(os.path.join(vdir, fname), "w") as f:
+            f.write(n)
+        side[fname] = boxes.get(n, [])
+    side_path = os.path.join(tmp, "boxes_v2.json")
+    with open(side_path, "w") as f:
+        json.dump(side, f)
+    os.environ["GENCONVIT_FACE_SIDECAR"] = side_path
+    t = time.perf_counter()
+    path = prediction_v2.main(["--p", vdir, "--f", str(FRAMES), "--face-backend", "recorded",
+                               "--weights-dir", tmp, "--result-dir", os.path.join(tmp, "result_v2")])
+    dt = time.perf_counter() - t
+    if "sklearn" in sys.modules:
+        raise AssertionError("prediction_v2 loaded sklearn")
+    with open(path) as f:
+        result = json.load(f)
+    meta = {"dataset", "network", "num_frames", "runtime_seconds", "timestamp", "framework",
+            "arch_type", "model_size", "stage_timers"}
+    video = result["video"]
+    if set(result) != {"video", "metrics", "metadata"} or set(result["metadata"]) != meta \
+            or set(video) != {"name", "pred", "klass", "pred_label", "correct_label"} \
+            or set(result["metrics"]) != {"accuracy", "precision", "recall", "f1"}:
+        raise AssertionError(f"prediction_v2 result keys: {sorted(result)}, "
+                             f"{sorted(result.get('metadata', {}))}, {sorted(video)}")
+    labels = ["FAKE" if "fake" in n.lower() else "REAL" for n in video["name"]]
+    y_true = [int(c == "FAKE") for c in video["correct_label"]]
+    y_pred = [int(c == "FAKE") for c in video["pred_label"]]
+    if video["correct_label"] != labels or result["metrics"] != compute_metrics(y_true, y_pred):
+        raise AssertionError(f"prediction_v2 labels {video['correct_label']} (want {labels}), "
+                             f"metrics {result['metrics']}")
+    path1 = prediction.main(["--p", vdir, "--f", str(FRAMES), "--face-backend", "recorded",
+                             "--face-sidecar", side_path, "--weights-dir", tmp,
+                             "--result-dir", os.path.join(tmp, "result_v1")])
+    with open(path1) as f:
+        v1 = json.load(f)["video"]
+    if v1["name"] != video["name"] or v1["pred"] != video["pred"] \
+            or v1["pred_label"] != video["pred_label"]:
+        raise AssertionError(f"prediction_v2 verdicts {list(zip(video['name'], video['pred']))} "
+                             f"!= prediction's {v1['pred']}")
+    log(f"serve [prediction_v2]: main over {len(video['name'])} placeholder files {dt:.2f} s, "
+        f"no sklearn loaded; metrics {result['metrics']}; verdicts equal the prediction CLI's "
+        f"{list(zip(video['name'], video['pred']))} [{card}]")
+
+
+def serve_evaluate(torch, np, dev, pred, tmp: str, card: str) -> dict:
+    """12d: evaluate's scoring over EVAL_IMAGES seeded 224 px face images in
+    an ImageFolder of placeholder files (`folder.load_image` substituted by
+    memory), at batch EVAL_BATCH: P(class 1) within YVAL_TOL of the port's
+    float32 plain path on the same weights (TF32 off); the report."""
+    import os
+
+    from genconvit_tpu_torch import evaluate
+    from genconvit_tpu_torch.data import folder
+    from genconvit_tpu_torch.infer import engine
+    from genconvit_tpu_torch.ops import cuda as kcuda
+
+    rng = np.random.default_rng(13)
+    edir = os.path.join(tmp, "eval", "test")
+    images = {}
+    for cls in ("fake", "real"):
+        os.makedirs(os.path.join(edir, cls))
+        for i in range(EVAL_IMAGES // 2):
+            path = os.path.join(edir, cls, f"{i:02d}.png")
+            open(path, "wb").close()
+            images[path] = draw_faces(np, rng, 1, IMG, IMG)[0]
+    load = folder.load_image
+    folder.load_image = lambda path, img_size=None: images[path]
+    try:
+        ds = folder.FolderDataset(edir, IMG)
+        kcuda.reset_launch_counts()
+        t = time.perf_counter()
+        y_true, p16 = evaluate.score_batches(pred, ds.batches(EVAL_BATCH))
+        dt = time.perf_counter() - t
+        counts = kcuda.launch_counts()
+        fwd = -(-EVAL_IMAGES // EVAL_BATCH)
+        if counts["ln_mlp_residual"] != 54 * fwd or counts["layer_norm_rows"] != 3 * fwd:
+            raise AssertionError(f"evaluate launches {counts}, want {fwd} forwards of 54 K1 + 3 K2")
+        cfg = backbone_config("convnext_tiny")
+        cfg.weight_dir = tmp
+        p32 = engine.Predictor(cfg, device=dev, dtype=torch.float32, deterministic_vae=True,
+                               face_backend="center")
+        tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            y32, ref = evaluate.score_batches(p32, ds.batches(EVAL_BATCH))
+        finally:
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+        del p32
+        torch.cuda.empty_cache()
+    finally:
+        folder.load_image = load
+    dp = float(np.abs(p16 - ref).max())
+    if not (np.array_equal(y_true, y32) and y_true.shape == (EVAL_IMAGES,)
+            and np.all(np.isfinite(p16)) and dp <= YVAL_TOL):
+        raise AssertionError(f"evaluate: max|dP| {dp} (limit {YVAL_TOL}), labels {y_true.tolist()}")
+    text, cm, auc = evaluate.report(y_true, p16, ds.classes)
+    log(f"serve [evaluate]: score_batches over {EVAL_IMAGES} images at batch {EVAL_BATCH} "
+        f"{dt:.3f} s ({counts['ln_mlp_residual']} K1 + {counts['layer_norm_rows']} K2); "
+        f"max|dP(class 1)| vs the f32 plain path {dp:.3e} (limit {YVAL_TOL}); P range "
+        f"[{p16.min():.4f}, {p16.max():.4f}]; ROC-AUC {auc}; confusion {cm.tolist()} [{card}]")
+    for line in text.rstrip().splitlines():
+        log(f"  {line}")
+    return {"dp": dp}
+
+
+def phase_serve(torch, np, dev, card: str, tmp: str, corpus: dict) -> dict:
+    """Phase 12: the serving path and the remaining entry points on the card
+    (see the module docstring), on phase 11's weights (read from `tmp` by
+    name) and corpus. The decode, `engine.extract_frames`, is substituted
+    for the whole phase (and put back after) by the corpus in memory: each
+    request's body, and each placeholder file, holds the name of the video
+    it stands for."""
+    import os
+
+    from genconvit_tpu_torch.infer import engine
+
+    faces = sorted(n for n in corpus if not n.startswith("zero"))
+    aliases = {f"s{k}_{n}": n for k in range(SERVE_COPIES) for n in faces}
+
+    def in_memory(path, num_frames, prefer_native=True):
+        with open(path, "rb") as f:
+            name = f.read().decode("utf-8", "replace")
+        name = aliases.get(name, name)
+        if name not in corpus:
+            raise IOError(f"cannot open video: {name[:40]!r}")
+        return corpus[name][:num_frames]
+
+    decode = engine.extract_frames
+    engine.extract_frames = in_memory
+    env = os.environ.get("GENCONVIT_FACE_SIDECAR")
+    torch.cuda.reset_peak_memory_stats(dev)
+    out = {}
+    try:
+        cfg = backbone_config("convnext_tiny")
+        cfg.weight_dir = tmp
+        t = time.perf_counter()
+        pred = engine.Predictor(cfg, device=dev, face_backend="jax", deterministic_vae=True)
+        s = IMG   # the server's warm-up: one forward at the widest launch
+        pred.predict_videos_batched(np.zeros((VIDEO_BATCH, FRAMES, s, s, 3), np.uint8),
+                                    np.ones((VIDEO_BATCH, FRAMES), np.float32))
+        vdir = os.path.join(tmp, "serve")
+        os.makedirs(vdir)
+        ref = {}
+        for n in faces:
+            with open(os.path.join(vdir, n), "w") as f:
+                f.write(n)
+            ref[n] = pred.predict_video(os.path.join(vdir, n), FRAMES)
+        log(f"serve: Predictor from the .gcv files by name, warm-up and predict_video of the "
+            f"{len(faces)} face videos {time.perf_counter() - t:.2f} s; verdicts {ref} [{card}]")
+        out["modes"] = serve_modes(torch, np, pred, card, ref, aliases)
+        out["stream"] = serve_stream(torch, np, pred, card)
+        out["evaluate"] = serve_evaluate(torch, np, dev, pred, tmp, card)
+        del pred
+        torch.cuda.empty_cache()
+        serve_prediction_v2(np, tmp, corpus, card)
+        out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
     finally:
         engine.extract_frames = decode
         if env is None:
@@ -2474,6 +2908,7 @@ def phase_video(torch, np, dev, card: str) -> dict:
 def main() -> int:
     import argparse
     import gc
+    import tempfile
 
     import torch
 
@@ -2544,8 +2979,14 @@ def main() -> int:
     kernels += probe_recs
     log(f"phase 9: {time.perf_counter() - t:.1f} s")
     t = time.perf_counter()
-    video = phase_video(torch, np, dev, card)
-    log(f"phase 11: {time.perf_counter() - t:.1f} s")
+    with tempfile.TemporaryDirectory(prefix="gcv_video_") as tmp:
+        video = phase_video(torch, np, dev, card, tmp)
+        log(f"phase 11: {time.perf_counter() - t:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        serving = phase_serve(torch, np, dev, card, tmp, video.pop("corpus"))
+        log(f"phase 12: {time.perf_counter() - t:.1f} s")
     for name, r in runs.items():
         log(f"summary [{name}]: V=8 {r['v8_videos_s']:.2f} videos/s ({r['v8_ms']:.2f} "
             f"ms/launch), V=1 {r['v1_ms']:.2f} ms/launch (synchronized median "
@@ -2565,6 +3006,14 @@ def main() -> int:
         f"(min {video['spread'][0]:.2f}, max {video['spread'][1]:.2f}) over {TIMED_RUNS} runs of "
         f"{8 * TIMED_COPIES} videos at video_batch={VIDEO_BATCH}, peak device memory "
         f"{video['peak_gib']:.2f} GiB [{card}]")
+    for mode, r in serving["modes"].items():
+        log(f"summary [serve {mode}]: {r['rps']:.2f} requests/s, p50 {r['p50_ms']:.1f} ms, p95 "
+            f"{r['p95_ms']:.1f} ms, {r['launches']} device launches ({r['per_launch']:.2f} videos a "
+            f"launch) over {8 * SERVE_COPIES} requests at concurrency {SERVE_CONCURRENCY} [{card}]")
+    st = serving["stream"]
+    log(f"summary [stream]: {STREAM_BATCHES} V=8 batches {min(st['stream']):.2f} ms (best of "
+        f"{len(st['stream'])}) against {min(st['sequential']):.2f} ms one predict_videos_batched "
+        f"call after another; peak device memory over phase 12 {serving['peak_gib']:.2f} GiB [{card}]")
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_all:.1f} s [{card}]")
     # each kernel's launches: the count of the run whose main path runs it
     # (the counts were set to 0 just before its requests)

@@ -31,7 +31,7 @@ from __future__ import annotations
 import concurrent.futures as cf
 import logging
 import os
-from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
+from typing import Any, Dict, Iterable, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -97,6 +97,7 @@ class Predictor:
         self.deterministic_vae = deterministic_vae
         self.prefer_native_decode = prefer_native_decode
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self._copy_stream = None   # predict_videos_stream's uploads (CUDA)
         self.timers = StageTimers()
         self.detector = self._make_detector(face_backend or self.config.face_backend)
 
@@ -202,19 +203,26 @@ class Predictor:
         if pad > 0:
             faces_b = torch.cat([faces_b, faces_b.new_zeros((pad,) + faces_b.shape[1:])])
             masks_b = torch.cat([masks_b, masks_b.new_zeros((pad,) + masks_b.shape[1:])])
-        y, y_val = self.forward_batched(faces_b, masks_b)
+        return self._verdict_rows(faces_b, masks_b)
+
+    def _verdict_rows(self, frames_u8: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        """forward_batched's (y, y_val) as device [2, V] float32 rows."""
+        y, y_val = self.forward_batched(frames_u8, mask)
         return torch.stack([y.float(), y_val.float()])
 
-    def _fetch(self, names_per_launch: List[List[str]], launches: List[torch.Tensor],
-               ordered: Dict[str, Verdict]) -> None:
-        """ONE device->host fetch of every launch's verdicts."""
+    def _fetch(self, names_per_launch: List[List[Any]], launches: List[torch.Tensor],
+               ordered: Dict[Any, Verdict]) -> None:
+        """ONE device->host fetch of every launch's verdicts; a launch's
+        [2, V] rows may hold padding past its names."""
         with self.timers.stage("device_forward"):
             if not launches:
                 return
-            rows = torch.stack(launches).cpu().numpy()     # [B, 2, V]
-            for names, row in zip(names_per_launch, rows):
+            rows = torch.cat(launches, dim=1).cpu().numpy()     # [2, sum V]
+            off = 0
+            for names, launch in zip(names_per_launch, launches):
                 for i, p in enumerate(names):
-                    ordered[p] = (int(row[0, i]), float(row[1, i]))
+                    ordered[p] = (int(rows[0, off + i]), float(rows[1, off + i]))
+                off += launch.shape[1]
 
     # ------------------------------------------------------------- API
 
@@ -225,6 +233,55 @@ class Predictor:
         mask = torch.as_tensor(masks, dtype=torch.float32).to(self.device)
         y, y_val = self.forward_batched(frames, mask)
         return y.cpu().numpy(), y_val.cpu().numpy()
+
+    def predict_videos_stream(self, batches: Iterable[Tuple[Any, Any]]
+                              ) -> List[Tuple[np.ndarray, np.ndarray]]:
+        """Pipelined scoring of a stream of ([V,F,S,S,3] uint8, [V,F])
+        batches (:942-969 there): batch i+1 goes up before batch i's forward
+        is issued (on the card: from pinned host memory, non_blocking, on a
+        copy stream the forward waits for), each launch's [2, V] verdict
+        rows stay on the device, no sync between launches, and ONE fetch
+        at the end. Returns (y [V] int64, y_val [V] float32) per batch."""
+        launches: List[torch.Tensor] = []
+        staged = None
+        for faces, masks in batches:
+            nxt = self._stage_batch(faces, masks)
+            if staged is not None:
+                launches.append(self._stream_launch(*staged))
+            staged = nxt
+        if staged is not None:
+            launches.append(self._stream_launch(*staged))
+        keys = [[(b, i) for i in range(rows.shape[1])] for b, rows in enumerate(launches)]
+        ordered: Dict[Any, Verdict] = {}
+        self._fetch(keys, launches, ordered)
+        return [(np.array([ordered[k][0] for k in ks], np.int64),
+                 np.array([ordered[k][1] for k in ks], np.float32)) for ks in keys]
+
+    def _stage_batch(self, faces, masks):
+        """(frames, mask, ready event or None) on the device; host arrays
+        are copied on the copy stream from pinned memory."""
+        frames = torch.as_tensor(faces)
+        mask = torch.as_tensor(masks, dtype=torch.float32)
+        if self.device.type != "cuda" or frames.is_cuda:
+            return frames.to(self.device), mask.to(self.device), None
+        if self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(self.device)
+        with torch.cuda.stream(self._copy_stream):
+            frames = frames.pin_memory().to(self.device, non_blocking=True)
+            mask = mask.pin_memory().to(self.device, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record(self._copy_stream)
+        return frames, mask, ready
+
+    def _stream_launch(self, frames: torch.Tensor, mask: torch.Tensor,
+                       ready: Optional["torch.cuda.Event"]) -> torch.Tensor:
+        if ready is not None:
+            stream = torch.cuda.current_stream(self.device)
+            stream.wait_event(ready)
+            # the copy stream allocated them: keep them until this stream is done
+            frames.record_stream(stream)
+            mask.record_stream(stream)
+        return self._verdict_rows(frames, mask)
 
     def predict_faces(self, faces_u8, num_frames: int) -> Tuple[int, float]:
         """faces_u8: [k,S,S,3] uint8 (numpy or a device tensor), k in
@@ -266,6 +323,15 @@ class Predictor:
             boxes = (detector or self.detector).detect_many([frames], [x])[0]
         with self.timers.stage("crop"):
             return crop_faces(x, boxes, num_frames, self.config.img_size)
+
+    def _detect_group(self, paths: Sequence[str], frames_list: List[np.ndarray],
+                      device_frames: List[torch.Tensor]) -> List[List[List[Any]]]:
+        """Boxes of several videos: one detect_many over all of them (from
+        their frames on the device), or each video's recorded boxes."""
+        if isinstance(self.detector, RecordedDetector):
+            return [self.detector.for_video(os.path.basename(p)).detect(f)
+                    for p, f in zip(paths, frames_list)]
+        return self.detector.detect_many(frames_list, device_frames)
 
     def extract_faces(self, video_path: str, num_frames: int) -> torch.Tensor:
         """Decode + detect + crop of one video: uint8 faces [k,S,S,3] on
@@ -390,12 +456,8 @@ class Predictor:
             # each video's frames go to the device once, for the detector's
             # windows and the crops alike
             dev = [self._upload(f) for _, f in det_items]
-            if isinstance(self.detector, RecordedDetector):
-                boxes = [self.detector.for_video(os.path.basename(p)).detect(f)
-                         for p, f in det_items]
-            else:
-                boxes = self.detector.detect_many([f for _, f in det_items], dev)
-            return boxes, dev
+            return self._detect_group([p for p, _ in det_items],
+                                      [f for _, f in det_items], dev), dev
 
         def crop_and_launch(det_items, boxes_fut):
             with self.timers.stage("detect"):  # residual wait only

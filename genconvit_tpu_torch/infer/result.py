@@ -13,6 +13,7 @@ import os
 from datetime import datetime
 from typing import Any, Dict, List, Optional
 
+from genconvit_tpu_torch.evalx.metrics import binary_scores
 from genconvit_tpu_torch.infer.aggregate import real_or_fake
 
 
@@ -43,18 +44,12 @@ def store_result(result: Dict[str, Any], filename: str, y: int, y_val: float,
 
 
 def compute_metrics(y_true: List[int], y_pred: List[int]) -> Dict[str, float]:
-    """sklearn accuracy/precision/recall/F1 (ref prediction_v2.py:41-46)."""
-    from sklearn.metrics import (accuracy_score, f1_score, precision_score,
-                                 recall_score)
-
+    """accuracy/precision/recall/F1 of class 1 (FAKE), zero where undefined:
+    sklearn's scores with zero_division=0 (ref prediction_v2.py:41-46),
+    in numpy (evalx/metrics.binary_scores)."""
     if not y_true:
         return {}
-    return {
-        "accuracy": float(accuracy_score(y_true, y_pred)),
-        "precision": float(precision_score(y_true, y_pred, zero_division=0)),
-        "recall": float(recall_score(y_true, y_pred, zero_division=0)),
-        "f1": float(f1_score(y_true, y_pred, zero_division=0)),
-    }
+    return binary_scores(y_true, y_pred)
 
 
 def attach_metrics(result: Dict[str, Any], y_true: List[int],

@@ -817,3 +817,27 @@ def test_probe_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError, match="exceeds 1536"):
         m2.block_parts(torch.zeros(1, 2, 2, wide, dtype=bf, device=dev),
                        _fused_block_weights(96, dev, g), "full")
+
+
+def test_predict_videos_stream_equals_the_batched_path(dev, monkeypatch):
+    """The stream's uploads (pinned host memory, on a copy stream the
+    forward waits for) give each batch, ragged ones too, the verdicts
+    predict_videos_batched gives it, bit for bit (a small bf16 ConvNeXt
+    through K1 and K2, deterministic VAE)."""
+    import numpy as np
+
+    from genconvit_tpu_torch.config import Config, ModelConfig
+    from genconvit_tpu_torch.infer.engine import Predictor
+    from genconvit_tpu_torch.models import convnext
+
+    monkeypatch.setitem(convnext.CONVNEXT_CFGS, "convnext_card_test",
+                        dict(depths=(1, 1, 1, 1), dims=(32, 64, 96, 128)))
+    pred = Predictor(Config(model=ModelConfig(backbone="convnext_card_test"), img_size=64),
+                     device=dev, deterministic_vae=True, face_backend="center")
+    rng = np.random.default_rng(0)
+    batches = [(rng.integers(0, 256, (v, 5, 64, 64, 3), np.uint8),
+                (rng.random((v, 5)) < 0.8).astype(np.float32)) for v in (3, 3, 1)]
+    got = pred.predict_videos_stream(iter(batches))
+    for (gy, gv), (f, m) in zip(got, batches, strict=True):
+        wy, wv = pred.predict_videos_batched(f, m)
+        assert np.array_equal(gy, wy) and np.array_equal(gv, wv)

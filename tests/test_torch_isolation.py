@@ -1,8 +1,8 @@
 """The port stands alone: importing every module of genconvit_tpu_torch
-loads no JAX, flax, yaml, msgpack or genconvit_tpu, no cv2 or sklearn (the
-host libraries stay lazy) and builds no kernel; its sources carry no such
-import and no torch.compile; chip_smoke.py refuses to run without CUDA
-before it builds anything."""
+loads no JAX, flax, yaml, msgpack or genconvit_tpu, no cv2, sklearn or
+matplotlib (the host libraries stay lazy) and builds no kernel; its
+sources carry no such import and no torch.compile; chip_smoke.py refuses
+to run without CUDA before it builds anything."""
 
 import json
 import os
@@ -24,7 +24,7 @@ for n in names:
 from genconvit_tpu_torch.ops.cuda import _build
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "yaml", "msgpack", "genconvit_tpu",
-                                    "triton", "cv2", "sklearn"))
+                                    "triton", "cv2", "sklearn", "matplotlib"))
 print(json.dumps({"modules": names, "bad": bad, "built": _build.is_loaded()}))
 """
 
@@ -47,7 +47,10 @@ def test_importing_every_module_loads_nothing_forbidden():
                  "tools.microbench_int8_dot", "tools.microbench_kernel_parts",
                  "tools.microbench_dwshift", "core.checkpoint", "data.faces", "data.video",
                  "data.native", "data.frames", "models.facedet", "infer.walkers",
-                 "infer.result", "utils.timing", "prediction", "device"):
+                 "infer.result", "utils.timing", "prediction", "device", "evalx.metrics",
+                 "evalx.plots", "data.folder", "data.augment", "infer.batcher",
+                 "infer.serve_pipeline", "serve", "prediction_v2", "evaluate", "result_all",
+                 "plot_comparison"):
         assert f"genconvit_tpu_torch.{name}" in rec["modules"]
     assert rec["bad"] == []
     assert rec["built"] is False
@@ -61,7 +64,9 @@ def test_sources_import_no_jax_and_compile_nothing():
             "dw_moments.py", "microbench_int8_dot.py", "microbench_kernel_parts.py",
             "microbench_dwshift.py", "checkpoint.py", "faces.py", "facedet.py", "video.py",
             "native.py", "walkers.py", "result.py", "timing.py",
-            "prediction.py"} <= {p.name for p in paths}
+            "prediction.py", "metrics.py", "plots.py", "folder.py", "augment.py", "batcher.py",
+            "serve_pipeline.py", "serve.py", "prediction_v2.py", "evaluate.py", "result_all.py",
+            "plot_comparison.py"} <= {p.name for p in paths}
     for path in paths + [ROOT / "chip_smoke.py"]:
         assert not pattern.search(path.read_text()), path
 

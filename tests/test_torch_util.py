@@ -3,6 +3,8 @@ torch-oracle state dicts of the reference models at a small size, with
 non-trivial layer scale and BatchNorm statistics, and the matching JAX
 trees through the JAX package's converter."""
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -96,3 +98,39 @@ def images(rng, n=2, img=IMG):
     x = rng.standard_normal((n, 3, img, img), dtype=np.float32)
     t = torch.from_numpy(x).contiguous(memory_format=torch.channels_last)
     return x, t, np.ascontiguousarray(x.transpose(0, 2, 3, 1))
+
+
+@contextlib.contextmanager
+def small_backbone_registered():
+    """small_backbone for fixtures wider than one test."""
+    from genconvit_tpu_torch.models import convnext as port_convnext
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setitem(port_convnext.CONVNEXT_CFGS, SMALL_NAME,
+                   dict(depths=SMALL_DEPTHS, dims=SMALL_DIMS))
+        yield SMALL_NAME
+
+
+def write_gcv_weights(wdir, seed=0, head_scale=10.0):
+    """The ED and VAE `.gcv` files of the small oracle models, written by the
+    JAX package's save_checkpoint and nested as train_model nests them, both
+    heads' last layer scaled by `head_scale` so that verdicts are decisive."""
+    from genconvit_tpu.core import checkpoint as jax_ckpt
+
+    rng = np.random.default_rng(seed)
+    sd_ed, sd_vae = ed_state_dict(seed, rng), vae_state_dict(seed + 1, rng)
+    for sd in (sd_ed, sd_vae):
+        sd["fc2.weight"] *= head_scale
+        sd["fc2.bias"] *= head_scale
+    trees = jax_trees(sd_ed, sd_vae)
+    wdir.mkdir(parents=True, exist_ok=True)
+    jax_ckpt.save_checkpoint(str(wdir / "genconvit_ed_inference.gcv"), {"ed": trees["ed"]})
+    jax_ckpt.save_checkpoint(str(wdir / "genconvit_vae_inference.gcv"), {"vae": trees["vae"]})
+
+
+def write_small_config(path):
+    """A model/config.yaml both packages read (load_config): the small
+    backbone at IMG px."""
+    path.write_text(f"model:\n  backbone: {SMALL_NAME}\n  latent_dims: {256 * (IMG // 32) ** 2}\n"
+                    f"img_size: {IMG}\nnum_classes: 2\n")
+    return str(path)
