@@ -201,6 +201,34 @@ Phases (any failed check raises and the exit code is non-zero):
      within 2e-2 of the port's float32 plain path (TF32 off), the report
      printed; peak device memory.
 
+  13. training (it runs last; `--train-only` runs phases 1, 2 and 13 alone):
+     convnext_tiny GenConViT at full width and depth, 224 px, random weights
+     from a seed (layer scale U(0.1, 1)), float32 masters, one seeded uint8
+     batch and eps; TF32 off. (a) one step from the same weights in float32
+     (batch 32 and 8; the references) and under bf16 in the default plan (K1,
+     K2; batch 32), pallas '0' (no kernels; batch 32 and 8), int8_mlp='fc1'
+     (K4), pallas '1' (K5) and pallas 'stage' (K6) (batch 8): the loss, each
+     branch's and backbone's gradient and parameter change after Adam
+     (relative L2) against the float32 step of the batch, each kernel plan's
+     error at most 3x pallas '0''s (floor 1e-3); the VAE's var head moved by
+     its decay; BN0's running mean = 0.9 old + 0.1 batch mean; (b) planted
+     faults refused: the kernel backbone's folds reused from before a step
+     (ED features vs the reference graph, rel L2 limit 3e-2), pallas '1''s
+     LN-folded blocks folded without a graph (their norm and fc1 gradient
+     vs f32, limit 0.5), missing gradients left None (the var head unmoved),
+     BN statistics updated in place under remat (the momentum twice); (c)
+     launches a step equal to expected_launches per forward twice over
+     (forward and recompute); (d) 8 bf16 steps on one batch (the loss must
+     fall), steps/s and images/s at batch 32 in float32 and bf16, median of
+     3 runs of 3 steps, peak device memory, the device time of a bf16 step
+     in KernelBackbone's backward (CUDA events; with --profile, the
+     profiler's breakdown of the step by kernel group); (e) `python -m
+     genconvit_tpu_torch.train -m genconvit -e 1 -b 8 --bf16` in-process over
+     a generated ImageFolder (placeholders; `folder.load_image` by memory,
+     `augment.strong_aug` the identity: no cv2 here), then resumed with -p;
+     K1 and K2 launches as its steps and eval forwards; the `.gcv` (epoch,
+     Adam count, weights equal to the model's) and `.pkl` read back.
+
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Without CUDA it exits non-zero at once.
 """
@@ -2905,6 +2933,498 @@ def phase_serve(torch, np, dev, card: str, tmp: str, corpus: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------- phase 13
+
+TRAIN_BATCH = 32       # 13a's float32 and default-plan steps, 13d's timing
+TRAIN_BATCH_SMALL = 8  # 13a's other plans, 13b's planted faults
+TRAIN_FACTOR = 3.0     # 13a: a kernel plan's error against the f32 step at most this times
+TRAIN_FLOOR = 1e-3     # pallas '0''s bf16 error at the same batch (or this floor, if larger)
+TRAIN_FAULT_LR = 1e-2  # 13b: the step before the stale-fold check moves the weights measurably
+FEATURE_TOL = 3e-2     # 13b: kernel backbone vs the reference graph, relative L2 of the features
+FOLDED_TOL = 0.5       # 13b: LN-folded blocks' norm and fc1 gradient vs f32, relative L2
+BN_TOL = 1e-4          # 13b: BN0's running mean vs (1 - m) old + m batch mean, relative
+TRAIN_STEPS = 8        # 13d: steps on one batch; the loss must fall
+TIMED_STEPS = 3        # 13d: steps a timed run
+CLI_IMAGES = (8, 4, 4)  # 13e: images a class in train, valid, test
+# 13a's bf16 runs: (name, pallas, int8_mlp, batch); "pallas=0" is each batch's yardstick
+TRAIN_PLANS = (("default", "", "", TRAIN_BATCH), ("pallas=0", "0", "", TRAIN_BATCH),
+               ("pallas=0", "0", "", TRAIN_BATCH_SMALL),
+               ("int8_mlp=fc1", "", "fc1", TRAIN_BATCH_SMALL),
+               ("pallas=1", "1", "", TRAIN_BATCH_SMALL),
+               ("pallas=stage", "stage", "", TRAIN_BATCH_SMALL))
+# the blocks every backbone call of 224 px runs LN-folded under pallas '1'
+# (stages 2-3: H = 14 and 7), whose norm and fc1 take their gradient through
+# Block.fold_ln only
+FOLDED = r"^(ed\.backbone|vae\.convnext_backbone)\.stages\.[23]\.blocks\.\d+\.(norm|mlp\.fc1)\."
+GROUPS = {"ed": r"^ed\.", "vae": r"^vae\.", "ed backbone": r"^ed\.backbone\.",
+          "vae backbone": r"^vae\.convnext_backbone\.", "LN-folded norm+fc1": FOLDED}
+
+
+class TrainBench:
+    """Phase 13's state: the float32 master model (convnext_tiny GenConViT,
+    full width and depth, random weights from a seed, layer scale U(0.1,
+    1)), its weights w0, one seeded uint8 batch, labels and eps."""
+
+    def __init__(self, torch, dev, config):
+        import re
+
+        from genconvit_tpu_torch.models.convnext import Block
+        from genconvit_tpu_torch.train import loop
+
+        self.torch, self.dev = torch, dev
+        self.model = loop.new_model(config, "genconvit", dev, seed=13)
+        g = torch.Generator(device=dev).manual_seed(13)
+        with torch.no_grad():
+            for m in self.model.modules():
+                if isinstance(m, Block):
+                    m.gamma.uniform_(0.1, 1.0, generator=g)
+        self.w0 = {k: v.detach().clone() for k, v in self.model.state_dict().items()}
+        s = config.img_size
+        self.x = torch.randint(0, 256, (TRAIN_BATCH, s, s, 3), dtype=torch.uint8, device=dev,
+                               generator=g)
+        self.y = torch.randint(0, 2, (TRAIN_BATCH,), device=dev, generator=g)
+        self.eps = torch.randn((TRAIN_BATCH, self.model.vae.encoder.mu.out_features),
+                               device=dev, generator=g)
+        self.groups = {k: [n for n, _ in self.model.named_parameters() if re.match(rx, n)]
+                       for k, rx in GROUPS.items()}
+
+    def trainer(self, dtype, plan, n: int, lr: float = 1e-4):
+        """A new run from w0 (a fresh optimizer, gradients None): a function
+        that takes one train step on the first n images and returns its
+        loss."""
+        from genconvit_tpu_torch.train import loop, optim
+
+        self.model.load_state_dict(self.w0)
+        self.model.zero_grad(set_to_none=True)
+        opt = optim.make_optimizer(self.model.parameters(), lr, 1e-4)
+        step = loop.make_train_step(self.model, "genconvit", opt, False, dtype, plan)
+        x, y, eps = self.x[:n], self.y[:n], self.eps[:n].to(dtype)
+        return lambda: float(step(x, y, eps)[0])
+
+    def step(self, dtype, plan, n: int, lr: float = 1e-4, steps: int = 1):
+        """steps train steps of a new run: (losses, launch counts)."""
+        from genconvit_tpu_torch.ops import cuda as kcuda
+
+        run = self.trainer(dtype, plan, n, lr)
+        kcuda.reset_launch_counts()
+        losses = [run() for _ in range(steps)]
+        return losses, kcuda.launch_counts()
+
+    def snapshot(self) -> dict:
+        """Each parameter's gradient and change from w0, float32 copies."""
+        return {n: (p.grad.detach().float().clone(), (p.detach() - self.w0[n]).float())
+                for n, p in self.model.named_parameters()}
+
+    def errors(self, ref: dict) -> dict:
+        """Relative L2 error of the gradient and of the parameter change
+        against `ref` (a snapshot), per group."""
+        torch = self.torch
+        params = dict(self.model.named_parameters())
+        out = {}
+        for group, names in self.groups.items():
+            acc = torch.zeros(4, dtype=torch.float64, device=self.dev)
+            for n in names:
+                p = params[n]
+                g, d = p.grad.float(), (p.detach() - self.w0[n]).float()
+                rg, rd = ref[n]
+                acc += torch.stack([(g - rg).double().square().sum(), rg.double().square().sum(),
+                                    (d - rd).double().square().sum(), rd.double().square().sum()])
+            e = acc.sqrt().tolist()
+            out[group] = (e[0] / max(e[1], 1e-30), e[2] / max(e[3], 1e-30))
+        return out
+
+    def var_moved(self, lr: float = 1e-4) -> float:
+        """mean |change| of the VAE's var head over lr: its gradient is zero
+        without the KL term, so only the decay moves it (about lr)."""
+        p = self.model.vae.encoder.var.weight
+        return float((p.detach() - self.w0["vae.encoder.var.weight"]).abs().mean()) / lr
+
+    def bn0_error(self, n: int) -> float:
+        """BN0's running mean after one float32 step against (1 - m) * old +
+        m * the batch mean of its input (conv0 of the normalized batch),
+        relative to the latter's max."""
+        torch = self.torch
+        from genconvit_tpu_torch.data.preprocess import normalize_batch
+        from genconvit_tpu_torch.ops.conv import conv2d
+
+        feats = self.model.vae.encoder.features
+        with torch.no_grad():
+            w, b = self.w0["vae.encoder.features.0.weight"], self.w0["vae.encoder.features.0.bias"]
+            h = conv2d(normalize_batch(self.x[:n], torch.float32), w, b, stride=2, padding=1)
+            want = 0.9 * self.w0["vae.encoder.features.1.running_mean"] + 0.1 * h.mean(dim=(0, 2, 3))
+            return float((feats[1].running_mean - want).abs().max() / want.abs().max())
+
+
+def train_plan_errors(torch, tb: TrainBench, card: str) -> tuple:
+    """13a and 13c: one step from w0 in float32 (batch 32 and 8), then under
+    bf16 in each plan of TRAIN_PLANS; the loss, each group's gradient and
+    parameter change against the f32 step of the same batch; every kernel
+    plan within TRAIN_FACTOR of pallas '0' at its batch; launches per step
+    equal to expected_launches' per forward twice over (forward and the
+    remat recompute); the var head moved by its decay in every run."""
+    from genconvit_tpu_torch.ops import cuda as kcuda
+
+    refs, rec = {}, {}
+    for n in (TRAIN_BATCH, TRAIN_BATCH_SMALL):
+        t = time.perf_counter()
+        losses, counts = tb.step(torch.float32, make_plan("0", "", False), n)
+        refs[n] = (losses[0], tb.snapshot())
+        if any(counts.values()):
+            raise AssertionError(f"train f32 N={n}: kernel launches {counts}")
+        if tb.var_moved() < 0.5:
+            raise AssertionError(f"train f32 N={n}: var head moved {tb.var_moved():.3f} lr")
+        rec[("f32", n)] = {"bn0": tb.bn0_error(n), "loss": losses[0]}
+        log(f"train 13a f32 N={n}: loss {losses[0]:.6f}, BN0 running mean vs (1-m) old + m "
+            f"batch {rec[('f32', n)]['bn0']:.2e}, var head moved {tb.var_moved():.3f} lr, "
+            f"{time.perf_counter() - t:.2f} s [{card}]")
+        if rec[("f32", n)]["bn0"] > BN_TOL:
+            raise AssertionError(f"train f32 N={n}: BN0 running mean off by {rec[('f32', n)]['bn0']}")
+    for name, pallas, int8_mlp, n in TRAIN_PLANS:
+        t = time.perf_counter()
+        losses, counts = tb.step(torch.bfloat16, make_plan(pallas, int8_mlp, False), n)
+        want = dict.fromkeys(counts, 0)
+        if pallas != "0":
+            want = {k: 2 * v for k, v in expected_launches(kcuda, pallas, int8_mlp, False).items()}
+        if counts != want:
+            raise AssertionError(f"train {name} N={n}: launches {counts}, want {want}")
+        errs = tb.errors(refs[n][1])
+        dl = abs(losses[0] - refs[n][0]) / abs(refs[n][0])
+        rec[(name, n)] = {"loss": losses[0], "dloss": dl, "errs": errs, "counts": counts,
+                          "var_moved": tb.var_moved()}
+        shown = {k: v for k, v in counts.items() if v}
+        log(f"train 13a {name} bf16 N={n}: loss {losses[0]:.6f} (f32 {refs[n][0]:.6f}, rel "
+            f"{dl:.2e}); launches a step {shown}; var head moved {tb.var_moved():.3f} lr; "
+            f"{time.perf_counter() - t:.2f} s [{card}]")
+        for group, (eg, ed) in errs.items():
+            log(f"  {group:20s} grad rel L2 {eg:.3e}, parameter change rel L2 {ed:.3e}")
+        if tb.var_moved() < 0.5:
+            raise AssertionError(f"train {name}: the var head moved {tb.var_moved():.3f} lr")
+    for name, pallas, int8_mlp, n in TRAIN_PLANS:
+        if pallas == "0":
+            continue
+        mine, base = rec[(name, n)], rec[("pallas=0", n)]
+        pairs = [("loss", mine["dloss"], base["dloss"])]
+        for group in GROUPS:
+            pairs += [(f"{group} grad", mine["errs"][group][0], base["errs"][group][0]),
+                      (f"{group} change", mine["errs"][group][1], base["errs"][group][1])]
+        for what, e, e0 in pairs:
+            if not e <= TRAIN_FACTOR * max(e0, TRAIN_FLOOR):
+                raise AssertionError(f"train {name} N={n}: {what} error {e:.3e} above "
+                                     f"{TRAIN_FACTOR} x pallas '0''s {e0:.3e}")
+        worst = max(e / max(e0, TRAIN_FLOOR) for _, e, e0 in pairs)
+        log(f"train 13a {name} N={n}: every error within {worst:.2f} x pallas '0''s (bound "
+            f"{TRAIN_FACTOR}, floor {TRAIN_FLOOR})")
+    return refs, rec
+
+
+def train_planted(torch, tb: TrainBench, refs: dict, rec: dict, card: str) -> None:
+    """13b: four planted faults, each refused by its check."""
+    from genconvit_tpu_torch.models import convnext as pc
+    from genconvit_tpu_torch.models import vae as vae_mod
+    from genconvit_tpu_torch.data.preprocess import normalize_batch
+    from genconvit_tpu_torch.ops.cuda import convnext_mlp as km
+    from genconvit_tpu_torch.train import optim
+
+    n, bf = TRAIN_BATCH_SMALL, torch.bfloat16
+    # (1) the kernel backbone's folds reused from the step before
+    bb = tb.model.ed.backbone
+    tb.model.load_state_dict(tb.w0)
+    with torch.no_grad():
+        ft = bb.feature_tensors()
+        stale = pc.kernel_weights(pc.FeatureTensors.unflat(
+            ft.layout(), [t.to(bf) for t in ft.flat()]))
+    tb.step(bf, make_plan("", "", False), n, lr=TRAIN_FAULT_LR)
+
+    def feature_error() -> float:
+        with torch.no_grad():
+            ft1 = bb.feature_tensors()
+            ts = [t.to(bf) for t in ft1.flat()]
+            x = normalize_batch(tb.x[:n], bf)
+            out = pc.KernelBackbone.apply(ft1.layout(), "default", "",
+                                          (km.ln_mlp_residual, km.layer_norm_rows), x, *ts)
+            ref = pc.features_reference(x, pc.FeatureTensors.unflat(ft1.layout(), ts), "default")
+            return float((out.float() - ref.float()).norm() / ref.float().norm())
+
+    good = feature_error()
+    kw = pc.kernel_weights
+    pc.kernel_weights = lambda ft, int8_mlp="": stale
+    try:
+        bad = feature_error()
+    finally:
+        pc.kernel_weights = kw
+    log(f"train 13b folds of the step before: ED features vs the reference graph after a step "
+        f"at lr {TRAIN_FAULT_LR}: rel L2 {good:.3e} with the call's folds, {bad:.3e} with the "
+        f"folds reused (limit {FEATURE_TOL}) [{card}]")
+    if not (good <= FEATURE_TOL < bad):
+        raise AssertionError(f"stale-fold check: good {good}, planted {bad}, limit {FEATURE_TOL}")
+
+    # (2) pallas '1': the LN-folded blocks' folds taken without a graph
+    fold_ln = pc.Block.fold_ln
+    pc.Block.fold_ln = lambda self: pc.LNFold(*(t.detach() for t in fold_ln(self)))
+    try:
+        tb.step(bf, make_plan("1", "", False), n)
+        bad = tb.errors(refs[n][1])["LN-folded norm+fc1"][0]
+    finally:
+        pc.Block.fold_ln = fold_ln
+    good = rec[("pallas=1", n)]["errs"]["LN-folded norm+fc1"][0]
+    log(f"train 13b pallas '1' folds without a graph: LN-folded blocks' norm+fc1 gradient rel L2 "
+        f"vs f32 {good:.3e} per call, {bad:.3e} planted (limit {FOLDED_TOL}) [{card}]")
+    if not (good <= FOLDED_TOL < bad):
+        raise AssertionError(f"folds-without-graph check: good {good}, planted {bad}")
+
+    # (3) missing gradients left None: torch's Adam skips the var head
+    fill = optim.fill_missing_grads
+    optim.fill_missing_grads = lambda optimizer: None
+    try:
+        tb.step(bf, make_plan("", "", False), n)
+        bad = tb.var_moved()
+    finally:
+        optim.fill_missing_grads = fill
+    good = rec[("default", TRAIN_BATCH)]["var_moved"]
+    log(f"train 13b gradients left None: var head moved {good:.3f} lr with zeros filled, "
+        f"{bad:.3f} lr planted (limit 0.5) [{card}]")
+    if not (good >= 0.5 > bad):
+        raise AssertionError(f"missing-gradient check: good {good}, planted {bad}")
+
+    # (4) BN running statistics updated in place under remat (as
+    # nn.BatchNorm2d.train() does): the recompute applies the momentum again
+    bn_train = vae_mod.batch_norm_train
+
+    def in_place(x, bn, momentum=0.1, eps=1e-5):
+        y, (mean, var) = bn_train(x, bn, momentum, eps)
+        with torch.no_grad():
+            bn.running_mean.copy_(mean)
+            bn.running_var.copy_(var)
+        return y, (bn.running_mean, bn.running_var)
+
+    vae_mod.batch_norm_train = in_place
+    try:
+        tb.step(torch.float32, make_plan("0", "", False), n)
+        bad = tb.bn0_error(n)
+    finally:
+        vae_mod.batch_norm_train = bn_train
+    good = rec[("f32", n)]["bn0"]
+    log(f"train 13b BN statistics in place under remat: BN0 running mean off by {good:.2e} "
+        f"written back, {bad:.2e} planted (limit {BN_TOL}) [{card}]")
+    if not (good <= BN_TOL < bad):
+        raise AssertionError(f"in-place BN check: good {good}, planted {bad}")
+
+
+def train_recompute_share(torch, tb: TrainBench, card: str) -> dict:
+    """13d: one bf16 default-plan step at batch 32 with CUDA events around
+    each autograd Function's backward (`convnext._reference_vjp`: the plain
+    graph recomputed, then differentiated) and around its recompute alone:
+    their device time against the step's. A backward kernel could save at
+    most the first."""
+    from genconvit_tpu_torch.models import convnext as pc
+
+    spans = {"backward": [], "recompute": []}
+    vjp = pc._reference_vjp
+
+    def event():
+        return torch.cuda.Event(enable_timing=True)
+
+    def timed(graph, x, tensors, g, needs):
+        b0, b1, r0, r1 = event(), event(), event(), event()
+
+        def graph_timed(v, ts):
+            r0.record()
+            out = graph(v, ts)
+            r1.record()
+            return out
+
+        b0.record()
+        grads = vjp(graph_timed, x, tensors, g, needs)
+        b1.record()
+        spans["backward"].append((b0, b1))
+        spans["recompute"].append((r0, r1))
+        return grads
+
+    pc._reference_vjp = timed
+    try:
+        run = tb.trainer(torch.bfloat16, make_plan("", "", False), TRAIN_BATCH)
+        run()   # warm-up
+        for v in spans.values():
+            v.clear()
+        t0, t1 = event(), event()
+        torch.cuda.synchronize()
+        t0.record()
+        run()
+        t1.record()
+        torch.cuda.synchronize()
+    finally:
+        pc._reference_vjp = vjp
+    step = t0.elapsed_time(t1)
+    out = {"step_ms": step}
+    for k, v in spans.items():
+        out[f"{k}_ms"] = sum(a.elapsed_time(b) for a, b in v)
+    log(f"train 13d bf16 default plan, N={TRAIN_BATCH}: a step {step:.2f} ms of device time; "
+        f"KernelBackbone's backward (3 backbone calls) {out['backward_ms']:.2f} ms "
+        f"({100 * out['backward_ms'] / step:.1f}%), of it the plain graph's recompute "
+        f"{out['recompute_ms']:.2f} ms ({100 * out['recompute_ms'] / step:.1f}%) [{card}]")
+    return out
+
+
+def train_group(key: str) -> str:
+    """A train step's kernel groups of the profile: the scoring path's, with
+    Adam's and the GEMMs of the plain graph's backward named."""
+    k = key.lower()
+    if "multi_tensor_apply" in k or "foreach" in k:
+        return "Adam (foreach kernels)"
+    name = convnext_group(key)
+    if name.startswith("GEMM"):
+        return "GEMMs (the plain graph's fc1/fc2 forward and backward, heads)"
+    return name
+
+
+def train_timing(torch, tb: TrainBench, card: str, profile: bool = False) -> dict:
+    """13d: TRAIN_STEPS steps on the fixed batch under the default plan (the
+    loss must fall), then steps/s and images/s at batch 32 in float32 and
+    under bf16 (default plan), median of TIMED_RUNS runs of TIMED_STEPS
+    steps, with the peak device memory of each; with profile, the
+    profiler's breakdown of a bf16 step by kernel group."""
+    import statistics
+
+    losses, _ = tb.step(torch.bfloat16, make_plan("", "", False), TRAIN_BATCH,
+                           steps=TRAIN_STEPS)
+    log(f"train 13d {TRAIN_STEPS} bf16 steps on one batch of {TRAIN_BATCH}: losses "
+        f"{[round(v, 5) for v in losses]} [{card}]")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss did not fall: {losses}")
+    out = {"losses": losses, "recompute": train_recompute_share(torch, tb, card)}
+    run = None
+    for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        rates = []
+        run = None   # the run before's optimizer state goes first
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(tb.dev)
+        run = tb.trainer(dtype, make_plan("", "", False), TRAIN_BATCH)
+        run()   # warm-up: the optimizer's state is made in its first step
+        for _ in range(TIMED_RUNS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(TIMED_STEPS):
+                run()
+            torch.cuda.synchronize()
+            rates.append(TIMED_STEPS / (time.perf_counter() - t))
+        peak = torch.cuda.max_memory_allocated(tb.dev) / 2**30
+        if profile and name == "bf16":
+            profile_step(torch, lambda i: run(), train_group,
+                         f"[train bf16 default plan N={TRAIN_BATCH}] step", card)
+        med = statistics.median(rates)
+        out[name] = {"steps_s": med, "images_s": med * TRAIN_BATCH, "spread": (min(rates), max(rates)),
+                     "peak_gib": peak}
+        log(f"train 13d {name} N={TRAIN_BATCH}: median {med:.3f} steps/s ({med * TRAIN_BATCH:.2f} "
+            f"images/s; runs {[round(r, 3) for r in rates]} steps/s, {TIMED_STEPS} steps each "
+            f"after a warm-up step, each step's loss fetched), peak device memory {peak:.2f} GiB "
+            f"[{card}]")
+    return out
+
+
+def train_cli(torch, np, dev, card: str, tmp: str) -> dict:
+    """13e: `python -m genconvit_tpu_torch.train -m genconvit -e 1 -b 8 --bf16`
+    in-process over a generated ImageFolder (placeholder files;
+    `folder.load_image` substituted by the seeded images in memory,
+    `augment.strong_aug` by the identity: this host has no cv2), then
+    resumed with -p; the .gcv and .pkl read back; K1 and K2 launches equal
+    the steps' and the eval forwards'."""
+    import os
+    import pickle
+
+    from genconvit_tpu_torch.core.checkpoint import load_checkpoint
+    from genconvit_tpu_torch.core.convert import state_dict_from_jax
+    from genconvit_tpu_torch.data import augment, folder
+    from genconvit_tpu_torch.ops import cuda as kcuda
+    from genconvit_tpu_torch.train.__main__ import main as cli_main
+
+    rng = np.random.default_rng(14)
+    root, images = os.path.join(tmp, "train_data"), {}
+    for split, k in zip(("train", "valid", "test"), CLI_IMAGES):
+        for cls in ("fake", "real"):
+            os.makedirs(os.path.join(root, split, cls))
+            for i in range(k):
+                path = os.path.join(root, split, cls, f"{i:02d}.png")
+                open(path, "wb").close()
+                images[path] = draw_faces(np, rng, 1, IMG, IMG)[0]
+    load, aug = folder.load_image, augment.strong_aug
+    folder.load_image = lambda path, img_size=None: images[path]
+    augment.strong_aug = lambda img, rng: img
+    log("train 13e: augmentation is the identity on this host (strong_aug needs cv2; the CPU "
+        "tests hold it, tests/test_torch_train_loop.py)")
+    wdir = os.path.join(tmp, "train_weights")
+    args = ["-d", root, "-m", "genconvit", "-e", "1", "-b", "8", "--bf16", "--weight-dir", wdir]
+    out = {}
+    try:
+        steps, evals = -(-2 * CLI_IMAGES[0] // 8), -(-2 * CLI_IMAGES[1] // 8)
+        prev = None
+        for run in ("first", "resumed"):
+            kcuda.reset_launch_counts()
+            t = time.perf_counter()
+            summary = cli_main(args + (["-p", prev] if prev else []))
+            dt = time.perf_counter() - t
+            counts = kcuda.launch_counts()
+            want = (108 * steps + 54 * evals, 6 * steps + 3 * evals)
+            if (counts["ln_mlp_residual"], counts["layer_norm_rows"]) != want:
+                raise AssertionError(f"CLI {run}: launches {counts}, want K1, K2 = {want}")
+            t2 = time.perf_counter()
+            payload = load_checkpoint(summary["checkpoint"])
+            with open(summary["checkpoint"][:-4] + ".pkl", "rb") as f:
+                hist = pickle.load(f)
+            count = int(payload["opt_state"]["inner_state"]["1"]["count"])
+            epoch = payload["epoch"]
+            model = summary["model"]
+            sd = state_dict_from_jax(payload["params"]["vae"], "vae")
+            same = all(torch.equal(sd[k], v.detach().cpu()) for k, v in
+                       model.vae.state_dict().items() if k in sd and v.is_floating_point())
+            size = os.path.getsize(summary["checkpoint"]) / 2**30
+            log(f"train 13e CLI {run}: {dt:.1f} s (K1 {want[0]}, K2 {want[1]} launches: {steps} "
+                f"steps, {evals} eval forwards); {summary['checkpoint'].rsplit('/', 1)[-1]} "
+                f"{size:.2f} GiB read back in {time.perf_counter() - t2:.1f} s: epoch {epoch}, "
+                f"Adam count {count}, VAE weights equal the model's: {same}; history {hist} "
+                f"[{card}]")
+            want_epoch, want_count = (2, steps) if run == "first" else (4, 2 * steps)
+            if not (epoch == want_epoch and count == want_count and same
+                    and set(payload["params"]) == {"ed", "vae"}
+                    and [len(h) for h in hist] == [1] * 4 and np.all(np.isfinite(hist))):
+                raise AssertionError(f"CLI {run}: epoch {epoch}, count {count}, same {same}, "
+                                     f"history {hist}")
+            out[run] = {"seconds": dt, "gib": size}
+            prev = summary["checkpoint"]
+            del summary, model, payload, sd
+            torch.cuda.empty_cache()
+    finally:
+        folder.load_image, augment.strong_aug = load, aug
+    return out
+
+
+def phase_train(torch, np, dev, card: str, tmp: str, profile: bool = False) -> dict:
+    """Phase 13: training on the card (module docstring)."""
+    import gc
+
+    from genconvit_tpu_torch.config import Config
+
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        t = time.perf_counter()
+        tb = TrainBench(torch, dev, Config())
+        log(f"train: convnext_tiny GenConViT, {sum(p.numel() for p in tb.model.parameters())} "
+            f"float32 parameters on the card in {time.perf_counter() - t:.1f} s [{card}]")
+        refs, rec = train_plan_errors(torch, tb, card)
+        train_planted(torch, tb, refs, rec, card)
+        del refs
+        gc.collect()
+        torch.cuda.empty_cache()
+        timing = train_timing(torch, tb, card, profile)
+        del tb
+        gc.collect()
+        torch.cuda.empty_cache()
+        cli = train_cli(torch, np, dev, card, tmp)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    return {"rec": rec, "timing": timing, "cli": cli}
+
+
 def main() -> int:
     import argparse
     import gc
@@ -2914,7 +3434,9 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="add phase 7, the profiler's device-time breakdowns")
+                    help="add phase 7, the profiler's device-time breakdowns (and a train step's)")
+    ap.add_argument("--train-only", action="store_true",
+                    help="phases 1, 2 and 13 alone (no result lines): for work on training")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
@@ -2947,6 +3469,13 @@ def main() -> int:
                                      f"library's {lib}")
             log(f"K4 plan C={c} {mode}: {tuple(plan)} (rows, group columns, w1t tiles a "
                 f"stage, stages, shared bytes), {plan.passes(c)} pass(es)")
+    if args.train_only:
+        with tempfile.TemporaryDirectory(prefix="gcv_train_") as tmp:
+            t = time.perf_counter()
+            phase_train(torch, np, dev, card, tmp, args.profile)
+            log(f"phase 13: {time.perf_counter() - t:.1f} s")
+        log(f"chip_smoke --train-only: phase 13 passed in {time.perf_counter() - t_all:.1f} s")
+        return 0
     t = time.perf_counter()
     kernels = (phase_kernels(torch, dev, card) + phase_fused(torch, dev, card)
                + [phase_k7(torch, dev, card)])
@@ -2987,6 +3516,11 @@ def main() -> int:
         t = time.perf_counter()
         serving = phase_serve(torch, np, dev, card, tmp, video.pop("corpus"))
         log(f"phase 12: {time.perf_counter() - t:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        training = phase_train(torch, np, dev, card, tmp, args.profile)
+        log(f"phase 13: {time.perf_counter() - t:.1f} s")
     for name, r in runs.items():
         log(f"summary [{name}]: V=8 {r['v8_videos_s']:.2f} videos/s ({r['v8_ms']:.2f} "
             f"ms/launch), V=1 {r['v1_ms']:.2f} ms/launch (synchronized median "
@@ -3014,6 +3548,17 @@ def main() -> int:
     log(f"summary [stream]: {STREAM_BATCHES} V=8 batches {min(st['stream']):.2f} ms (best of "
         f"{len(st['stream'])}) against {min(st['sequential']):.2f} ms one predict_videos_batched "
         f"call after another; peak device memory over phase 12 {serving['peak_gib']:.2f} GiB [{card}]")
+    for name in ("f32", "bf16"):
+        r = training["timing"][name]
+        log(f"summary [train {name}]: genconvit, convnext_tiny, 224 px, batch {TRAIN_BATCH}: "
+            f"median {r['steps_s']:.3f} steps/s ({r['images_s']:.2f} images/s, runs "
+            f"{r['spread'][0]:.3f}-{r['spread'][1]:.3f} steps/s), peak device memory "
+            f"{r['peak_gib']:.2f} GiB [{card}]")
+    for (name, n), r in training["rec"].items():
+        if name != "f32":
+            log(f"summary [train 13a {name} N={n}]: loss rel {r['dloss']:.2e}; grad rel L2 ed "
+                f"{r['errs']['ed'][0]:.3e}, vae {r['errs']['vae'][0]:.3e}; launches a step "
+                f"{ {k: v for k, v in r['counts'].items() if v} } [{card}]")
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_all:.1f} s [{card}]")
     # each kernel's launches: the count of the run whose main path runs it
     # (the counts were set to 0 just before its requests)

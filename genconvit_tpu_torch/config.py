@@ -1,5 +1,5 @@
 """Model configuration (port of genconvit_tpu/config.py:20-120): the fields
-the scoring path and the drivers read, as plain dataclasses.
+the scoring path, the drivers and training read, as plain dataclasses.
 
 `load_config` reads the reference's `model/config.yaml` with a reader of
 this module's own (`parse_yaml`): the block-mapping subset that file uses
@@ -38,8 +38,14 @@ class ModelConfig:
 @dataclasses.dataclass
 class Config:
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
+    # training (ref model/config.yaml; genconvit_tpu/config.py:49-55)
+    batch_size: int = 32
+    epoch: int = 1
+    learning_rate: float = 1e-4
+    weight_decay: float = 1e-4
     num_classes: int = 2
     img_size: int = _DEFAULT_IMG_SIZE
+    min_val_loss: float = 10000.0
     # 'float32' picks the device's default (bfloat16 on CUDA, float32 on
     # the CPU); 'bfloat16' asks for it anywhere
     compute_dtype: str = "float32"
@@ -67,8 +73,7 @@ class Config:
 
     @staticmethod
     def from_dict(d: Dict[str, Any]) -> "Config":
-        """Unknown keys (the training fields the port does not read yet) are
-        ignored, as in the JAX package."""
+        """Unknown keys are ignored, as in the JAX package."""
         d = dict(d)
         md = d.pop("model", {}) or {}
         known_m = {f.name for f in dataclasses.fields(ModelConfig)}

@@ -14,6 +14,10 @@ the subset of msgpack that flax produces:
   an array above flax's MAX_CHUNK_SIZE (2^30 bytes) split in flat chunks,
   which every real VAE checkpoint has (its f32 latent heads are 1.26 GB).
 
+A training checkpoint's "opt_state" is the optimizer state in the layout
+`flax.serialization.to_state_dict(tx.init(params))` gives for the JAX
+package's optimizer (`opt_state_tree`, `restore_opt_state`).
+
 Arrays are views of the file's buffer (`np.frombuffer`, no copy each), so
 reading takes about the file's size once more for the chunked arrays'
 joins. bfloat16 arrays (numpy has no such dtype) come back as
@@ -24,12 +28,13 @@ from __future__ import annotations
 
 import os
 import struct
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
-from genconvit_tpu_torch.core.convert import state_dict_from_jax, state_dict_from_reference
+from genconvit_tpu_torch.core.convert import (state_dict_from_jax, state_dict_from_reference,
+                                              tree_from_state_dict)
 
 FORMAT = "genconvit_tpu.ckpt.v1"
 MAX_CHUNK_SIZE = 2**30   # flax.serialization.MAX_CHUNK_SIZE
@@ -333,3 +338,82 @@ def resolve_weight(weight_dir: str, name: str) -> Optional[str]:
         if os.path.isfile(p):
             return p
     return None
+
+
+# ------------------------------------------------------------------ optimizer state
+
+
+def _state_dict_form(tree: Any) -> Any:
+    """flax.serialization.to_state_dict of a tree of dicts and lists: each
+    list becomes a dict keyed "0", "1", ..."""
+    if isinstance(tree, dict):
+        return {k: _state_dict_form(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return {str(i): _state_dict_form(v) for i, v in enumerate(tree)}
+    return tree
+
+
+def _list_form(tree: Any) -> Any:
+    """The inverse of _state_dict_form for a parameter tree (none of whose
+    dicts is keyed by indices)."""
+    if isinstance(tree, dict):
+        if tree and set(tree) == {str(i) for i in range(len(tree))}:
+            return [_list_form(tree[str(i)]) for i in range(len(tree))]
+        return {k: _list_form(v) for k, v in tree.items()}
+    return tree
+
+
+def opt_state_tree(optimizer: torch.optim.Optimizer,
+                   branches: Mapping[str, torch.nn.Module]) -> Dict[str, Any]:
+    """The torch Adam's state (`train/optim.make_optimizer`) in the layout of
+    the JAX package's optax state (inject_hyperparams over chain(masked
+    decay, scale_by_adam, scale)) as to_state_dict flattens it: top-level
+    count and hyperparams.lr, the masked decay's empty state ("0"), Adam's
+    count, mu and nu ("1") as trees of each branch's parameters (the
+    BatchNorm running statistics' moments, which optax keeps and which stay
+    zero, as zeros), the scale's empty state ("2")."""
+    count = 0
+    mu: Dict[str, Any] = {}
+    nu: Dict[str, Any] = {}
+    for name, module in branches.items():
+        params = dict(module.named_parameters())
+        mu_sd, nu_sd = {}, {}
+        for key, v in module.state_dict().items():
+            st = optimizer.state.get(params[key], {}) if key in params else {}
+            if "step" in st:
+                count = int(st["step"])
+            mu_sd[key] = st.get("exp_avg", torch.zeros_like(v))
+            nu_sd[key] = st.get("exp_avg_sq", torch.zeros_like(v))
+        mu[name] = tree_from_state_dict(mu_sd, name)
+        nu[name] = tree_from_state_dict(nu_sd, name)
+    lr = optimizer.param_groups[0]["lr"]
+    cnt = np.asarray(count, np.int32)
+    return {"count": cnt, "hyperparams": {"lr": np.asarray(lr, np.float32)},
+            "hyperparams_states": {},
+            "inner_state": {"0": {"inner_state": {}},
+                            "1": {"count": cnt.copy(), "mu": _state_dict_form(mu),
+                                  "nu": _state_dict_form(nu)},
+                            "2": {}}}
+
+
+def restore_opt_state(optimizer: torch.optim.Optimizer, branches: Mapping[str, torch.nn.Module],
+                      saved: Mapping[str, Any]) -> None:
+    """Load an optimizer state of `opt_state_tree`'s layout, written by
+    either package, into the torch Adam over `branches`' parameters: the
+    learning rate, and Adam's count and moments per parameter."""
+    lr = float(np.asarray(saved["hyperparams"]["lr"]))
+    adam = saved["inner_state"]["1"]
+    count = int(np.asarray(adam["count"]))
+    for group in optimizer.param_groups:
+        group["lr"] = lr
+    for name, module in branches.items():
+        mu = state_dict_from_jax(_list_form(adam["mu"][name]), name)
+        nu = state_dict_from_jax(_list_form(adam["nu"][name]), name)
+        for key, p in module.named_parameters():
+            if count == 0:
+                optimizer.state.pop(p, None)
+                continue
+            optimizer.state[p] = {
+                "step": torch.tensor(float(count)),
+                "exp_avg": mu[key].to(p.device, p.dtype).contiguous(),
+                "exp_avg_sq": nu[key].to(p.device, p.dtype).contiguous()}

@@ -28,13 +28,21 @@ Four paths, chosen per call as the JAX package chooses them
     float32 and the LN-folded block in bfloat16, each with the plan's GELU,
     as the JAX package's _block chooses (convnext.py:193-198).
 
+Serving folds or packs the weights once (`prepare_kernels`). Training
+(`per_call_folds=True`) takes the same kernels through three autograd Functions that
+fold or pack from the tensors of the call, in their forward, and whose
+backward is autograd of the reference graph recomputed, as the JAX
+package's custom VJPs (convnext.py:160-227, 350-433): `KernelBackbone`
+(K2 + K1 or K4), `FusedBlock` (K5) and `FusedStage` (K6). The LN-folded
+blocks around K5 and K6 fold per call with a graph (`Block.fold_ln`).
+
 Activations are NCHW in channels_last memory, so the NHWC view the kernels
 read as [N*H*W, C] rows is the tensor's own storage.
 """
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Optional, Tuple, Union
+from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn as nn
@@ -79,9 +87,10 @@ def _nchw(x: torch.Tensor) -> torch.Tensor:
 def f32_product(d: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """d [..., K] . w [K, N] with a float32 result from d's dtype (JAX's
     preferred_element_type=float32): torch.mm's out_dtype for bf16 on CUDA,
-    the upcast product elsewhere. The same numbers up to summation order: a
-    bf16 product is exact in float32."""
-    if d.is_cuda and d.dtype == torch.bfloat16:
+    the upcast product elsewhere and wherever a gradient is taken. The same
+    numbers up to summation order: a bf16 product is exact in float32."""
+    grad = torch.is_grad_enabled() and (d.requires_grad or w.requires_grad)
+    if d.is_cuda and d.dtype == torch.bfloat16 and not grad:
         z = torch.mm(d.reshape(-1, d.shape[-1]), w, out_dtype=torch.float32)
         return z.reshape(d.shape[:-1] + (w.shape[-1],))
     return d.float() @ w.float()
@@ -112,6 +121,61 @@ class LNFold(NamedTuple):
     bw: torch.Tensor   # [4C] f32: ln_bias @ W1 + b1
 
 
+class BlockTensors(NamedTuple):
+    """A block's weights in torch layout, as the functions below take them."""
+    dw_weight: torch.Tensor   # [C, 1, 7, 7]
+    dw_bias: torch.Tensor     # [C]
+    ln_weight: torch.Tensor   # [C]
+    ln_bias: torch.Tensor     # [C]
+    fc1_weight: torch.Tensor  # [4C, C]
+    fc1_bias: torch.Tensor    # [4C]
+    fc2_weight: torch.Tensor  # [C, 4C]
+    fc2_bias: torch.Tensor    # [C]
+    gamma: torch.Tensor       # [C]
+
+
+def depthwise(x: torch.Tensor, t: BlockTensors) -> torch.Tensor:
+    return conv2d(x, t.dw_weight, t.dw_bias, padding=3, groups=x.shape[1])
+
+
+def block_reference(x: torch.Tensor, t: BlockTensors, gelu_tier: str = "default") -> torch.Tensor:
+    """The plain block (genconvit_tpu/models/convnext.py:106-115, _block_xla)."""
+    h = _nhwc(depthwise(x, t))
+    h = layer_norm(h, t.ln_weight, t.ln_bias, LN_EPS)
+    h = F.linear(h, t.fc1_weight, t.fc1_bias)
+    h = gelu(h, gelu_tier)
+    h = F.linear(h, t.fc2_weight, t.fc2_bias)
+    h = h * t.gamma.to(h.dtype)
+    return x + _nchw(h)
+
+
+def block_folded(x: torch.Tensor, t: BlockTensors, gelu_tier: str, fold: LNFold) -> torch.Tensor:
+    """The block with its LayerNorm folded into fc1, as the JAX package
+    runs a bf16 block outside its kernels (_block_xla_folded,
+    convnext.py:118-157): one-pass f32 moments of the depthwise output
+    d, z = d . wg in f32, y = ((z - mean * gw) * rsqrt(var + eps) + bw)
+    in the activations' dtype, then GELU, fc2 and the layer scale in it."""
+    d = _nhwc(depthwise(x, t))
+    mean, inv = _row_moments(d.float())
+    z = f32_product(d, fold.wg)
+    h = ((z - mean * fold.gw) * inv + fold.bw).to(x.dtype)
+    h = gelu(h, gelu_tier)
+    h = F.linear(h, t.fc2_weight, t.fc2_bias)
+    h = h * t.gamma.to(h.dtype)
+    return x + _nchw(h)
+
+
+def ln_fold(t: BlockTensors) -> LNFold:
+    """The LayerNorm fold of block_folded, in f32 from the given weights; wg
+    in the weights' dtype. Differentiable, as the JAX package's fold inside
+    the block."""
+    w1 = t.fc1_weight.float().t()
+    s = t.ln_weight.float()
+    return LNFold(wg=(s[:, None] * w1).to(t.fc1_weight.dtype).contiguous(),
+                  gw=(s @ w1).contiguous(),
+                  bw=(t.ln_bias.float() @ w1 + t.fc1_bias.float()).contiguous())
+
+
 class Block(nn.Module):
     def __init__(self, dim: int):
         super().__init__()
@@ -120,50 +184,29 @@ class Block(nn.Module):
         self.mlp = Mlp(dim)
         self.gamma = nn.Parameter(torch.empty(dim))
 
+    def tensors(self) -> BlockTensors:
+        return BlockTensors(self.conv_dw.weight, self.conv_dw.bias, self.norm.weight,
+                            self.norm.bias, self.mlp.fc1.weight, self.mlp.fc1.bias,
+                            self.mlp.fc2.weight, self.mlp.fc2.bias, self.gamma)
+
     def dw(self, x: torch.Tensor) -> torch.Tensor:
-        return conv2d(x, self.conv_dw.weight, self.conv_dw.bias, padding=3,
-                      groups=x.shape[1])
+        return depthwise(x, self.tensors())
 
     def forward(self, x: torch.Tensor, gelu_tier: str = "default") -> torch.Tensor:
-        """The plain block (genconvit_tpu/models/convnext.py:106-115)."""
-        h = _nhwc(self.dw(x))
-        h = layer_norm(h, self.norm.weight, self.norm.bias, LN_EPS)
-        h = F.linear(h, self.mlp.fc1.weight, self.mlp.fc1.bias)
-        h = gelu(h, gelu_tier)
-        h = F.linear(h, self.mlp.fc2.weight, self.mlp.fc2.bias)
-        h = h * self.gamma.to(h.dtype)
-        return x + _nchw(h)
+        """The plain block (`block_reference`)."""
+        return block_reference(x, self.tensors(), gelu_tier)
 
     def forward_folded(self, x: torch.Tensor, gelu_tier: str, fold: LNFold) -> torch.Tensor:
-        """The block with its LayerNorm folded into fc1, as the JAX package
-        runs a bf16 block outside its kernels (_block_xla_folded,
-        convnext.py:118-157): one-pass f32 moments of the depthwise output
-        d, z = d . wg in f32, y = ((z - mean * gw) * rsqrt(var + eps) + bw)
-        in the activations' dtype, then GELU, fc2 and the layer scale in it."""
-        d = _nhwc(self.dw(x))
-        mean, inv = _row_moments(d.float())
-        z = f32_product(d, fold.wg)
-        h = ((z - mean * fold.gw) * inv + fold.bw).to(x.dtype)
-        h = gelu(h, gelu_tier)
-        h = F.linear(h, self.mlp.fc2.weight, self.mlp.fc2.bias)
-        h = h * self.gamma.to(h.dtype)
-        return x + _nchw(h)
+        """The LN-folded block (`block_folded`) with the fold given."""
+        return block_folded(x, self.tensors(), gelu_tier, fold)
 
     def fold_ln(self) -> LNFold:
-        """The LayerNorm fold of forward_folded, in f32 from the current
-        weights; wg in the weights' dtype. Differentiable, as the JAX
-        package's fold inside the block; prepare_kernels stores it without
-        a graph."""
-        w1 = self.mlp.fc1.weight.float().t()
-        s = self.norm.weight.float()
-        return LNFold(wg=(s[:, None] * w1).to(self.mlp.fc1.weight.dtype).contiguous(),
-                      gw=(s @ w1).contiguous(),
-                      bw=(self.norm.bias.float() @ w1 + self.mlp.fc1.bias.float()).contiguous())
+        """`ln_fold` of the current weights: differentiable; prepare_kernels
+        stores it without a graph."""
+        return ln_fold(self.tensors())
 
     def _fold_args(self):
-        return (self.norm.weight, self.norm.bias, self.mlp.fc1.weight,
-                self.mlp.fc1.bias, self.mlp.fc2.weight, self.mlp.fc2.bias,
-                self.gamma)
+        return tuple(self.tensors())[2:]
 
     def fold(self) -> FoldedMLP:
         """The MLP folds, matrices in the weights' dtype (bf16 on the
@@ -178,10 +221,7 @@ class Block(nn.Module):
     def pack_fused(self) -> FusedBlockWeights:
         """The block's weights as K5 and K6 read them (matrices in the
         weights' dtype, bf16 on the kernel path)."""
-        return pack_block(self.conv_dw.weight, self.conv_dw.bias, self.norm.weight,
-                          self.norm.bias, self.mlp.fc1.weight, self.mlp.fc1.bias,
-                          self.mlp.fc2.weight, self.mlp.fc2.bias, self.gamma,
-                          self.mlp.fc1.weight.dtype)
+        return pack_block(*self.tensors(), self.mlp.fc1.weight.dtype)
 
 
 class Stage(nn.Module):
@@ -236,6 +276,185 @@ def backbone_path(x: torch.Tensor, plan: KernelPlan) -> str:
     return "kernels" if plan.gelu != "exact" else "plain"
 
 
+class FeatureTensors(NamedTuple):
+    """The tensors the features read (the head aside), in torch layout: the
+    stem (conv weight, conv bias, LN scale, LN bias), per stage its
+    downsample (LN scale, LN bias, conv weight, conv bias) or None, and
+    its blocks. `flat` and `unflat` take it to and from the flat tuple an
+    autograd Function takes."""
+    stem: Tuple[torch.Tensor, ...]
+    downsample: Tuple[Optional[Tuple[torch.Tensor, ...]], ...]
+    blocks: Tuple[Tuple[BlockTensors, ...], ...]
+
+    def layout(self) -> Tuple[Tuple[bool, int], ...]:
+        return tuple((ds is not None, len(bl)) for ds, bl in zip(self.downsample, self.blocks))
+
+    def flat(self) -> List[torch.Tensor]:
+        out = list(self.stem)
+        for ds, blocks in zip(self.downsample, self.blocks):
+            out += list(ds or ())
+            for t in blocks:
+                out += list(t)
+        return out
+
+    @staticmethod
+    def unflat(layout, tensors: Sequence[torch.Tensor]) -> "FeatureTensors":
+        it = iter(tensors)
+        stem = tuple(next(it) for _ in range(4))
+        downsample, blocks = [], []
+        for has_ds, n in layout:
+            downsample.append(tuple(next(it) for _ in range(4)) if has_ds else None)
+            blocks.append(tuple(BlockTensors(*(next(it) for _ in BlockTensors._fields))
+                                for _ in range(n)))
+        return FeatureTensors(stem, tuple(downsample), tuple(blocks))
+
+
+@torch.no_grad()
+def kernel_weights(ft: FeatureTensors, int8_mlp: str = "") -> KernelWeights:
+    """The kernel backbone's folds from `ft`, in f32 (matrices in the
+    weights' dtype): K1's, or K4's of int8 mode 'fc1' or 'full'. No
+    autograd graph: it would keep each fold's f32 intermediates alive."""
+    def f32(scale, bias):
+        return scale.float().contiguous(), bias.float().contiguous()
+
+    post_ln = [None if ds is None else f32(*ds[:2]) for ds in ft.downsample[1:]] + [None]
+    blocks = [[fold_block_mlp_int8(*tuple(t)[2:], int8_mlp, t.fc1_weight.dtype) if int8_mlp
+               else fold_block_mlp(*tuple(t)[2:], t.fc1_weight.dtype) for t in stage]
+              for stage in ft.blocks]
+    return KernelWeights(stem_ln=f32(*ft.stem[2:]), blocks=blocks, post_ln=post_ln,
+                         int8_mlp=int8_mlp)
+
+
+def features_kernels(x: torch.Tensor, ft: FeatureTensors, kw: KernelWeights, gelu_tier: str,
+                     tail: Callable, ln_rows: Callable) -> torch.Tensor:
+    """The kernel backbone (JAX _features_mlp_kernel, convnext.py:363-386):
+    stem conv, `ln_rows` (K2) for the stem LN, per block the depthwise conv
+    then `tail` (K1 or K4) with the folds `kw`; the last block of a stage
+    runs the next downsample's LN, whose conv then runs directly."""
+    x = conv2d(x, ft.stem[0], ft.stem[1], stride=4)
+    x = _nchw(ln_rows(_nhwc(x), *kw.stem_ln))
+    for si, (ds, blocks) in enumerate(zip(ft.downsample, ft.blocks)):
+        if ds is not None:
+            # its LN already ran inside the previous stage's last K1
+            x = conv2d(x, ds[2], ds[3], stride=2)
+        last = len(blocks) - 1
+        for bi, t in enumerate(blocks):
+            d = depthwise(x, t)
+            post = kw.post_ln[si] if bi == last else None
+            x = _nchw(tail(_nhwc(d), _nhwc(x), kw.blocks[si][bi], post, gelu_tier))
+    return x
+
+
+def features_reference(x: torch.Tensor, ft: FeatureTensors, gelu_tier: str) -> torch.Tensor:
+    """The reference features graph (the JAX package's _features_mlp_bwd
+    graph, convnext.py:413-430): plain stem conv and LN, plain downsample
+    LN and conv, and the unfolded block (`block_reference`)."""
+    x = conv2d(x, ft.stem[0], ft.stem[1], stride=4)
+    x = layer_norm_2d(x, ft.stem[2], ft.stem[3], LN_EPS)
+    for ds, blocks in zip(ft.downsample, ft.blocks):
+        if ds is not None:
+            x = conv2d(layer_norm_2d(x, ds[0], ds[1], LN_EPS), ds[2], ds[3], stride=2)
+        for t in blocks:
+            x = block_reference(x, t, gelu_tier)
+    return x
+
+
+def _reference_vjp(graph: Callable, x: torch.Tensor, tensors: Sequence[torch.Tensor],
+                   g: torch.Tensor, needs: Sequence[bool]) -> tuple:
+    """The gradients of graph(x, tensors) against cotangent g, by autograd
+    of the graph recomputed from detached copies: None where not needed."""
+    with torch.enable_grad():
+        xs = x.detach().requires_grad_(needs[0])
+        ts = [t.detach().requires_grad_(n) for t, n in zip(tensors, needs[1:])]
+        out = graph(xs, ts)
+        wanted = [v for v, n in zip([xs] + ts, needs) if n]
+        got = iter(torch.autograd.grad(out, wanted, g, allow_unused=True) if wanted else ())
+    return tuple(next(got) if n else None for n in needs)
+
+
+class KernelBackbone(torch.autograd.Function):
+    """The kernel backbone, differentiable (JAX _features_mlp_kernel with its
+    custom VJP, convnext.py:350-433). Forward: `features_kernels` with folds
+    made under no_grad from the tensors of the call (`kernel_weights`) on
+    every call; backward: autograd of `features_reference` recomputed.
+    `kernels` = (tail, ln_rows): the CUDA wrappers on the main path, their
+    plain versions in the CPU tests."""
+
+    @staticmethod
+    def forward(ctx, layout, gelu_tier: str, int8_mlp: str, kernels, x, *tensors):
+        ft = FeatureTensors.unflat(layout, tensors)
+        out = features_kernels(x, ft, kernel_weights(ft, int8_mlp), gelu_tier, *kernels)
+        ctx.save_for_backward(x, *tensors)
+        ctx.layout, ctx.gelu_tier = layout, gelu_tier
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, *tensors = ctx.saved_tensors
+        layout, tier = ctx.layout, ctx.gelu_tier
+        grads = _reference_vjp(
+            lambda v, ts: features_reference(v, FeatureTensors.unflat(layout, ts), tier),
+            x, tensors, g, ctx.needs_input_grad[4:])
+        return (None, None, None, None) + grads
+
+
+class FusedBlock(torch.autograd.Function):
+    """One block through a fused-block kernel, differentiable (JAX
+    _block_pallas_op, convnext.py:160-179). Forward: `kernel` (K5, or its
+    plain version) on the block packed from the tensors of the call;
+    backward: autograd of `block_reference` recomputed."""
+
+    @staticmethod
+    def forward(ctx, gelu_tier: str, kernel, x, *tensors):
+        t = BlockTensors(*tensors)
+        out = _nchw(kernel(_nhwc(x), pack_block(*t, t.fc1_weight.dtype)))
+        ctx.save_for_backward(x, *tensors)
+        ctx.gelu_tier = gelu_tier
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, *tensors = ctx.saved_tensors
+        tier = ctx.gelu_tier
+        grads = _reference_vjp(lambda v, ts: block_reference(v, BlockTensors(*ts), tier),
+                               x, tensors, g, ctx.needs_input_grad[2:])
+        return (None, None) + grads
+
+
+def _chain(tensors: Sequence[torch.Tensor]) -> List[BlockTensors]:
+    k = len(BlockTensors._fields)
+    return [BlockTensors(*tensors[i:i + k]) for i in range(0, len(tensors), k)]
+
+
+class FusedStage(torch.autograd.Function):
+    """A stage's chain of blocks through a fused-stage kernel, differentiable
+    (JAX _stage_pallas_op, convnext.py:201-227). Forward: `kernel` (K6, or
+    its plain version) on the chain packed and stacked from the tensors of
+    the call; backward: autograd of the chain of `block_reference`s
+    recomputed."""
+
+    @staticmethod
+    def forward(ctx, gelu_tier: str, kernel, x, *tensors):
+        packs = [pack_block(*t, t.fc1_weight.dtype) for t in _chain(tensors)]
+        out = _nchw(kernel(_nhwc(x), stack_blocks(packs)))
+        ctx.save_for_backward(x, *tensors)
+        ctx.gelu_tier = gelu_tier
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, *tensors = ctx.saved_tensors
+        tier = ctx.gelu_tier
+
+        def chain(v, ts):
+            for t in _chain(ts):
+                v = block_reference(v, t, tier)
+            return v
+
+        grads = _reference_vjp(chain, x, tensors, g, ctx.needs_input_grad[2:])
+        return (None, None) + grads
+
+
 class ConvNeXt(nn.Module):
     def __init__(self, depths=(3, 3, 9, 3), dims=(96, 192, 384, 768),
                  num_classes: int = 1000):
@@ -256,21 +475,21 @@ class ConvNeXt(nn.Module):
     def from_name(cls, name: str, num_classes: int = 1000) -> "ConvNeXt":
         return cls(num_classes=num_classes, **CONVNEXT_CFGS[name])
 
-    @torch.no_grad()
-    def fold_kernel_weights(self, int8_mlp: str = "") -> KernelWeights:
-        """The kernel backbone's folds, computed in f32 from the module's
-        current weights: K1's, or K4's of int8 mode 'fc1' or 'full'. No
-        autograd graph: it would keep each fold's f32 intermediates alive."""
-        def f32(ln):
-            return ln.weight.float().contiguous(), ln.bias.float().contiguous()
+    def feature_tensors(self) -> FeatureTensors:
+        """The features' tensors as the module holds them now (under
+        torch.func.functional_call, the ones substituted)."""
+        stem = (self.stem[0].weight, self.stem[0].bias, self.stem[1].weight, self.stem[1].bias)
+        downsample = tuple(
+            None if st.downsample is None else
+            (st.downsample[0].weight, st.downsample[0].bias, st.downsample[1].weight,
+             st.downsample[1].bias) for st in self.stages)
+        blocks = tuple(tuple(blk.tensors() for blk in st.blocks) for st in self.stages)
+        return FeatureTensors(stem, downsample, blocks)
 
-        post_ln = [f32(nxt.downsample[0]) if nxt.downsample is not None else None
-                   for nxt in list(self.stages)[1:]] + [None]
-        return KernelWeights(
-            stem_ln=f32(self.stem[1]),
-            blocks=[[blk.fold_int8(int8_mlp) if int8_mlp else blk.fold()
-                     for blk in stage.blocks] for stage in self.stages],
-            post_ln=post_ln, int8_mlp=int8_mlp)
+    def fold_kernel_weights(self, int8_mlp: str = "") -> KernelWeights:
+        """The kernel backbone's folds from the module's current weights
+        (`kernel_weights`)."""
+        return kernel_weights(self.feature_tensors(), int8_mlp)
 
     @torch.no_grad()
     def pack_fused_weights(self, pallas: str) -> FusedWeights:
@@ -331,33 +550,48 @@ class ConvNeXt(nn.Module):
         ln, conv = stage.downsample
         return conv2d(ln(x), conv.weight, conv.bias, stride=2)
 
-    def _features_block(self, x: torch.Tensor, gelu_tier: str) -> torch.Tensor:
+    def _features_block(self, x: torch.Tensor, gelu_tier: str,
+                        per_call: bool = False) -> torch.Tensor:
         """The fused-block backbone (pallas '1'): K5 where
         block_kernel_applies(H), the LN-folded block (plan's GELU)
-        elsewhere."""
-        fw = self._fused("1")
+        elsewhere. Serving reads prepare_kernels's packs and folds; training
+        packs per call (`FusedBlock`) and folds per call with a graph
+        (`Block.fold_ln`)."""
+        fw = None if per_call else self._fused("1")
         x = self._stem_plain(x)
         for si, stage in enumerate(self.stages):
             x = self._downsample_plain(stage, x)
             for bi, blk in enumerate(stage.blocks):
                 if block_kernel_applies(x.shape[2]):
-                    x = _nchw(fused_convnext_block(_nhwc(x), fw.stages[si][bi]))
+                    if per_call:
+                        x = FusedBlock.apply(gelu_tier, fused_convnext_block, x,
+                                             *blk.tensors())
+                    else:
+                        x = _nchw(fused_convnext_block(_nhwc(x), fw.stages[si][bi]))
                 else:
-                    x = blk.forward_folded(x, gelu_tier, fw.ln_folds[si][bi])
+                    fold = blk.fold_ln() if per_call else fw.ln_folds[si][bi]
+                    x = blk.forward_folded(x, gelu_tier, fold)
         return x
 
-    def _features_stage(self, x: torch.Tensor, gelu_tier: str) -> torch.Tensor:
+    def _features_stage(self, x: torch.Tensor, gelu_tier: str,
+                        per_call: bool = False) -> torch.Tensor:
         """The fused-stage backbone (pallas 'stage'): K6 on a stage where
-        stage_kernel_applies(H, C), the LN-folded blocks elsewhere."""
-        fw = self._fused("stage")
+        stage_kernel_applies(H, C), the LN-folded blocks elsewhere; per call
+        in training (`FusedStage`, `Block.fold_ln`)."""
+        fw = None if per_call else self._fused("stage")
         x = self._stem_plain(x)
         for si, stage in enumerate(self.stages):
             x = self._downsample_plain(stage, x)
             if stage_kernel_applies(x.shape[2], x.shape[1]):
-                x = _nchw(fused_convnext_stage(_nhwc(x), fw.stages[si]))
+                if per_call:
+                    x = FusedStage.apply(gelu_tier, fused_convnext_stage, x,
+                                         *(t for blk in stage.blocks for t in blk.tensors()))
+                else:
+                    x = _nchw(fused_convnext_stage(_nhwc(x), fw.stages[si]))
             else:
                 for bi, blk in enumerate(stage.blocks):
-                    x = blk.forward_folded(x, gelu_tier, fw.ln_folds[si][bi])
+                    fold = blk.fold_ln() if per_call else fw.ln_folds[si][bi]
+                    x = blk.forward_folded(x, gelu_tier, fold)
         return x
 
     def _features_kernels(self, x: torch.Tensor, gelu_tier: str,
@@ -370,33 +604,30 @@ class ConvNeXt(nn.Module):
                 f"kernel backbone folded for int8_mlp={kw.int8_mlp!r}, run with "
                 f"{int8_mlp!r}: call prepare_kernels(plan) with this plan")
         tail = ln_mlp_residual_int8 if int8_mlp else ln_mlp_residual
-        x = conv2d(x, self.stem[0].weight, self.stem[0].bias, stride=4)
-        x = _nchw(layer_norm_rows(_nhwc(x), *kw.stem_ln))
-        for si, stage in enumerate(self.stages):
-            if stage.downsample is not None:
-                # its LN already ran inside the previous stage's last K1
-                conv = stage.downsample[1]
-                x = conv2d(x, conv.weight, conv.bias, stride=2)
-            last = len(stage.blocks) - 1
-            for bi, blk in enumerate(stage.blocks):
-                d = blk.dw(x)
-                post = kw.post_ln[si] if bi == last else None
-                x = _nchw(tail(_nhwc(d), _nhwc(x), kw.blocks[si][bi], post,
-                               gelu_tier))
-        return x
+        return features_kernels(x, self.feature_tensors(), kw, gelu_tier, tail, layer_norm_rows)
 
-    def features(self, x: torch.Tensor, plan: KernelPlan = DEFAULT_PLAN) -> torch.Tensor:
-        """[N,3,H,W] -> [N,C,H/32,W/32] (pre-head)."""
+    def features(self, x: torch.Tensor, plan: KernelPlan = DEFAULT_PLAN,
+                 per_call_folds: bool = False) -> torch.Tensor:
+        """[N,3,H,W] -> [N,C,H/32,W/32] (pre-head). per_call_folds: the
+        kernel paths fold or pack from the module's tensors on every call
+        and are differentiable (training; module docstring); otherwise they
+        read prepare_kernels's folds."""
         path = backbone_path(x, plan)
         if path == "kernels":
+            if per_call_folds:
+                ft = self.feature_tensors()
+                tail = ln_mlp_residual_int8 if plan.int8_mlp else ln_mlp_residual
+                return KernelBackbone.apply(ft.layout(), plan.gelu, plan.int8_mlp,
+                                            (tail, layer_norm_rows), x, *ft.flat())
             return self._features_kernels(x, plan.gelu, plan.int8_mlp)
         if path == "1":
-            return self._features_block(x, plan.gelu)
+            return self._features_block(x, plan.gelu, per_call_folds)
         if path == "stage":
-            return self._features_stage(x, plan.gelu)
+            return self._features_stage(x, plan.gelu, per_call_folds)
         return self._features_plain(x, plan.gelu)
 
-    def forward(self, x: torch.Tensor, plan: KernelPlan = DEFAULT_PLAN) -> torch.Tensor:
-        x = self.features(x, plan).mean(dim=(2, 3))
+    def forward(self, x: torch.Tensor, plan: KernelPlan = DEFAULT_PLAN,
+                per_call_folds: bool = False) -> torch.Tensor:
+        x = self.features(x, plan, per_call_folds).mean(dim=(2, 3))
         x = layer_norm(x, self.head.norm.weight, self.head.norm.bias, LN_EPS)
         return F.linear(x, self.head.fc.weight, self.head.fc.bias)

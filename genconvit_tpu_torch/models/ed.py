@@ -64,13 +64,15 @@ class GenConViTED(nn.Module):
         self.fc = nn.Linear(num_features, num_features // 4)
         self.fc2 = nn.Linear(num_features // 4, num_classes)
 
-    def forward(self, images: torch.Tensor,
-                plan: KernelPlan = DEFAULT_PLAN) -> torch.Tensor:
-        """images: [N,3,H,W] normalized -> logits [N, num_classes]."""
+    def forward(self, images: torch.Tensor, plan: KernelPlan = DEFAULT_PLAN,
+                per_call_folds: bool = False) -> torch.Tensor:
+        """images: [N,3,H,W] normalized -> logits [N, num_classes].
+        per_call_folds: the backbone's kernel paths fold per call and are
+        differentiable (training)."""
         dec = self.decoder(self.encoder(images))
         both = torch.cat([dec, images], dim=0).contiguous(
             memory_format=torch.channels_last)
-        feats = self.backbone(both, plan)
+        feats = self.backbone(both, plan, per_call_folds)
         n = images.shape[0]
         x = gelu(torch.cat([feats[:n], feats[n:]], dim=1), plan.gelu)
         x = gelu(F.linear(x, self.fc.weight, self.fc.bias), plan.gelu)

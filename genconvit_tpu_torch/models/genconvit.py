@@ -3,12 +3,14 @@
 net='ed' -> ED logits; 'vae' -> VAE logits; 'genconvit' -> both,
 concatenated on the batch axis with the ED rows first (ref
 model/genconvit.py:71-74), so the per-frame sigmoid mean downstream is
-also the ensemble average.
+also the ensemble average. With train=True the forward returns (logits,
+aux) as genconvit_apply(train=True) does: aux holds the VAE branch's
+reconstruction, KL term, mu, logvar and BatchNorm statistics under 'vae_*'.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import Any, Dict, List, Optional
 
 import torch
 import torch.nn as nn
@@ -55,12 +57,26 @@ class GenConViT(nn.Module):
 
     def forward(self, x: torch.Tensor, plan: KernelPlan = DEFAULT_PLAN, *,
                 sample: bool = True, generator: Optional[torch.Generator] = None,
-                eps: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """x: [N,3,H,W] normalized -> [N,2] ('ed'/'vae') or [2N,2]."""
+                eps: Optional[torch.Tensor] = None, train: bool = False,
+                return_aux: bool = False):
+        """x: [N,3,H,W] normalized -> [N,2] ('ed'/'vae') or [2N,2]; with
+        train or return_aux, (logits, aux). train: batch statistics in the
+        VAE's BatchNorms and the backbones' differentiable kernel paths;
+        return_aux alone (an eval step during training): running statistics,
+        kernels folded per call, aux with 'vae_recon'."""
         out = []
+        aux: Dict[str, Any] = {}
+        fresh = train or return_aux
         if hasattr(self, "ed"):
-            out.append(self.ed(x, plan))
+            out.append(self.ed(x, plan, fresh))
         if hasattr(self, "vae"):
-            out.append(self.vae(x, plan, sample=sample, generator=generator,
-                                eps=eps))
-        return torch.cat(out, dim=0) if len(out) > 1 else out[0]
+            if fresh:
+                logits, vaux = self.vae(x, plan, sample=sample, generator=generator, eps=eps,
+                                        return_recon=True, train=train, per_call_folds=True)
+                aux.update({f"vae_{k}": v for k, v in vaux.items()} if train
+                           else {"vae_recon": vaux})
+            else:
+                logits = self.vae(x, plan, sample=sample, generator=generator, eps=eps)
+            out.append(logits)
+        logits = torch.cat(out, dim=0) if len(out) > 1 else out[0]
+        return (logits, aux) if fresh else logits

@@ -5,7 +5,11 @@ Encoder 4x [conv3x3 s2 p1 -> BN -> LeakyReLU] (3->16->32->64->128), CHW
 flatten, mu head (25088 -> 12544 at 224 px). Quirk B4 of the reference is
 kept: z = mu + eps * exp(0.5 * mu), sampling in eval too unless
 sample=False. The var head only feeds the training KL term, so scoring
-never computes it; it is kept for the checkpoint. With int8 heads
+never computes it. In training (`train=True`) the BatchNorms take the
+batch's statistics and return the new running ones, and the forward
+returns (logits, aux) with the reconstruction, the KL term (KL_WEIGHT),
+mu, logvar and those statistics, as vae_encode/vae_apply do with
+train=True. With int8 heads
 (`Encoder.quantize_heads_int8_`, models/vae.py:149-178 of the JAX
 package) both heads hold per-output-column int8 weights and the mu head
 runs through K3 (`matmul_wint8`). Decoder: unflatten to
@@ -29,12 +33,13 @@ from genconvit_tpu_torch.ops.act import leaky_relu, relu
 from genconvit_tpu_torch.ops.conv import conv2d, conv_transpose2d
 from genconvit_tpu_torch.ops.cuda.int8_matmul import matmul_wint8
 from genconvit_tpu_torch.ops.kernel_plan import KernelPlan
-from genconvit_tpu_torch.ops.norm import batch_norm
+from genconvit_tpu_torch.ops.norm import batch_norm, batch_norm_train
 from genconvit_tpu_torch.ops.quant import quantize_wint8
 from genconvit_tpu_torch.ops.resize import resize_bilinear_torch
 
 _ENC_CH = (3, 16, 32, 64, 128)
 _DEC_CH = (256, 64, 32, 16, 3)
+KL_WEIGHT = 0.5  # ref model/genconvit_vae.py:40
 
 
 class Int8Linear(nn.Module):
@@ -64,17 +69,31 @@ class Encoder(nn.Module):
         self.mu = nn.Linear(flat, latent)
         self.var = nn.Linear(flat, latent)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """[N,3,H,W] -> mu [N, latent]."""
+    def forward(self, x: torch.Tensor, train: bool = False):
+        """[N,3,H,W] -> mu [N, latent]; with train, (mu, logvar, the four
+        BatchNorms' new running (mean, var))."""
+        stats = []
         for i in range(4):
             conv, bn = self.features[3 * i], self.features[3 * i + 1]
-            x = leaky_relu(batch_norm(conv2d(x, conv.weight, conv.bias,
-                                             stride=2, padding=1), bn))
+            h = conv2d(x, conv.weight, conv.bias, stride=2, padding=1)
+            if train:
+                h, new = batch_norm_train(h, bn)
+                stats.append(new)
+            else:
+                h = batch_norm(h, bn)
+            x = leaky_relu(h)
         # torch flattens in CHW order; flatten(1) of the channels_last
         # tensor gathers exactly that order
+        flat = x.flatten(1)
+        if train:
+            if self.heads_int8:
+                raise ValueError("training runs the float latent heads; int8 heads are "
+                                 "an inference transform")
+            return (F.linear(flat, self.mu.weight, self.mu.bias),
+                    F.linear(flat, self.var.weight, self.var.bias), stats)
         if self.heads_int8:
-            return self.mu(x.flatten(1))
-        return F.linear(x.flatten(1), self.mu.weight, self.mu.bias)
+            return self.mu(flat)
+        return F.linear(flat, self.mu.weight, self.mu.bias)
 
     @property
     def heads_int8(self) -> bool:
@@ -126,11 +145,11 @@ class GenConViTVAE(nn.Module):
         self.fc = nn.Linear(num_features, num_features // 4)
         self.fc2 = nn.Linear(num_features // 4, num_classes)
 
-    def encode(self, x: torch.Tensor, *, sample: bool = True,
-               generator: Optional[torch.Generator] = None,
-               eps: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """z with quirk B4. eps is drawn from `generator` unless given."""
-        mu = self.encoder(x)
+    @staticmethod
+    def sample_z(mu: torch.Tensor, *, sample: bool = True,
+                 generator: Optional[torch.Generator] = None,
+                 eps: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """z from mu with quirk B4. eps is drawn from `generator` unless given."""
         if not sample:
             return mu
         if eps is None:
@@ -140,19 +159,41 @@ class GenConViTVAE(nn.Module):
                               dtype=torch.float32).to(mu.dtype)
         return eps.to(mu.device, mu.dtype) * torch.exp(0.5 * mu) + mu
 
+    def encode(self, x: torch.Tensor, *, sample: bool = True,
+               generator: Optional[torch.Generator] = None,
+               eps: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """z with quirk B4. eps is drawn from `generator` unless given."""
+        return self.sample_z(self.encoder(x), sample=sample, generator=generator, eps=eps)
+
     def forward(self, x: torch.Tensor, plan: KernelPlan = DEFAULT_PLAN, *,
                 sample: bool = True, generator: Optional[torch.Generator] = None,
-                eps: Optional[torch.Tensor] = None, return_recon: bool = False):
+                eps: Optional[torch.Tensor] = None, return_recon: bool = False,
+                train: bool = False, per_call_folds: bool = False):
         """x: [N,3,H,W] normalized -> logits [N, num_classes], and with
         return_recon the reconstruction resized to H x W (torchvision
-        bilinear, antialias), which scoring never reads."""
-        z = self.encode(x, sample=sample, generator=generator, eps=eps)
+        bilinear, antialias), which scoring never reads. train: the
+        BatchNorms on batch statistics, the backbones' differentiable kernel
+        paths, and (logits, aux) as vae_apply(train=True) returns them.
+        per_call_folds alone: the backbones fold per call (an eval step
+        during training)."""
+        if train:
+            mu, logvar, stats = self.encoder(x, train=True)
+            z = self.sample_z(mu, sample=sample, generator=generator, eps=eps)
+        else:
+            z = self.encode(x, sample=sample, generator=generator, eps=eps)
         x_hat = self.decoder(z).contiguous(memory_format=torch.channels_last)
-        x1 = self.convnext_backbone(x, plan)
-        x2 = self.convnext_backbone(x_hat, plan)
+        fresh = train or per_call_folds
+        x1 = self.convnext_backbone(x, plan, fresh)
+        x2 = self.convnext_backbone(x_hat, plan, fresh)
         h = relu(torch.cat([x1, x2], dim=1))
         h = relu(F.linear(h, self.fc.weight, self.fc.bias))
         logits = F.linear(h, self.fc2.weight, self.fc2.bias)
-        if return_recon:
-            return logits, resize_bilinear_torch(x_hat, (x.shape[2], x.shape[3]))
-        return logits
+        if not (train or return_recon):
+            return logits
+        recon = resize_bilinear_torch(x_hat, (x.shape[2], x.shape[3]))
+        if not train:
+            return logits, recon
+        kl = KL_WEIGHT * torch.mean(-0.5 * torch.sum(
+            1.0 + logvar - mu.square() - torch.exp(logvar), dim=1))
+        return logits, {"recon": recon, "kl": kl, "mu": mu, "logvar": logvar,
+                        "bn_stats": stats}

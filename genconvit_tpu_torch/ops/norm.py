@@ -1,10 +1,13 @@
 """Normalization (port of genconvit_tpu/ops/norm.py:16-66).
 
 LayerNorm over the trailing axis with float32 two-pass statistics, and
-eval-mode BatchNorm (running statistics, eps 1e-5) over NCHW channels.
+BatchNorm over NCHW channels (eps 1e-5): eval mode with the running
+statistics, train mode with the batch's.
 """
 
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
@@ -36,3 +39,29 @@ def batch_norm(x: torch.Tensor, bn: torch.nn.BatchNorm2d,
         bn.running_var.float().view(shape) + eps)
     y = y * bn.weight.float().view(shape) + bn.bias.float().view(shape)
     return y.to(x.dtype)
+
+
+def batch_norm_train(x: torch.Tensor, bn: torch.nn.BatchNorm2d, momentum: float = 0.1,
+                     eps: float = 1e-5) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """Train BatchNorm2d (genconvit_tpu/ops/norm.py:33-62): normalize with the
+    batch's float32 statistics (biased variance); return the output and the
+    new running statistics, (1 - m) * old + m * batch with the unbiased
+    variance, without touching the module's buffers (a rematerialized
+    forward runs twice and would apply the momentum twice). The old
+    statistic is taken in its own dtype, as the JAX package's
+    `(1 - momentum) * params["mean"]` (a weakly typed scalar keeps a
+    bfloat16 array bfloat16); the sum with the float32 batch term is
+    float32."""
+    shape = (1, -1, 1, 1)
+    x32 = x.float()
+    mean = x32.mean(dim=(0, 2, 3))
+    var = (x32 - mean.view(shape)).square().mean(dim=(0, 2, 3))
+    with torch.no_grad():
+        n = x.shape[0] * x.shape[2] * x.shape[3]
+        unbiased = var * (n / max(n - 1, 1))
+        keep = torch.tensor(1 - momentum, dtype=bn.running_mean.dtype)
+        new = (bn.running_mean * keep + momentum * mean,
+               bn.running_var * keep + momentum * unbiased)
+    y = (x32 - mean.view(shape)) * torch.rsqrt(var.view(shape) + eps)
+    y = y * bn.weight.float().view(shape) + bn.bias.float().view(shape)
+    return y.to(x.dtype), new

@@ -1,5 +1,5 @@
 """The port stands alone: importing every module of genconvit_tpu_torch
-loads no JAX, flax, yaml, msgpack or genconvit_tpu, no cv2, sklearn or
+loads no JAX, flax, optax, yaml, msgpack or genconvit_tpu, no cv2, sklearn or
 matplotlib (the host libraries stay lazy) and builds no kernel; its
 sources carry no such import and no torch.compile; chip_smoke.py refuses
 to run without CUDA before it builds anything."""
@@ -23,7 +23,8 @@ for n in names:
     importlib.import_module(n)
 from genconvit_tpu_torch.ops.cuda import _build
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "yaml", "msgpack", "genconvit_tpu",
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "yaml", "msgpack",
+                                    "genconvit_tpu",
                                     "triton", "cv2", "sklearn", "matplotlib"))
 print(json.dumps({"modules": names, "bad": bad, "built": _build.is_loaded()}))
 """
@@ -50,14 +51,15 @@ def test_importing_every_module_loads_nothing_forbidden():
                  "infer.result", "utils.timing", "prediction", "device", "evalx.metrics",
                  "evalx.plots", "data.folder", "data.augment", "infer.batcher",
                  "infer.serve_pipeline", "serve", "prediction_v2", "evaluate", "result_all",
-                 "plot_comparison"):
+                 "plot_comparison", "train.optim", "train.loop", "train.facedet_train",
+                 "train.__main__"):
         assert f"genconvit_tpu_torch.{name}" in rec["modules"]
     assert rec["bad"] == []
     assert rec["built"] is False
 
 
 def test_sources_import_no_jax_and_compile_nothing():
-    pattern = re.compile(r"^\s*(import|from)\s+(jax|flax|yaml|msgpack|genconvit_tpu)\b"
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|flax|optax|yaml|msgpack|genconvit_tpu)\b"
                          r"|torch\.compile", re.M)
     paths = list(PKG.rglob("*.py"))
     assert {"swin.py", "hybrid_embed.py", "window_attn.py", "int8_dot.py", "block_parts.py",
@@ -66,7 +68,8 @@ def test_sources_import_no_jax_and_compile_nothing():
             "native.py", "walkers.py", "result.py", "timing.py",
             "prediction.py", "metrics.py", "plots.py", "folder.py", "augment.py", "batcher.py",
             "serve_pipeline.py", "serve.py", "prediction_v2.py", "evaluate.py", "result_all.py",
-            "plot_comparison.py"} <= {p.name for p in paths}
+            "plot_comparison.py", "optim.py", "loop.py", "facedet_train.py",
+            "__main__.py"} <= {p.name for p in paths}
     for path in paths + [ROOT / "chip_smoke.py"]:
         assert not pattern.search(path.read_text()), path
 
