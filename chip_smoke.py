@@ -229,6 +229,30 @@ Phases (any failed check raises and the exit code is non-zero):
      K1 and K2 launches as its steps and eval forwards; the `.gcv` (epoch,
      Adam count, weights equal to the model's) and `.pkl` read back.
 
+  14. the updated VAE, the SwiGLU heads, dw_rank and the 'mlp' plan values
+     (it runs after phase 12 and before phase 13; `--phase14-only` runs
+     phases 1, 2 and 14 alone):
+     convnext_tiny GenConViT at full width and depth, 224 px, seeded random
+     weights (layer scale U(0.1, 1), both heads' last layer scaled, as in
+     phase 5), each configuration against the port's float32 plain path on
+     the same weights (deterministic VAE, TF32 off): max|dy_val| <= 2e-2 and
+     equal y on decisive videos, the launches of one forward equal to the
+     count `p14_launches` states, videos/s at V=8 where named. (a) the
+     updated VAE (one 2N backbone call: 36 K1 + 2 K2 a forward), default
+     plan and int8 heads (K3 once deterministic, twice when it samples:
+     mu and var), V=8 videos/s; (b) SwiGLU heads on both branches (54 K1 +
+     3 K2); (c) dw_rank: rank 7 against the exact default (<= 2e-2 from it
+     and from float32), rank 1 (V=8 videos/s) and 'auto:0.8' run with 54 K1
+     and print their retained energy, rank 1 under int8_mlp='fc1' launches
+     54 K4, dw_rank with pallas '1' and 'stage' refused; (d) pallas
+     'mlp:0,1' (18 K1, no K2), 'mlp' (54, 0) and 'mlpfull' (54, 3), each
+     with V=8 videos/s; (e) one bf16 step of the updated VAE ('vae' net,
+     default plan: 36 K1 + 2 K2) and of genconvit under 'mlp:0,1' (36 K1)
+     against the float32 step of the batch (8), each error at most 3x pallas
+     '0''s (floor 1e-3), and after the updated step all 7 BatchNorms'
+     running means written back (moved, within 0.25 of the float32 step's
+     change).
+
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Without CUDA it exits non-zero at once.
 """
@@ -1445,7 +1469,7 @@ def profile_step(torch, step, group, title: str, card: str, n: int = 3) -> None:
         t = sum(m[0] for m in members)
         log(f"  {t:9.3f} ms {100 * t / busy:5.1f}%  {sum(m[1] for m in members):4d} "
             f"launches  {name}")
-    for name in ("elementwise and other", swin_group("")):
+    for name in ("elementwise and other", "other convolutions (cuDNN)", swin_group("")):
         for t, count, key in sorted(groups.get(name, []), reverse=True)[:4]:
             log(f"    of which {t:7.3f} ms {count:4d} launches  {key[:110]}")
 
@@ -2965,14 +2989,14 @@ class TrainBench:
     full width and depth, random weights from a seed, layer scale U(0.1,
     1)), its weights w0, one seeded uint8 batch, labels and eps."""
 
-    def __init__(self, torch, dev, config):
+    def __init__(self, torch, dev, config, net: str = "genconvit"):
         import re
 
         from genconvit_tpu_torch.models.convnext import Block
         from genconvit_tpu_torch.train import loop
 
-        self.torch, self.dev = torch, dev
-        self.model = loop.new_model(config, "genconvit", dev, seed=13)
+        self.torch, self.dev, self.net = torch, dev, net
+        self.model = loop.new_model(config, net, dev, seed=13)
         g = torch.Generator(device=dev).manual_seed(13)
         with torch.no_grad():
             for m in self.model.modules():
@@ -2985,8 +3009,9 @@ class TrainBench:
         self.y = torch.randint(0, 2, (TRAIN_BATCH,), device=dev, generator=g)
         self.eps = torch.randn((TRAIN_BATCH, self.model.vae.encoder.mu.out_features),
                                device=dev, generator=g)
-        self.groups = {k: [n for n, _ in self.model.named_parameters() if re.match(rx, n)]
-                       for k, rx in GROUPS.items()}
+        groups = {k: [n for n, _ in self.model.named_parameters() if re.match(rx, n)]
+                  for k, rx in GROUPS.items()}
+        self.groups = {k: names for k, names in groups.items() if names}
 
     def trainer(self, dtype, plan, n: int, lr: float = 1e-4):
         """A new run from w0 (a fresh optimizer, gradients None): a function
@@ -2997,7 +3022,7 @@ class TrainBench:
         self.model.load_state_dict(self.w0)
         self.model.zero_grad(set_to_none=True)
         opt = optim.make_optimizer(self.model.parameters(), lr, 1e-4)
-        step = loop.make_train_step(self.model, "genconvit", opt, False, dtype, plan)
+        step = loop.make_train_step(self.model, self.net, opt, False, dtype, plan)
         x, y, eps = self.x[:n], self.y[:n], self.eps[:n].to(dtype)
         return lambda: float(step(x, y, eps)[0])
 
@@ -3425,6 +3450,340 @@ def phase_train(torch, np, dev, card: str, tmp: str, profile: bool = False) -> d
     return {"rec": rec, "timing": timing, "cli": cli}
 
 
+# ---------------------------------------------------------------- phase 14
+
+P14_V = 4             # the parity batch's videos (phase 5's inputs)
+P14_BATCH = TRAIN_BATCH_SMALL   # 14e's training batch
+P14_BN_TOL = 0.25     # 14e: a bf16 running mean's distance from the f32 step's, over the f32 change
+P14_AUTO = "auto:0.8"
+
+
+def p14_launches(kcuda, plan, variant: str = "original", sampling: bool = False,
+                 net: str = "genconvit") -> dict:
+    """The launches of one forward of `net` as the code states them: the
+    block tails (K1, or K4 under int8_mlp) of every block of the chosen
+    stages ('mlp...'; all others) in each backbone call (the ED's one; the
+    VAE's two, or the updated VAE's one 2N call), K2 once a call off
+    'mlp...', and K3 for each latent head the VAE runs under int8 heads
+    (the updated VAE's var head too when it samples)."""
+    calls = (net in ("ed", "genconvit")) + (net in ("vae", "genconvit")) * (
+        1 if variant == "updated" else 2)
+    stages = plan.mlp_stages()
+    want = dict.fromkeys(kcuda.launch_counts(), 0)
+    tail = "ln_mlp_residual_int8" if plan.int8_mlp else "ln_mlp_residual"
+    want[tail] = calls * sum(DEPTHS[si] for si in (stages if stages is not None else range(4)))
+    want["layer_norm_rows"] = calls if stages is None else 0
+    if plan.int8_heads:
+        want["matmul_wint8"] = 2 if variant == "updated" and sampling else 1
+    return want
+
+
+def p14_config(variant: str = "original"):
+    """The published configuration (convnext_tiny, 224 px, latent 12544)
+    with the VAE variant."""
+    from genconvit_tpu_torch.config import Config, ModelConfig
+
+    return Config(model=ModelConfig(vae_variant=variant))
+
+
+def p14_params(torch, dev, variant: str = "original", head_act: str = "default",
+               seed: int = 14) -> dict:
+    """Seeded random float32 weights of a convnext_tiny GenConViT of the
+    variant and head, on the card, as phase 5 makes them (layer scale
+    U(0.1, 1), both heads' last layer scaled): {'ed', 'vae'} state dicts."""
+    from genconvit_tpu_torch.models.convnext import Block
+    from genconvit_tpu_torch.models.genconvit import GenConViT
+    from genconvit_tpu_torch.models.init import init_genconvit_
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    with torch.device("meta"):
+        model = GenConViT(p14_config(variant), head_act=head_act)
+    model = model.to_empty(device=dev)
+    init_genconvit_(model, g)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, Block):
+                m.gamma.uniform_(0.1, 1.0, generator=g)
+        for branch in model.branches():
+            branch.fc2.weight.mul_(LOGIT_SCALE)
+            branch.fc2.bias.mul_(LOGIT_SCALE)
+    return {b: getattr(model, b).state_dict() for b in ("ed", "vae")}
+
+
+class P14Case:
+    """One set of weights: the float32 plain path's class means on phase
+    5's inputs, then each bf16 configuration held against them."""
+
+    def __init__(self, torch, np, dev, card: str, name: str, params: dict):
+        from genconvit_tpu_torch.infer.engine import Predictor
+        from genconvit_tpu_torch.ops.kernel_plan import KernelPlan
+
+        self.torch, self.np, self.dev, self.card, self.name = torch, np, dev, card, name
+        self.params = params
+        g = torch.Generator(device=dev).manual_seed(7)
+        self.fr = torch.randint(0, 256, (P14_V, FRAMES, IMG, IMG, 3), dtype=torch.uint8,
+                                device=dev, generator=g)
+        self.mask = torch.ones(P14_V, FRAMES, device=dev)
+        self.mask[1, 8:] = 0
+        self.mask[3, 2:] = 0
+        base = Predictor(p14_config(), net="genconvit", device=dev,
+                         params=params, dtype=torch.float32, deterministic_vae=True,
+                         kernel_plan=KernelPlan())
+        self.variant = base.config.model.vae_variant
+        self.heads = (base.model.ed.head_act, base.model.vae.head_act)
+        tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            self.m32 = self.means(base)
+        finally:
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+        del base
+        torch.cuda.empty_cache()
+        log(f"p14 [{name}]: {self.variant} VAE, heads ed/vae {self.heads}; f32 plain class "
+            f"means {np.round(self.m32, 5).tolist()}")
+
+    def means(self, pred):
+        from genconvit_tpu_torch.infer.aggregate import masked_prob_sums
+
+        sums, count = masked_prob_sums(*pred.video_logits(self.fr, self.mask))
+        return (sums / count.clamp(min=1)[:, None]).double().cpu().numpy()
+
+    def dy_val(self, m16, m32, what: str, tol: float = YVAL_TOL) -> float:
+        """max|dy_val| of class means m16 against m32 (<= tol), and y equal
+        wherever m32's class means differ by more than twice tol."""
+        np = self.np
+
+        def verdicts(m):
+            return m.argmax(-1), np.where(m[:, 0] > m[:, 1], m[:, 0], np.abs(1 - m[:, 1]))
+
+        (y16, v16), (y32, v32) = verdicts(m16), verdicts(m32)
+        dyv = float(np.abs(v16 - v32).max())
+        decisive = np.abs(m32[:, 0] - m32[:, 1]) > 2 * tol
+        log(f"  {what}: max|dy_val| = {dyv:.3e} (limit {tol}); decisive videos "
+            f"{int(decisive.sum())}/{len(m32)}, y {y16.tolist()} ref {y32.tolist()} [{self.card}]")
+        if not dyv <= tol:
+            raise AssertionError(f"p14 [{self.name}] {what}: max|dy_val| {dyv} > {tol}")
+        if not decisive.any():
+            raise AssertionError(f"p14 [{self.name}] {what}: no decisive video")
+        if not (y16[decisive] == y32[decisive]).all():
+            raise AssertionError(f"p14 [{self.name}] {what}: y differs on a decisive video")
+        return dyv
+
+    def run(self, label: str, plan, parity: bool = True, rate: bool = False,
+            profile: bool = False) -> dict:
+        """A bf16 Predictor of `plan` on these weights: the launches of one
+        forward deterministic and one sampling, each equal to p14_launches';
+        the class means (held against float32 unless parity is False);
+        V=8 videos/s when rate; the profiler's breakdown of a V=8 forward
+        when profile."""
+        from genconvit_tpu_torch.infer.engine import Predictor
+        from genconvit_tpu_torch.ops import cuda as kcuda
+
+        torch = self.torch
+        t = time.perf_counter()
+        pred = Predictor(p14_config(), net="genconvit", device=self.dev,
+                         params=self.params, deterministic_vae=True, kernel_plan=plan)
+        built = time.perf_counter() - t
+        rec = {"plan": plan, "stats": pred.dw_sep_stats}
+        for sampling in (False, True):
+            pred.deterministic_vae = not sampling
+            kcuda.reset_launch_counts()
+            m = self.means(pred)
+            got = kcuda.launch_counts()
+            want = p14_launches(kcuda, plan, self.variant, sampling)
+            if got != want:
+                raise AssertionError(f"p14 [{self.name}, {label}] sampling={sampling}: launches "
+                                     f"{got}, want {want}")
+            if not sampling:
+                rec["means"] = m
+        rec["launches"] = {k: v for k, v in got.items() if v}
+        stats = "" if rec["stats"] is None else (
+            f"; dw_rank {plan.dw_rank}: {int(rec['stats']['blocks_sep'])} blocks separable "
+            f"(rank mix {rec['stats']['rank_hist']}), {int(rec['stats']['blocks_exact'])} "
+            f"exact, retained SVD energy mean {rec['stats']['energy_mean']:.4f} min "
+            f"{rec['stats']['energy_min']:.4f}")
+        log(f"p14 [{self.name}, {label}]: Predictor {built:.2f} s, launches a forward "
+            f"{rec['launches']} (sampling; the same less K3's var head deterministic){stats}")
+        if parity:
+            rec["dy_val"] = self.dy_val(rec["means"], self.m32, f"{label} vs f32 plain",
+                                        YVAL_TOL_INT8 if plan.int8_mlp else YVAL_TOL)
+        else:
+            rec["dy_val"] = float(self.np.abs(rec["means"] - self.m32).max())
+            log(f"  {label}: max|class mean - f32's| = {rec['dy_val']:.3e} (an approximation: "
+                f"no limit) [{self.card}]")
+        if rate:
+            rec.update(phase_throughput(torch, pred, self.dev, self.card,
+                                        f"p14 {self.name}, {label}", v1=False))
+        if profile:
+            phase_profile(torch, pred, self.dev, self.card, f"p14 {self.name}, {label}")
+        del pred
+        torch.cuda.empty_cache()
+        return rec
+
+
+def p14_refusals(torch, dev) -> None:
+    """dw_rank with pallas '1' and 'stage': the Predictor refuses the plan."""
+    from genconvit_tpu_torch.infer.engine import Predictor
+    from genconvit_tpu_torch.ops.kernel_plan import KernelPlan
+
+    for pallas in ("1", "stage"):
+        try:
+            Predictor(p14_config(), device=dev, kernel_plan=KernelPlan(pallas=pallas, dw_rank=1))
+        except ValueError as e:
+            log(f"p14 refusal: dw_rank=1 with pallas={pallas!r} raised ValueError ({str(e)[:60]}...)")
+            continue
+        raise AssertionError(f"dw_rank=1 with pallas={pallas!r} was not refused")
+
+
+def p14_train(torch, dev, card: str) -> dict:
+    """14e: one bf16 step of the updated VAE ('vae' net, default plan) and
+    of genconvit under 'mlp:0,1', each against the float32 step of the
+    batch beside pallas '0''s bf16 step (phase 13a's bar); the updated
+    step's 7 BatchNorm running means written back."""
+    import gc
+
+    from genconvit_tpu_torch.ops import cuda as kcuda
+    from genconvit_tpu_torch.ops.kernel_plan import KernelPlan
+
+    out = {}
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for name, net, variant, plan in (
+                ("updated vae", "vae", "updated", KernelPlan()),
+                ("genconvit mlp:0,1", "genconvit", "original", KernelPlan(pallas="mlp:0,1"))):
+            t = time.perf_counter()
+            tb = TrainBench(torch, dev, p14_config(variant), net)
+            vae = tb.model.vae
+            bns = [vae.encoder.features[3 * i + 1] for i in range(4)]
+            if vae.updated:
+                bns += [vae.decoder.features[3 * i + 1] for i in range(3)]
+            old = [bn.running_mean.detach().clone() for bn in bns]
+            losses, counts = tb.step(torch.float32, KernelPlan(pallas="0"), P14_BATCH)
+            ref = (losses[0], tb.snapshot())
+            rm32 = [bn.running_mean.detach().clone() for bn in bns]
+            if any(counts.values()):
+                raise AssertionError(f"p14 train {name} f32: launches {counts}")
+            errs = {}
+            for label, p in (("pallas=0", KernelPlan(pallas="0")), ("kernels", plan)):
+                losses, counts = tb.step(torch.bfloat16, p, P14_BATCH)
+                want = dict.fromkeys(counts, 0)
+                if p.pallas != "0":
+                    want = {k: 2 * v for k, v in p14_launches(kcuda, p, variant,
+                                                               net=net).items()}
+                if counts != want:
+                    raise AssertionError(f"p14 train {name} {label}: launches {counts}, want {want}")
+                e = tb.errors(ref[1])
+                errs[label] = dict({g: v for g, v in e.items()},
+                                   loss=abs(losses[0] - ref[0]) / abs(ref[0]))
+                shown = {k: v for k, v in counts.items() if v}
+                log(f"p14 train [{name}] {label} bf16 N={P14_BATCH}: loss {losses[0]:.6f} (f32 "
+                    f"{ref[0]:.6f}, rel {errs[label]['loss']:.2e}); launches a step {shown} [{card}]")
+                for group, (eg, ed) in e.items():
+                    log(f"  {group:20s} grad rel L2 {eg:.3e}, parameter change rel L2 {ed:.3e}")
+            mine, base = errs["kernels"], errs["pallas=0"]
+            pairs = [("loss", mine["loss"], base["loss"])]
+            for group in tb.groups:
+                pairs += [(f"{group} grad", mine[group][0], base[group][0]),
+                          (f"{group} change", mine[group][1], base[group][1])]
+            for what, e, e0 in pairs:
+                if not e <= TRAIN_FACTOR * max(e0, TRAIN_FLOOR):
+                    raise AssertionError(f"p14 train {name}: {what} error {e:.3e} above "
+                                         f"{TRAIN_FACTOR} x pallas '0''s {e0:.3e}")
+            worst = max(e / max(e0, TRAIN_FLOOR) for _, e, e0 in pairs)
+            # the running means after the kernel step, against the float32 step's
+            moved = []
+            for i, (bn, o, r) in enumerate(zip(bns, old, rm32)):
+                rm = bn.running_mean.detach()
+                d32 = float((r - o).abs().max())
+                dev16 = float((rm.float() - r.float()).abs().max()) / max(d32, 1e-30)
+                if not (torch.isfinite(rm).all() and float((rm - o).abs().max()) > 0
+                        and dev16 <= P14_BN_TOL):
+                    raise AssertionError(f"p14 train {name}: BN {i} running mean not written "
+                                         f"back (f32 change {d32:.3e}, bf16 off by {dev16:.3e})")
+                moved.append(dev16)
+            log(f"p14 train [{name}]: every error within {worst:.2f} x pallas '0''s (bound "
+                f"{TRAIN_FACTOR}, floor {TRAIN_FLOOR}); {len(bns)} BN running means written back, "
+                f"off the f32 step's by {max(moved):.3e} of its change at most; "
+                f"{time.perf_counter() - t:.1f} s [{card}]")
+            out[name] = {"errs": errs, "worst": worst, "bn": len(bns), "bn_dev": max(moved)}
+            del tb
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    return out
+
+
+def phase_p14(torch, np, dev, card: str, profile: bool = False) -> dict:
+    """Phase 14 (module docstring): returns each configuration's record.
+    profile: the breakdown of a V=8 forward of the updated VAE, dw_rank=1,
+    'mlp:0,1' and 'mlp' too."""
+    import gc
+
+    from genconvit_tpu_torch.ops.kernel_plan import KernelPlan
+
+    out = {}
+
+    def case(name, params):
+        c = P14Case(torch, np, dev, card, name, params)
+        del params
+        return c
+
+    # (a) the updated VAE
+    c = case("updated", p14_params(torch, dev, "updated"))
+    if c.variant != "updated":
+        raise AssertionError(f"the Predictor built a {c.variant} VAE from updated weights")
+    out["updated"] = c.run("default", KernelPlan(), rate=True, profile=profile)
+    out["updated+int8_heads"] = c.run("int8_heads", KernelPlan(int8_heads=True), rate=True)
+    del c
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (b) SwiGLU heads
+    c = case("swiglu", p14_params(torch, dev, head_act="swiglu"))
+    if c.heads != ("swiglu", "swiglu"):
+        raise AssertionError(f"the Predictor built heads {c.heads} from SwiGLU weights")
+    out["swiglu"] = c.run("default", KernelPlan())
+    del c
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (c) dw_rank and (d) the plan values, on the default model's weights
+    c = case("default", p14_params(torch, dev))
+    exact = c.run("exact", KernelPlan())
+    r7 = c.run("dw_rank=7", KernelPlan(dw_rank=7))
+    r7["dy_exact"] = c.dy_val(r7["means"], exact["means"], "dw_rank=7 vs the exact bf16 default")
+    out["dw_rank=7"] = r7
+    out["dw_rank=1"] = c.run("dw_rank=1", KernelPlan(dw_rank=1), parity=False, rate=True,
+                             profile=profile)
+    out[f"dw_rank={P14_AUTO}"] = c.run(f"dw_rank={P14_AUTO}", KernelPlan(dw_rank=P14_AUTO),
+                                       parity=False)
+    out["dw_rank=1+fc1"] = c.run("dw_rank=1, int8_mlp=fc1", KernelPlan(dw_rank=1, int8_mlp="fc1"),
+                                 parity=False)
+    p14_refusals(torch, dev)
+    for pallas in ("mlp:0,1", "mlp", "mlpfull"):
+        out[pallas] = c.run(f"pallas={pallas}", KernelPlan(pallas=pallas), rate=True,
+                            profile=profile and pallas != "mlpfull")
+    del c
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (e) training
+    out["train"] = p14_train(torch, dev, card)
+    return out
+
+
+def p14_summary(p14: dict, card: str) -> None:
+    for name, r in p14.items():
+        if name == "train":
+            continue
+        rate = (f"V=8 {r['v8_videos_s']:.2f} videos/s ({r['v8_ms']:.2f} ms/launch), "
+                if "v8_videos_s" in r else "")
+        log(f"summary [p14 {name}]: {rate}launches a forward {r['launches']}; "
+            f"max|dy_val| (or class-mean distance) vs f32 plain {r['dy_val']:.3e} [{card}]")
+    for name, r in p14["train"].items():
+        log(f"summary [p14 train {name}]: worst error {r['worst']:.2f} x pallas '0''s; "
+            f"{r['bn']} BN running means written back [{card}]")
+
+
 def main() -> int:
     import argparse
     import gc
@@ -3434,9 +3793,13 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="add phase 7, the profiler's device-time breakdowns (and a train step's)")
+                    help="add phase 7, the profiler's device-time breakdowns (and a train step's, "
+                         "and phase 14's)")
     ap.add_argument("--train-only", action="store_true",
                     help="phases 1, 2 and 13 alone (no result lines): for work on training")
+    ap.add_argument("--phase14-only", action="store_true",
+                    help="phases 1, 2 and 14 alone (no result lines): the updated VAE, the "
+                         "SwiGLU heads, dw_rank and the 'mlp' plan values")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
@@ -3475,6 +3838,12 @@ def main() -> int:
             phase_train(torch, np, dev, card, tmp, args.profile)
             log(f"phase 13: {time.perf_counter() - t:.1f} s")
         log(f"chip_smoke --train-only: phase 13 passed in {time.perf_counter() - t_all:.1f} s")
+        return 0
+    if args.phase14_only:
+        t = time.perf_counter()
+        p14_summary(phase_p14(torch, np, dev, card, args.profile), card)
+        log(f"phase 14: {time.perf_counter() - t:.1f} s")
+        log(f"chip_smoke --phase14-only: phase 14 passed in {time.perf_counter() - t_all:.1f} s")
         return 0
     t = time.perf_counter()
     kernels = (phase_kernels(torch, dev, card) + phase_fused(torch, dev, card)
@@ -3519,6 +3888,11 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         t = time.perf_counter()
+        p14 = phase_p14(torch, np, dev, card, args.profile)
+        log(f"phase 14: {time.perf_counter() - t:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
         training = phase_train(torch, np, dev, card, tmp, args.profile)
         log(f"phase 13: {time.perf_counter() - t:.1f} s")
     for name, r in runs.items():
@@ -3559,6 +3933,7 @@ def main() -> int:
             log(f"summary [train 13a {name} N={n}]: loss rel {r['dloss']:.2e}; grad rel L2 ed "
                 f"{r['errs']['ed'][0]:.3e}, vae {r['errs']['vae'][0]:.3e}; launches a step "
                 f"{ {k: v for k, v in r['counts'].items() if v} } [{card}]")
+    p14_summary(p14, card)
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_all:.1f} s [{card}]")
     # each kernel's launches: the count of the run whose main path runs it
     # (the counts were set to 0 just before its requests)

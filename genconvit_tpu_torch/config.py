@@ -24,15 +24,14 @@ class ModelConfig:
     backbone: str = "convnext_tiny"
     embedder: str = "swin_tiny_patch4_window7_224"
     latent_dims: int = _DEFAULT_LATENT
-    # 'original' | 'updated' (ref model/genconvit_vae_updated.py); the port
-    # has the original variant only
+    # 'original' | 'updated' (ref model/genconvit_vae_updated.py: the fixed
+    # reparameterization, the Tanh decoder with BatchNorms)
     vae_variant: str = "original"
 
     def __post_init__(self):
-        if self.vae_variant != "original":
-            raise NotImplementedError(
-                f"vae_variant={self.vae_variant!r}: the updated VAE variant is not "
-                "ported yet (genconvit_tpu/models/vae.py vae_updated_apply)")
+        if self.vae_variant not in ("original", "updated"):
+            raise ValueError(f"vae_variant must be 'original' or 'updated', got "
+                             f"{self.vae_variant!r}")
 
 
 @dataclasses.dataclass

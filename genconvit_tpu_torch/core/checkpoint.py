@@ -33,8 +33,8 @@ from typing import Any, Dict, List, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
-from genconvit_tpu_torch.core.convert import (state_dict_from_jax, state_dict_from_reference,
-                                              tree_from_state_dict)
+from genconvit_tpu_torch.core.convert import (branch_spec, state_dict_from_jax,
+                                              state_dict_from_reference, tree_from_state_dict)
 
 FORMAT = "genconvit_tpu.ckpt.v1"
 MAX_CHUNK_SIZE = 2**30   # flax.serialization.MAX_CHUNK_SIZE
@@ -317,17 +317,20 @@ def load_params(path: str, which: str) -> Tuple[Dict[str, torch.Tensor], Dict[st
     """A branch's reference-keyed state dict and the file's meta, from a
     native checkpoint (`.gcv`/`.msgpack`: the JAX tree, unwrapped where
     train_model nested it under 'ed'/'vae', then `state_dict_from_jax`) or
-    a reference torch file (`.pth`/`.pt`: `state_dict_from_reference`)."""
+    a reference torch file (`.pth`/`.pt`: `state_dict_from_reference`).
+    The meta holds `branch_spec`'s head_act (and the VAE's variant): the
+    module the state dict loads into."""
     if path.endswith((".pth", ".pt")):
         obj = torch.load(path, map_location="cpu", weights_only=True)
-        return state_dict_from_reference(obj, which), {"source": "torch", "path": path}
+        sd = state_dict_from_reference(obj, which)
+        return sd, {"source": "torch", "path": path, **branch_spec(sd, which)}
     payload = load_checkpoint(path)
     params = payload["params"]
     if isinstance(params, dict) and which in params and set(params) <= {"ed", "vae"}:
         params = params[which]
-    return state_dict_from_jax(params, which), {
-        "source": "native", "path": path, "epoch": payload.get("epoch"),
-        "min_loss": payload.get("min_loss")}
+    sd = state_dict_from_jax(params, which)
+    return sd, {"source": "native", "path": path, "epoch": payload.get("epoch"),
+                "min_loss": payload.get("min_loss"), **branch_spec(sd, which)}
 
 
 def resolve_weight(weight_dir: str, name: str) -> Optional[str]:

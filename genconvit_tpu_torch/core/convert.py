@@ -11,11 +11,14 @@ The inverse of genconvit_tpu/core/convert.py `_conv`/`_convT`/`_linear`/
   linear (in, out) -> (out, in)
   LN/BN  scale/bias(/mean/var) -> weight/bias(/running_mean/running_var)
 
-Branches: 'ed', 'vae' (the original variant), 'convnext', 'swin' (a Swin
+Branches: 'ed', 'vae', 'convnext', 'swin' (a Swin
 tree, timm's keys), 'hybrid_embed' (the {"backbone", "proj"} tree of
 `init_hybrid_embed`: `backbone.*` and `proj.*`) and 'facedet' (the face
-detector of models/facedet.py). The 'ed' and 'vae' branches
-never read the dead parameter groups of the reference checkpoints
+detector of models/facedet.py). A 'vae' tree is the original variant
+or the updated one, told apart as the JAX package tells them apart
+(`is_updated_vae`): the updated tree's decoder is a dict {"input", "convs",
+"bns"}, the original's a list; a SwiGLU head shows only in fc's width
+(`branch_spec`). The 'ed' and 'vae' branches never read the dead parameter groups of the reference checkpoints
 (`embedder`, `hybrid_proj`, `fc3`, VAE `encoder.fc1/fc2`), so their result
 loads into the port's branch modules with `load_state_dict(strict=True)`; a
 converted checkpoint's embedder comes across on its own with
@@ -23,7 +26,8 @@ converted checkpoint's embedder comes across on its own with
 arrays or torch tensors (the checkpoint reader's bfloat16 leaves).
 
 `state_dict_from_reference` takes the reference's own torch checkpoints
-(the published `.pth` files) to the same state dicts, and
+(the published `.pth` files, `genconvit_vae_updated` ones too) to the same
+state dicts, and
 `tree_from_state_dict` is the bridge's inverse for 'ed', 'vae' and
 'convnext' (the trees the JAX package's `convert_ed`/`convert_vae`/
 `convert_convnext` give, without the dead groups).
@@ -163,14 +167,34 @@ def state_dict_from_jax(tree: Mapping[str, Any], branch: str) -> StateDict:
             _bn(sd, f"encoder.features.{i + 1}", bn)
         _linear(sd, "encoder.mu", enc["mu"])
         _linear(sd, "encoder.var", enc["var"])
-        for p, i in zip(tree["decoder"], (0, 2, 4, 6)):
-            _convT(sd, f"decoder.features.{i}", p)
+        dec = tree["decoder"]
+        if isinstance(dec, Mapping):   # the updated variant
+            _linear(sd, "decoder.decoder_input", dec["input"])
+            for i, p in zip((0, 3, 6, 9), dec["convs"]):
+                _convT(sd, f"decoder.features.{i}", p)
+            for i, bn in zip((1, 4, 7), dec["bns"]):
+                _bn(sd, f"decoder.features.{i}", bn)
+        else:
+            for p, i in zip(dec, (0, 2, 4, 6)):
+                _convT(sd, f"decoder.features.{i}", p)
         _convnext(sd, "convnext_backbone.", tree["backbone"])
     else:
         raise ValueError(f"unknown branch {branch!r}")
     _linear(sd, "fc", tree["fc"])
     _linear(sd, "fc2", tree["fc2"])
     return sd
+
+
+def branch_spec(sd: Mapping[str, Any], branch: str) -> Dict[str, str]:
+    """What module a branch's state dict needs: {'head_act': 'default' or
+    'swiglu'} and, for 'vae', {'variant': 'original' or 'updated'}, read
+    off the weights as the JAX package dispatches on its trees: the SwiGLU
+    head's fc emits twice fc2's input width (models/ed.py:95-100 there)."""
+    swiglu = sd["fc.weight"].shape[0] == 2 * sd["fc2.weight"].shape[1]
+    spec = {"head_act": "swiglu" if swiglu else "default"}
+    if branch == "vae":
+        spec["variant"] = "updated" if "decoder.decoder_input.weight" in sd else "original"
+    return spec
 
 
 # ------------------------------------------------------------------ reference
@@ -187,9 +211,10 @@ _DEAD = {"ed": re.compile(r"^(embedder\.|backbone\.patch_embed\.)"),
 def state_dict_from_reference(obj: Mapping[str, Any], branch: str) -> StateDict:
     """A reference-keyed torch checkpoint (bare, or nested under
     'state_dict' as train.py saves it) -> the port's state dict for branch
-    'ed' or 'vae': float16 tensors to float32, the dead groups dropped, so
-    that it loads with `load_state_dict(strict=True)` (the JAX package's
-    `convert_checkpoint` accepts the same files)."""
+    'ed' or 'vae' (either variant: `branch_spec` tells them apart): float16
+    tensors to float32, the dead groups dropped, so that it loads with
+    `load_state_dict(strict=True)` (the JAX package's `convert_checkpoint`
+    accepts the same files)."""
     if branch not in _DEAD:
         raise ValueError(f"unknown branch {branch!r}")
     if isinstance(obj, Mapping) and "state_dict" in obj:
@@ -233,6 +258,11 @@ def _norm_tree(sd, name):
     return {"scale": _np(sd[f"{name}.weight"]), "bias": _np(sd[f"{name}.bias"])}
 
 
+def _bn_tree(sd, name):
+    return dict(_norm_tree(sd, name), mean=_np(sd[f"{name}.running_mean"]),
+                var=_np(sd[f"{name}.running_var"]))
+
+
 def _count(sd: Mapping[str, Any], pattern: str) -> int:
     rx = re.compile(pattern)
     return len({m.group(1) for k in sd for m in [rx.match(k)] if m})
@@ -265,9 +295,9 @@ def _convnext_tree(sd: Mapping[str, torch.Tensor], prefix: str) -> Dict[str, Any
 
 
 def tree_from_state_dict(sd: Mapping[str, torch.Tensor], branch: str) -> Dict[str, Any]:
-    """The inverse of `state_dict_from_jax` for 'ed', 'vae' and 'convnext':
-    the JAX package's tree (float32 numpy leaves), e.g. to write a `.gcv`
-    that both packages read."""
+    """The inverse of `state_dict_from_jax` for 'ed', 'vae' (either variant)
+    and 'convnext': the JAX package's tree (float32 numpy leaves), e.g. to
+    write a `.gcv` that both packages read."""
     if branch == "convnext":
         return _convnext_tree(sd, "")
     if branch == "ed":
@@ -275,13 +305,18 @@ def tree_from_state_dict(sd: Mapping[str, torch.Tensor], branch: str) -> Dict[st
                 "decoder": [_convT_tree(sd, f"decoder.features.{i}") for i in (0, 2, 4, 6, 8)],
                 "backbone": _convnext_tree(sd, "backbone.")}
     elif branch == "vae":
-        bns = [dict(_norm_tree(sd, f"encoder.features.{i}"),
-                    mean=_np(sd[f"encoder.features.{i}.running_mean"]),
-                    var=_np(sd[f"encoder.features.{i}.running_var"])) for i in (1, 4, 7, 10)]
+        if "decoder.decoder_input.weight" in sd:   # the updated variant
+            decoder: Any = {
+                "input": _linear_tree(sd, "decoder.decoder_input"),
+                "convs": [_convT_tree(sd, f"decoder.features.{i}") for i in (0, 3, 6, 9)],
+                "bns": [_bn_tree(sd, f"decoder.features.{i}") for i in (1, 4, 7)]}
+        else:
+            decoder = [_convT_tree(sd, f"decoder.features.{i}") for i in (0, 2, 4, 6)]
         tree = {"encoder": {"convs": [_conv_tree(sd, f"encoder.features.{i}") for i in (0, 3, 6, 9)],
-                            "bns": bns, "mu": _linear_tree(sd, "encoder.mu"),
+                            "bns": [_bn_tree(sd, f"encoder.features.{i}") for i in (1, 4, 7, 10)],
+                            "mu": _linear_tree(sd, "encoder.mu"),
                             "var": _linear_tree(sd, "encoder.var")},
-                "decoder": [_convT_tree(sd, f"decoder.features.{i}") for i in (0, 2, 4, 6)],
+                "decoder": decoder,
                 "backbone": _convnext_tree(sd, "convnext_backbone.")}
     else:
         raise ValueError(f"unknown branch {branch!r}")

@@ -9,12 +9,21 @@ on CUDA (the kernel backbone), float32 on the CPU. The plan's int8 switches
 (infer/engine.py:223-237 there): the latent heads quantize after the dtype
 cast, and the backbone folds follow plan.int8_mlp. GENCONVIT_PALLAS=1 or
 stage selects the fused-block (K5) or fused-stage (K6) backbone, whose
-weight packs are made at construction in place of the folds.
+weight packs are made at construction in place of the folds; mlp,
+mlp:<i,j,...> and mlpfull run K1 (or K4) per stage or over the backbone
+(models/convnext.py). A non-zero plan.dw_rank (GENCONVIT_DW_RANK) attaches
+the separable depthwise factors after the cast and before the folds, as
+the JAX engine does (:178-213 there), logs their retained SVD energy and
+keeps it as `dw_sep_stats`; it is refused with pallas '1' and 'stage'.
 
 Weights come from `ed_weight`/`vae_weight` (a path, or a name resolved in
 config.weight_dir as the JAX engine resolves it: `.gcv`, `.msgpack`, then
 the reference's `.pth`), from `params`, or, where none is found, from a
-seeded random init with the JAX engine's warning.
+seeded random init with the JAX engine's warning. The module is built
+from the weights' structure, as the JAX package dispatches on its trees:
+the VAE variant (updated where the weights hold decoder.decoder_input)
+and each branch's head (SwiGLU where fc emits twice fc2's input width);
+config.model.vae_variant for a random init.
 
 The file drivers (`predict_video`, `predict_frames_dir`, `predict_files`
 and its grouped form for detector backends) decode on the host with the
@@ -31,6 +40,7 @@ from __future__ import annotations
 import concurrent.futures as cf
 import logging
 import os
+import time
 from typing import Any, Dict, Iterable, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
@@ -44,8 +54,9 @@ from genconvit_tpu_torch.data.preprocess import normalize_batch, pad_faces
 from genconvit_tpu_torch.data.video import _maybe_inject_fault, extract_frames
 from genconvit_tpu_torch.device import default_device
 from genconvit_tpu_torch.infer.aggregate import DEFAULT_VERDICT, aggregate_logits
-from genconvit_tpu_torch.models.genconvit import GenConViT
+from genconvit_tpu_torch.models.genconvit import GenConViT, model_spec
 from genconvit_tpu_torch.models.init import init_genconvit_
+from genconvit_tpu_torch.ops.dwsep import add_dw_sep_
 from genconvit_tpu_torch.ops.kernel_plan import KernelPlan
 from genconvit_tpu_torch.utils.timing import StageTimers
 
@@ -94,6 +105,15 @@ class Predictor:
                                if self.config.compute_dtype != "float32"
                                else default_compute_dtype(self.device))
         self.kernel_plan = kernel_plan or KernelPlan.from_env()
+        if self.kernel_plan.dw_sep and self.kernel_plan.pallas in ("1", "stage"):
+            # their kernels convolve the exact 7x7 weights: the run would be
+            # exact while the logs claim the approximation
+            raise ValueError(
+                f"dw_rank={self.kernel_plan.dw_rank} is not supported with "
+                f"GENCONVIT_PALLAS={self.kernel_plan.pallas!r}: the 'stage'/'1' kernels "
+                "convolve the exact 7x7 weights and ignore separable factors. Use the "
+                "default backbone ('' / 'mlp' / 'mlpfull' / '0').")
+        self.dw_sep_stats: Optional[Dict[str, Any]] = None
         self.deterministic_vae = deterministic_vae
         self.prefer_native_decode = prefer_native_decode
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
@@ -106,8 +126,10 @@ class Predictor:
             params = self._load_weights(branches, {"ed": ed_weight, "vae": vae_weight})
         elif any(b not in params for b in branches):
             raise KeyError(f"params has {sorted(params)}; net={net!r} needs {branches}")
+        self.config, heads = model_spec(self.config, params)
         with torch.device("meta"):
-            model = GenConViT(self.config, net, _backbone_classes(params, backbone_classes))
+            model = GenConViT(self.config, net, _backbone_classes(params, backbone_classes),
+                              heads)
         model = model.to_empty(device=self.device)
         if any(b not in params for b in branches):
             init_genconvit_(model, self.generator)
@@ -119,6 +141,17 @@ class Predictor:
         # cast once (the latent heads alone are 630M parameters), then hold
         # every 4-D weight channels_last like the activations
         model = model.to(self.dtype).to(memory_format=torch.channels_last).eval()
+        if self.kernel_plan.dw_sep:
+            # after the cast: the SVD factorizes the weights the exact path
+            # would convolve with
+            t = time.perf_counter()
+            sst = self.dw_sep_stats = add_dw_sep_(model, self.kernel_plan.dw_rank)
+            log.info("init: dw_rank=%s separable fold %.1fs (%d filter-channels across %d "
+                     "blocks [rank mix %s, %d exact], retained SVD energy mean %.3f min %.3f "
+                     "— APPROXIMATE inference)", self.kernel_plan.dw_rank,
+                     time.perf_counter() - t, int(sst["count"]), int(sst["blocks_sep"]),
+                     sst["rank_hist"], int(sst["blocks_exact"]), sst["energy_mean"],
+                     sst["energy_min"])
         if self.kernel_plan.int8_heads:
             # after the cast, as the JAX engine does: the int8 weights come
             # from the weights the default path would multiply with

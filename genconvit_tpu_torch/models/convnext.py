@@ -5,15 +5,20 @@ LN), four stages of [LN + 2x2/2 downsample (stages 1-3); blocks of
 depthwise 7x7 -> LN -> MLP(4x, GELU) -> layer scale -> residual], head
 (global mean -> LN -> fc). Parameter names are timm's.
 
-Four paths, chosen per call as the JAX package chooses them
-(convnext.py:182-198, 436-495); the first three need bfloat16 on CUDA:
+Five paths, chosen per call as the JAX package chooses them
+(convnext.py:182-198, 436-495); the first four need bfloat16 on CUDA:
 
-  * kernel backbone — plan.pallas '' and plan.gelu != 'exact': stem conv ->
+  * kernel backbone — plan.pallas '' or 'mlpfull' and plan.gelu != 'exact': stem conv ->
     K2 (the stem LN as `layer_norm_rows`); per block the depthwise conv,
     then K1 (`ln_mlp_residual`) on the NHWC rows, or K4
     (`ln_mlp_residual_int8`) when plan.int8_mlp is 'fc1' or 'full'. The last
     block of stages 0-2 fuses the next downsample's LN (`post_ln`), and the
     downsample then runs its conv directly;
+  * per-stage kernel path — plan.pallas 'mlp' or 'mlp:<i,j,...>' and
+    plan.gelu != 'exact' (JAX _apply_stage, convnext.py:276-325, 436-452):
+    plain stem and downsample LNs; in each chosen stage, per block the
+    depthwise conv then K1 (or K4) without a fused LN (`stage_mlp`); the
+    LN-folded block in the other stages;
   * fused-block backbone — plan.pallas '1': plain stem and downsample LNs;
     K5 (`fused_convnext_block`, the whole block) on every block whose H
     passes `block_kernel_applies`, the LN-folded block
@@ -32,9 +37,17 @@ Serving folds or packs the weights once (`prepare_kernels`). Training
 (`per_call_folds=True`) takes the same kernels through three autograd Functions that
 fold or pack from the tensors of the call, in their forward, and whose
 backward is autograd of the reference graph recomputed, as the JAX
-package's custom VJPs (convnext.py:160-227, 350-433): `KernelBackbone`
-(K2 + K1 or K4), `FusedBlock` (K5) and `FusedStage` (K6). The LN-folded
-blocks around K5 and K6 fold per call with a graph (`Block.fold_ln`).
+package's custom VJPs (convnext.py:160-227, 306-322, 350-433):
+`KernelBackbone` (K2 + K1 or K4), `FusedBlock` (K5), `FusedStage` (K6) and
+`MlpStage` (a chosen stage of 'mlp...'). The LN-folded blocks around them
+fold per call with a graph (`Block.fold_ln`).
+
+The rank-R separable depthwise approximation (plan.dw_rank, ops/dwsep.py)
+is inference-only: `add_dw_sep_` gives a block the buffers `dw_row` and
+`dw_col`, and `depthwise` runs their R row and column passes in place of
+the 7x7 wherever they are present (JAX _dw_conv, convnext.py:86-103): on
+the plain paths and before K1/K4. Only the Predictor adds them, as only
+the JAX engine does; the training Functions read the exact weights.
 
 Activations are NCHW in channels_last memory, so the NHWC view the kernels
 read as [N*H*W, C] rows is the tensor's own storage.
@@ -42,7 +55,8 @@ read as [N*H*W, C] rows is the tensor's own storage.
 
 from __future__ import annotations
 
-from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple, Union
+from typing import (AbstractSet, Callable, List, NamedTuple, Optional, Sequence,
+                    Tuple, Union)
 
 import torch
 import torch.nn as nn
@@ -134,13 +148,30 @@ class BlockTensors(NamedTuple):
     gamma: torch.Tensor       # [C]
 
 
-def depthwise(x: torch.Tensor, t: BlockTensors) -> torch.Tensor:
-    return conv2d(x, t.dw_weight, t.dw_bias, padding=3, groups=x.shape[1])
+# a block's separable depthwise factors: row filters [R, C, 1, 1, 7] and
+# column filters [R, C, 1, 7, 1] (ops/dwsep.py)
+DwSep = Tuple[torch.Tensor, torch.Tensor]
 
 
-def block_reference(x: torch.Tensor, t: BlockTensors, gelu_tier: str = "default") -> torch.Tensor:
+def depthwise(x: torch.Tensor, t: BlockTensors, sep: Optional[DwSep] = None) -> torch.Tensor:
+    """The block's 7x7 depthwise conv; with `sep`, its rank-R separable
+    approximation instead (JAX _dw_conv): per rank a 1x7 pass, padding
+    (0, 3), then a 7x1 pass, padding (3, 0); the ranks summed, the bias
+    added once."""
+    c = x.shape[1]
+    if sep is None:
+        return conv2d(x, t.dw_weight, t.dw_bias, padding=3, groups=c)
+    acc = None
+    for kr, kc in zip(*sep):
+        h = conv2d(conv2d(x, kr, padding=(0, 3), groups=c), kc, padding=(3, 0), groups=c)
+        acc = h if acc is None else acc + h
+    return acc + t.dw_bias.to(acc.dtype)[:, None, None]
+
+
+def block_reference(x: torch.Tensor, t: BlockTensors, gelu_tier: str = "default",
+                    sep: Optional[DwSep] = None) -> torch.Tensor:
     """The plain block (genconvit_tpu/models/convnext.py:106-115, _block_xla)."""
-    h = _nhwc(depthwise(x, t))
+    h = _nhwc(depthwise(x, t, sep))
     h = layer_norm(h, t.ln_weight, t.ln_bias, LN_EPS)
     h = F.linear(h, t.fc1_weight, t.fc1_bias)
     h = gelu(h, gelu_tier)
@@ -149,13 +180,14 @@ def block_reference(x: torch.Tensor, t: BlockTensors, gelu_tier: str = "default"
     return x + _nchw(h)
 
 
-def block_folded(x: torch.Tensor, t: BlockTensors, gelu_tier: str, fold: LNFold) -> torch.Tensor:
+def block_folded(x: torch.Tensor, t: BlockTensors, gelu_tier: str, fold: LNFold,
+                 sep: Optional[DwSep] = None) -> torch.Tensor:
     """The block with its LayerNorm folded into fc1, as the JAX package
     runs a bf16 block outside its kernels (_block_xla_folded,
     convnext.py:118-157): one-pass f32 moments of the depthwise output
     d, z = d . wg in f32, y = ((z - mean * gw) * rsqrt(var + eps) + bw)
     in the activations' dtype, then GELU, fc2 and the layer scale in it."""
-    d = _nhwc(depthwise(x, t))
+    d = _nhwc(depthwise(x, t, sep))
     mean, inv = _row_moments(d.float())
     z = f32_product(d, fold.wg)
     h = ((z - mean * fold.gw) * inv + fold.bw).to(x.dtype)
@@ -183,6 +215,14 @@ class Block(nn.Module):
         self.norm = nn.LayerNorm(dim, eps=LN_EPS)
         self.mlp = Mlp(dim)
         self.gamma = nn.Parameter(torch.empty(dim))
+        # the separable depthwise factors (ops/dwsep.add_dw_sep_), absent
+        # by default; not in the state dict
+        self.register_buffer("dw_row", None, persistent=False)
+        self.register_buffer("dw_col", None, persistent=False)
+
+    @property
+    def dw_sep(self) -> Optional[DwSep]:
+        return None if self.dw_row is None else (self.dw_row, self.dw_col)
 
     def tensors(self) -> BlockTensors:
         return BlockTensors(self.conv_dw.weight, self.conv_dw.bias, self.norm.weight,
@@ -190,15 +230,15 @@ class Block(nn.Module):
                             self.mlp.fc2.weight, self.mlp.fc2.bias, self.gamma)
 
     def dw(self, x: torch.Tensor) -> torch.Tensor:
-        return depthwise(x, self.tensors())
+        return depthwise(x, self.tensors(), self.dw_sep)
 
     def forward(self, x: torch.Tensor, gelu_tier: str = "default") -> torch.Tensor:
         """The plain block (`block_reference`)."""
-        return block_reference(x, self.tensors(), gelu_tier)
+        return block_reference(x, self.tensors(), gelu_tier, self.dw_sep)
 
     def forward_folded(self, x: torch.Tensor, gelu_tier: str, fold: LNFold) -> torch.Tensor:
         """The LN-folded block (`block_folded`) with the fold given."""
-        return block_folded(x, self.tensors(), gelu_tier, fold)
+        return block_folded(x, self.tensors(), gelu_tier, fold, self.dw_sep)
 
     def fold_ln(self) -> LNFold:
         """`ln_fold` of the current weights: differentiable; prepare_kernels
@@ -267,13 +307,16 @@ def stage_kernel_applies(h: int, c: int) -> bool:
 
 
 def backbone_path(x: torch.Tensor, plan: KernelPlan) -> str:
-    """'kernels', '1', 'stage' or 'plain' (module docstring). The fused
-    paths ignore plan.gelu for their kernels, as the JAX package's do."""
+    """'kernels', 'mlp', '1', 'stage' or 'plain' (module docstring). The
+    fused paths ignore plan.gelu for their kernels, as the JAX package's
+    do."""
     if not (x.dtype == torch.bfloat16 and x.is_cuda) or plan.pallas == "0":
         return "plain"
     if plan.pallas in ("1", "stage"):
         return plan.pallas
-    return "kernels" if plan.gelu != "exact" else "plain"
+    if plan.gelu == "exact":
+        return "plain"
+    return "kernels" if plan.mlp_stages() is None else "mlp"
 
 
 class FeatureTensors(NamedTuple):
@@ -310,27 +353,36 @@ class FeatureTensors(NamedTuple):
 
 
 @torch.no_grad()
+def fold_tail(t: BlockTensors, int8_mlp: str = "") -> Union[FoldedMLP, FoldedMLPInt8]:
+    """A block's tail folds, in f32 (matrices in the weights' dtype): K1's,
+    or K4's of int8 mode 'fc1' or 'full'. No autograd graph: it would keep
+    each fold's f32 intermediates alive."""
+    if int8_mlp:
+        return fold_block_mlp_int8(*tuple(t)[2:], int8_mlp, t.fc1_weight.dtype)
+    return fold_block_mlp(*tuple(t)[2:], t.fc1_weight.dtype)
+
+
+@torch.no_grad()
 def kernel_weights(ft: FeatureTensors, int8_mlp: str = "") -> KernelWeights:
-    """The kernel backbone's folds from `ft`, in f32 (matrices in the
-    weights' dtype): K1's, or K4's of int8 mode 'fc1' or 'full'. No
-    autograd graph: it would keep each fold's f32 intermediates alive."""
+    """The kernel backbone's folds from `ft` (`fold_tail` for every block,
+    the downsample LNs' parameters in f32)."""
     def f32(scale, bias):
         return scale.float().contiguous(), bias.float().contiguous()
 
     post_ln = [None if ds is None else f32(*ds[:2]) for ds in ft.downsample[1:]] + [None]
-    blocks = [[fold_block_mlp_int8(*tuple(t)[2:], int8_mlp, t.fc1_weight.dtype) if int8_mlp
-               else fold_block_mlp(*tuple(t)[2:], t.fc1_weight.dtype) for t in stage]
-              for stage in ft.blocks]
+    blocks = [[fold_tail(t, int8_mlp) for t in stage] for stage in ft.blocks]
     return KernelWeights(stem_ln=f32(*ft.stem[2:]), blocks=blocks, post_ln=post_ln,
                          int8_mlp=int8_mlp)
 
 
 def features_kernels(x: torch.Tensor, ft: FeatureTensors, kw: KernelWeights, gelu_tier: str,
-                     tail: Callable, ln_rows: Callable) -> torch.Tensor:
+                     tail: Callable, ln_rows: Callable,
+                     seps: Optional[Sequence[Sequence[Optional[DwSep]]]] = None) -> torch.Tensor:
     """The kernel backbone (JAX _features_mlp_kernel, convnext.py:363-386):
     stem conv, `ln_rows` (K2) for the stem LN, per block the depthwise conv
-    then `tail` (K1 or K4) with the folds `kw`; the last block of a stage
-    runs the next downsample's LN, whose conv then runs directly."""
+    (separable where `seps` gives factors) then `tail` (K1 or K4) with the
+    folds `kw`; the last block of a stage runs the next downsample's LN,
+    whose conv then runs directly."""
     x = conv2d(x, ft.stem[0], ft.stem[1], stride=4)
     x = _nchw(ln_rows(_nhwc(x), *kw.stem_ln))
     for si, (ds, blocks) in enumerate(zip(ft.downsample, ft.blocks)):
@@ -339,9 +391,22 @@ def features_kernels(x: torch.Tensor, ft: FeatureTensors, kw: KernelWeights, gel
             x = conv2d(x, ds[2], ds[3], stride=2)
         last = len(blocks) - 1
         for bi, t in enumerate(blocks):
-            d = depthwise(x, t)
+            d = depthwise(x, t, seps[si][bi] if seps else None)
             post = kw.post_ln[si] if bi == last else None
             x = _nchw(tail(_nhwc(d), _nhwc(x), kw.blocks[si][bi], post, gelu_tier))
+    return x
+
+
+def stage_mlp(x: torch.Tensor, blocks: Sequence[BlockTensors], folds: Sequence,
+              gelu_tier: str, tail: Callable,
+              seps: Optional[Sequence[Optional[DwSep]]] = None) -> torch.Tensor:
+    """A chosen stage of the per-stage kernel path (JAX
+    _apply_stage_mlp_kernel, convnext.py:276-303): per block the depthwise
+    conv (separable where `seps` gives factors), then `tail` (K1 or K4)
+    with the block's folds and no fused LayerNorm."""
+    for bi, t in enumerate(blocks):
+        d = depthwise(x, t, seps[bi] if seps else None)
+        x = _nchw(tail(_nhwc(d), _nhwc(x), folds[bi], None, gelu_tier))
     return x
 
 
@@ -455,6 +520,23 @@ class FusedStage(torch.autograd.Function):
         return (None, None) + grads
 
 
+class MlpStage(FusedStage):
+    """A chosen stage of the per-stage kernel path, differentiable (JAX
+    _apply_stage_mlp_kernel with its custom VJP, convnext.py:276-322).
+    Forward: `stage_mlp` with `kernel` = (tail, int8_mlp), the tails folded
+    (`fold_tail`) from the tensors of the call; backward: FusedStage's,
+    autograd of the chain of `block_reference`s recomputed."""
+
+    @staticmethod
+    def forward(ctx, gelu_tier: str, kernel, x, *tensors):
+        tail, int8_mlp = kernel
+        chain = _chain(tensors)
+        out = stage_mlp(x, chain, [fold_tail(t, int8_mlp) for t in chain], gelu_tier, tail)
+        ctx.save_for_backward(x, *tensors)
+        ctx.gelu_tier = gelu_tier
+        return out
+
+
 class ConvNeXt(nn.Module):
     def __init__(self, depths=(3, 3, 9, 3), dims=(96, 192, 384, 768),
                  num_classes: int = 1000):
@@ -513,23 +595,39 @@ class ConvNeXt(nn.Module):
         dtype cast: K1's or K4's folds (pallas ''), K5's or K6's packs and
         the LayerNorm folds of the blocks around them (pallas '1' or
         'stage'). The kernel paths read only these: call it
-        again after any change to the weights."""
+        again after any change to the weights. Blocks with separable
+        depthwise factors refuse '1' and 'stage', whose kernels convolve
+        the exact weights."""
         if plan.pallas in ("1", "stage"):
+            if any(sep is not None for stage in self.dw_seps() for sep in stage):
+                raise ValueError(f"pallas={plan.pallas!r} convolves the exact depthwise "
+                                 f"weights: it cannot run blocks with separable factors "
+                                 f"(dw_rank)")
             self._kernel_weights = None
             self._fused_weights = self.pack_fused_weights(plan.pallas)
         else:
             self._fused_weights = None
             self._kernel_weights = self.fold_kernel_weights(plan.int8_mlp)
 
+    def dw_seps(self) -> List[List[Optional[DwSep]]]:
+        """Each block's separable depthwise factors (None where it has
+        none), by stage."""
+        return [[blk.dw_sep for blk in stage.blocks] for stage in self.stages]
+
+    def _blocks_plain(self, stage: Stage, x: torch.Tensor, gelu_tier: str) -> torch.Tensor:
+        """A stage's blocks on the plain path: the LN-folded block, folded
+        per call, in bfloat16; the reference block otherwise."""
+        for blk in stage.blocks:
+            if x.dtype == torch.bfloat16:
+                x = blk.forward_folded(x, gelu_tier, blk.fold_ln())
+            else:
+                x = blk(x, gelu_tier)
+        return x
+
     def _features_plain(self, x: torch.Tensor, gelu_tier: str) -> torch.Tensor:
         x = self._stem_plain(x)
         for stage in self.stages:
-            x = self._downsample_plain(stage, x)
-            for blk in stage.blocks:
-                if x.dtype == torch.bfloat16:
-                    x = blk.forward_folded(x, gelu_tier, blk.fold_ln())
-                else:
-                    x = blk(x, gelu_tier)
+            x = self._blocks_plain(stage, self._downsample_plain(stage, x), gelu_tier)
         return x
 
     def _fused(self, pallas: str) -> FusedWeights:
@@ -594,8 +692,7 @@ class ConvNeXt(nn.Module):
                     x = blk.forward_folded(x, gelu_tier, fold)
         return x
 
-    def _features_kernels(self, x: torch.Tensor, gelu_tier: str,
-                          int8_mlp: str = "") -> torch.Tensor:
+    def _folds(self, int8_mlp: str) -> KernelWeights:
         kw = self._kernel_weights
         if kw is None:
             raise RuntimeError("kernel backbone without folds: call prepare_kernels() first")
@@ -603,8 +700,35 @@ class ConvNeXt(nn.Module):
             raise RuntimeError(
                 f"kernel backbone folded for int8_mlp={kw.int8_mlp!r}, run with "
                 f"{int8_mlp!r}: call prepare_kernels(plan) with this plan")
+        return kw
+
+    def _features_kernels(self, x: torch.Tensor, gelu_tier: str,
+                          int8_mlp: str = "") -> torch.Tensor:
+        kw = self._folds(int8_mlp)
         tail = ln_mlp_residual_int8 if int8_mlp else ln_mlp_residual
-        return features_kernels(x, self.feature_tensors(), kw, gelu_tier, tail, layer_norm_rows)
+        return features_kernels(x, self.feature_tensors(), kw, gelu_tier, tail, layer_norm_rows,
+                                self.dw_seps())
+
+    def _features_mlp(self, x: torch.Tensor, gelu_tier: str, stages: AbstractSet[int],
+                      int8_mlp: str = "", per_call: bool = False) -> torch.Tensor:
+        """The per-stage kernel path (pallas 'mlp...'): plain stem and
+        downsample LNs, `stage_mlp` on the chosen stages with K1 (or K4)
+        (folds of prepare_kernels; in training `MlpStage`, folds per call),
+        the LN-folded block elsewhere."""
+        tail = ln_mlp_residual_int8 if int8_mlp else ln_mlp_residual
+        kw = None if per_call else self._folds(int8_mlp)
+        x = self._stem_plain(x)
+        for si, stage in enumerate(self.stages):
+            x = self._downsample_plain(stage, x)
+            if si not in stages:
+                x = self._blocks_plain(stage, x, gelu_tier)
+            elif per_call:
+                x = MlpStage.apply(gelu_tier, (tail, int8_mlp), x,
+                                   *(t for blk in stage.blocks for t in blk.tensors()))
+            else:
+                x = stage_mlp(x, [blk.tensors() for blk in stage.blocks], kw.blocks[si],
+                              gelu_tier, tail, [blk.dw_sep for blk in stage.blocks])
+        return x
 
     def features(self, x: torch.Tensor, plan: KernelPlan = DEFAULT_PLAN,
                  per_call_folds: bool = False) -> torch.Tensor:
@@ -620,6 +744,9 @@ class ConvNeXt(nn.Module):
                 return KernelBackbone.apply(ft.layout(), plan.gelu, plan.int8_mlp,
                                             (tail, layer_norm_rows), x, *ft.flat())
             return self._features_kernels(x, plan.gelu, plan.int8_mlp)
+        if path == "mlp":
+            return self._features_mlp(x, plan.gelu, plan.mlp_stages(), plan.int8_mlp,
+                                      per_call_folds)
         if path == "1":
             return self._features_block(x, plan.gelu, per_call_folds)
         if path == "stage":

@@ -6,16 +6,22 @@ model/genconvit.py:71-74), so the per-frame sigmoid mean downstream is
 also the ensemble average. With train=True the forward returns (logits,
 aux) as genconvit_apply(train=True) does: aux holds the VAE branch's
 reconstruction, KL term, mu, logvar and BatchNorm statistics under 'vae_*'.
+
+The VAE branch is the variant config.model.vae_variant names (models/vae.py,
+genconvit_tpu/models/genconvit.py:43-70); `head_act` picks each branch's
+classifier head ('default' or 'swiglu'; a dict gives one per branch).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+import dataclasses
+from typing import Any, Dict, List, Mapping, Optional, Tuple, Union
 
 import torch
 import torch.nn as nn
 
 from genconvit_tpu_torch.config import Config
+from genconvit_tpu_torch.core.convert import branch_spec
 from genconvit_tpu_torch.models.convnext import DEFAULT_PLAN, ConvNeXt
 from genconvit_tpu_torch.models.ed import GenConViTED
 from genconvit_tpu_torch.models.vae import GenConViTVAE
@@ -24,21 +30,42 @@ from genconvit_tpu_torch.ops.kernel_plan import KernelPlan
 VALID_NETS = ("ed", "vae", "genconvit")
 
 
+def model_spec(config: Config, state_dicts: Mapping[str, Mapping[str, Any]]
+               ) -> Tuple[Config, Dict[str, str]]:
+    """What GenConViT the branches' state dicts need, as the JAX package
+    dispatches on its trees (`branch_spec`): the config with the VAE
+    variant they hold (the config's own without VAE weights; the config is
+    not modified) and each branch's head."""
+    variant, heads = config.model.vae_variant, {}
+    for name, sd in state_dicts.items():
+        spec = branch_spec(sd, name)
+        heads[name] = spec["head_act"]
+        variant = spec.get("variant", variant)
+    if variant != config.model.vae_variant:
+        config = dataclasses.replace(
+            config, model=dataclasses.replace(config.model, vae_variant=variant))
+    return config, heads
+
+
 class GenConViT(nn.Module):
     def __init__(self, config: Optional[Config] = None, net: str = "genconvit",
-                 backbone_classes: int = 1000):
+                 backbone_classes: int = 1000,
+                 head_act: Union[str, Mapping[str, str]] = "default"):
         super().__init__()
         if net not in VALID_NETS:
             raise ValueError(f"net must be one of {VALID_NETS}, got {net!r}")
         config = config or Config()
         self.net = net
         bb = config.model.backbone
+        heads = dict.fromkeys(("ed", "vae"), head_act) if isinstance(head_act, str) else head_act
         if net in ("ed", "genconvit"):
-            self.ed = GenConViTED(bb, config.num_classes, backbone_classes)
+            self.ed = GenConViTED(bb, config.num_classes, backbone_classes,
+                                  heads.get("ed", "default"))
         if net in ("vae", "genconvit"):
             self.vae = GenConViTVAE(bb, config.img_size,
                                     config.vae_latent_dims(),
-                                    config.num_classes, backbone_classes)
+                                    config.num_classes, backbone_classes,
+                                    heads.get("vae", "default"), config.model.vae_variant)
 
     def branches(self) -> List[nn.Module]:
         return [getattr(self, b) for b in ("ed", "vae") if hasattr(self, b)]

@@ -5,9 +5,12 @@ module lives on (port of the JAX package's init_* functions).
     conv and linear weight, zero biases, unit LayerNorms, layer scale 1e-6;
   * ED/VAE convs, transposed convs and linears: torch's default,
     U(+-1/sqrt(fan_in)) for weight and bias (fan_in of a transposed conv is
-    Cout*kH*kW, as torch computes it);
+    Cout*kH*kW, as torch computes it), the updated VAE's decoder_input and
+    the SwiGLU heads' fc included (the JAX package's linear_init and
+    conv_transpose_init, genconvit_tpu/ops/init.py);
   * the VAE latent heads: the same torch Linear bound, flat ** -0.5;
-  * BatchNorm: unit scale, zero shift, running mean 0 and variance 1;
+  * BatchNorm (the VAE encoder's, the updated decoder's): unit scale, zero
+    shift, running mean 0 and variance 1;
   * Swin (init_swin, genconvit_tpu/models/swin.py:97-126): torch's default
     bound for the patch conv and every linear (weight and bias), trunc_normal
     (std 0.02) for the relative position bias tables and the bias-free

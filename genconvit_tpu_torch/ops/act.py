@@ -90,3 +90,10 @@ def relu(x: torch.Tensor) -> torch.Tensor:
 
 def leaky_relu(x: torch.Tensor, negative_slope: float = 0.01) -> torch.Tensor:
     return F.leaky_relu(x, negative_slope)
+
+
+def swiglu(x: torch.Tensor) -> torch.Tensor:
+    """SwiGLU gate (genconvit_tpu/ops/act.py:115-122): the last axis split
+    in half, silu(a) * b."""
+    a, b = x.chunk(2, dim=-1)
+    return F.silu(a) * b

@@ -8,8 +8,9 @@ train.py:161-196: -e/--epoch, -v/--version, -d/--dir, -m/--model,
 
 It trains on the card unless --device names another device; without CUDA
 that raises. The kernel plan is the environment's (GENCONVIT_PALLAS,
-GENCONVIT_INT8_MLP, ...). `--vae-variant updated` raises: that variant is
-not ported.
+GENCONVIT_INT8_MLP, ...; GENCONVIT_PALLAS=mlp[:i,j] trains through the
+per-stage kernel path). `--vae-variant updated` trains the updated VAE
+(ref model/genconvit_vae_updated.py, the reference's train_updated.py).
 """
 
 from __future__ import annotations
@@ -44,7 +45,9 @@ def gen_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=1)
     p.add_argument("--weight-dir", default="weight")
     p.add_argument("--vae-variant", choices=["original", "updated"], default=None,
-                   help="'updated' is not ported and raises")
+                   help="'updated' = the train_updated.py variant (fixed reparameterization, "
+                        "Tanh decoder with BatchNorms, dropout head: ref "
+                        "model/genconvit_vae_updated.py)")
     p.add_argument("--bf16", action="store_true",
                    help="mixed precision: bf16 forward/backward, f32 master weights "
                         "and Adam state (f32 is the default)")
@@ -56,14 +59,12 @@ def gen_parser() -> argparse.ArgumentParser:
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     start = time.perf_counter()
     args = gen_parser().parse_args(argv)
-    if args.vae_variant == "updated":
-        raise NotImplementedError(
-            "--vae-variant updated: the updated VAE variant is not ported yet "
-            "(genconvit_tpu/models/vae.py vae_updated_apply)")
     config = load_config()
     if args.img_size:
         config.img_size = args.img_size
         config.model.latent_dims = config.derived_latent_dims()
+    if args.vae_variant:
+        config.model.vae_variant = args.vae_variant
     mod = args.model if args.model in ("ed", "genconvit") else "vae"
     summary = train_model(
         args.dir, mod, args.epoch if args.epoch else config.epoch,

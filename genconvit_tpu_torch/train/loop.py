@@ -44,7 +44,7 @@ from genconvit_tpu_torch.core.convert import state_dict_from_jax, tree_from_stat
 from genconvit_tpu_torch.data.folder import load_data
 from genconvit_tpu_torch.data.preprocess import normalize_batch
 from genconvit_tpu_torch.device import default_device
-from genconvit_tpu_torch.models.genconvit import GenConViT
+from genconvit_tpu_torch.models.genconvit import GenConViT, model_spec
 from genconvit_tpu_torch.models.init import init_genconvit_
 from genconvit_tpu_torch.ops.kernel_plan import KernelPlan
 from genconvit_tpu_torch.train import optim
@@ -116,13 +116,20 @@ def make_loss_fn(model: GenConViT, net: str, use_kl: bool = False,
 
 @torch.no_grad()
 def write_back_bn(model: GenConViT, bn_stats, net: str) -> None:
-    """The VAE encoder's new running statistics into the master buffers, in
-    their dtype (_write_back_bn of the JAX package, loop.py:85-115)."""
+    """The VAE's new running statistics into the master buffers, in their
+    dtype (_write_back_bn of the JAX package, loop.py:85-115): the
+    encoder's four, then, for the updated variant, the decoder's three
+    (features.{1,4,7} of each)."""
     if bn_stats is None or net not in ("vae", "genconvit"):
         return
-    feats = model.vae.encoder.features
-    for i, (mean, var) in enumerate(bn_stats):
-        bn = feats[3 * i + 1]
+    vae = model.vae
+    bns = [vae.encoder.features[3 * i + 1] for i in range(4)]
+    if vae.updated:
+        bns += [vae.decoder.features[3 * i + 1] for i in range(3)]
+    if len(bn_stats) != len(bns):
+        raise ValueError(f"{len(bn_stats)} BatchNorm statistics for the {vae.variant} "
+                         f"VAE's {len(bns)} BatchNorms")
+    for bn, (mean, var) in zip(bns, bn_stats):
         bn.running_mean.copy_(mean)
         bn.running_var.copy_(var)
 
@@ -180,11 +187,12 @@ def params_tree(model: GenConViT) -> Dict[str, Any]:
 
 
 def new_model(config: Config, net: str, device: torch.device, seed: int,
-              backbone_classes: int = 1000) -> GenConViT:
+              backbone_classes: int = 1000, head_act="default") -> GenConViT:
     """A float32 GenConViT on the device, initialized from `seed`, 4-D
-    weights channels_last as the activations."""
+    weights channels_last as the activations. The VAE is the variant
+    config.model.vae_variant names; head_act as GenConViT takes it."""
     with torch.device("meta"):
-        model = GenConViT(config, net, backbone_classes)
+        model = GenConViT(config, net, backbone_classes, head_act)
     model = model.to_empty(device=device)
     init_genconvit_(model, torch.Generator(device=device).manual_seed(seed))
     return model.to(memory_format=torch.channels_last)
@@ -220,11 +228,15 @@ def train_model(
     log.info("data: %s", sizes)
 
     payload = load_checkpoint(pretrained) if pretrained else None
-    classes = 1000
-    if payload is not None:   # the backbone head's width, as the file has it
+    classes, sds = 1000, {}
+    if payload is not None:
+        # the module the file's weights need: the backbone head's width, each
+        # branch's head and the VAE's variant, as the file has them
+        sds = {b: state_dict_from_jax(t, b) for b, t in payload["params"].items()}
         tree = next(iter(payload["params"].values()))
         classes = int(np.shape(tree["backbone"]["head"]["fc"]["kernel"])[-1])
-    model = new_model(config, mod, device, seed, classes)
+    config, heads = model_spec(config, sds)
+    model = new_model(config, mod, device, seed, classes, heads)
     parts = branches(model)
     optimizer = optim.make_optimizer(model.parameters(), config.learning_rate,
                                      config.weight_decay)
@@ -232,7 +244,7 @@ def train_model(
     min_loss = float(config.min_val_loss)
     if payload is not None:
         for b, m in parts.items():
-            m.load_state_dict(state_dict_from_jax(payload["params"][b], b))
+            m.load_state_dict(sds[b])
         if payload.get("opt_state") is not None:
             restore_opt_state(optimizer, parts, payload["opt_state"])
         start_epoch = payload.get("epoch", 0)

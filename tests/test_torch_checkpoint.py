@@ -257,8 +257,11 @@ def test_load_config_search_order(tmp_path, monkeypatch):
 
 
 def test_config_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="updated"):
-        port_config.Config.from_dict({"model": {"vae_variant": "updated"}})
+    cfg = port_config.Config.from_dict({"model": {"vae_variant": "updated"}})
+    assert cfg.model.vae_variant == jax_config.Config.from_dict(
+        {"model": {"vae_variant": "updated"}}).model.vae_variant == "updated"
+    with pytest.raises(ValueError, match="vae_variant"):
+        port_config.Config.from_dict({"model": {"vae_variant": "bogus"}})
     with pytest.raises(ValueError):
         port_config.parse_yaml("model:\n  - a\n")
     with pytest.raises(ValueError, match="escape"):

@@ -70,7 +70,7 @@ def test_dead_parameter_groups_are_ignored():
 
 def test_unknown_branch_raises():
     with pytest.raises(ValueError, match="unknown branch"):
-        state_dict_from_jax({}, "vae_updated")
+        state_dict_from_jax({}, "bogus")
 
 
 def test_layouts():

@@ -52,7 +52,7 @@ def test_importing_every_module_loads_nothing_forbidden():
                  "evalx.plots", "data.folder", "data.augment", "infer.batcher",
                  "infer.serve_pipeline", "serve", "prediction_v2", "evaluate", "result_all",
                  "plot_comparison", "train.optim", "train.loop", "train.facedet_train",
-                 "train.__main__"):
+                 "train.__main__", "ops.dwsep"):
         assert f"genconvit_tpu_torch.{name}" in rec["modules"]
     assert rec["bad"] == []
     assert rec["built"] is False

@@ -289,10 +289,10 @@ _TUNED = {"pallas": "stage", "gelu": "hp", "int8_mlp": "fc1", "mlp_panel_mb": 16
           "mlp_split": 2, "_meta": {"chip": "TPU v5 lite"}, "unknown_knob": 1}
 
 
-# (plan file or None, variables set, whether the port must refuse)
+# (plan file or None, variables set, whether the Predictor must refuse the plan)
 @pytest.mark.parametrize("plan,env,refused", [
-    (None, {"GENCONVIT_DW_RANK": "1"}, True),
-    (None, {"GENCONVIT_DW_RANK": "auto:0.8"}, True),
+    (None, {"GENCONVIT_DW_RANK": "1"}, False),
+    (None, {"GENCONVIT_DW_RANK": "auto:0.8"}, False),
     (None, {"GENCONVIT_DW_RANK": "0", "GENCONVIT_PALLAS": "1"}, False),
     (None, {"GENCONVIT_DW_RANK": ""}, False),
     (_TUNED, {}, False),                                   # the file sets the fields
@@ -300,7 +300,7 @@ _TUNED = {"pallas": "stage", "gelu": "hp", "int8_mlp": "fc1", "mlp_panel_mb": 16
     (_TUNED, {"GENCONVIT_EXACT_GELU": "1", "GENCONVIT_MLP_PANEL": "4"}, False),
     ({"gelu": "hp", "dw_rank": 0}, {}, False),
     ({"pallas": "1", "dw_rank": 1}, {}, True),
-    ({"dw_rank": "auto:0.8:2"}, {}, True),
+    ({"dw_rank": "auto:0.8:2"}, {}, False),
     ({"dw_rank": 2}, {"GENCONVIT_DW_RANK": "0"}, False),   # a set variable overrides the file
 ], ids=["env-rank-1", "env-rank-auto", "env-rank-0", "env-rank-empty", "file-fields",
         "file-overridden", "file-gelu-exact", "file-rank-0", "file-rank-1", "file-rank-auto",
@@ -308,11 +308,13 @@ _TUNED = {"pallas": "stage", "gelu": "hp", "int8_mlp": "fc1", "mlp_panel_mb": 16
 def test_kernel_plan_layers_the_plan_file_and_refuses_dw_rank(monkeypatch, tmp_path, plan,
                                                                env, refused):
     """from_env layers defaults, the GENCONVIT_KERNEL_PLAN file and the set
-    variables as the JAX package's from_env does, field for field; a
-    non-zero dw_rank (not ported) raises instead of being ignored."""
+    variables as the JAX package's from_env does, field for field, dw_rank
+    included; the Predictor refuses dw_rank with pallas '1' and 'stage', as
+    the JAX engine does."""
     import json
 
     from genconvit_tpu.ops.kernel_plan import KernelPlan as JaxPlan
+    from genconvit_tpu_torch.infer.engine import Predictor
 
     for var in _PLAN_VARS:
         monkeypatch.delenv(var, raising=False)
@@ -324,12 +326,11 @@ def test_kernel_plan_layers_the_plan_file_and_refuses_dw_rank(monkeypatch, tmp_p
     for var, value in env.items():
         monkeypatch.setenv(var, value)
     ref = JaxPlan.from_env()
-    if refused:
-        assert ref.dw_rank not in (0, "0")
-        with pytest.raises(ValueError, match="queue 1 item 3"):
-            KernelPlan.from_env()
-        return
-    assert ref.dw_rank == 0
     got = KernelPlan.from_env()
-    assert (got.pallas, got.gelu, got.int8_mlp) == (ref.pallas, ref.gelu, ref.int8_mlp)
+    assert (got.pallas, got.gelu, got.int8_mlp, got.dw_rank) == (
+        ref.pallas, ref.gelu, ref.int8_mlp, ref.dw_rank)
     assert got.int8_heads is False
+    assert got.dw_sep == bool(ref.dw_rank)
+    if refused:
+        with pytest.raises(ValueError, match="dw_rank"):
+            Predictor(device="cpu", kernel_plan=got)

@@ -16,7 +16,8 @@ package's on the CPU.
     then each package resumes from the other's checkpoint for one more
     epoch and the two agree as closely;
   * `python -m genconvit_tpu_torch.train` trains, saves and resumes with
-    --device cpu, and raises without CUDA and for --vae-variant updated.
+    --device cpu, and raises without CUDA and for an unknown --vae-variant
+    (tests/test_torch_vae_updated.py trains the updated one).
 The detector's train step is tests/test_torch_facedet_train.py's."""
 
 import os
@@ -238,8 +239,8 @@ def test_cli_trains_saves_and_resumes_on_the_cpu(tmp_path, data_dir, small_backb
 def test_cli_refuses_without_cuda_and_the_updated_vae(tmp_path):
     env = dict(os.environ, PYTHONPATH=ROOT, CUDA_VISIBLE_DEVICES="")
     cases = {"no CUDA device": ["-d", str(tmp_path)],
-             "updated VAE variant is not ported": ["-d", str(tmp_path), "--vae-variant",
-                                                   "updated", "--device", "cpu"]}
+             "invalid choice: 'bogus'": ["-d", str(tmp_path), "--vae-variant", "bogus",
+                                         "--device", "cpu"]}
     for msg, argv in cases.items():
         proc = subprocess.run([sys.executable, "-m", "genconvit_tpu_torch.train", *argv],
                               cwd=str(tmp_path), env=env, capture_output=True, text=True,
