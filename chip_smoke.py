@@ -230,7 +230,7 @@ Phases (any failed check raises and the exit code is non-zero):
      Adam count, weights equal to the model's) and `.pkl` read back.
 
   14. the updated VAE, the SwiGLU heads, dw_rank and the 'mlp' plan values
-     (it runs after phase 12 and before phase 13; `--phase14-only` runs
+     (it runs after phase 12 and before phase 15; `--phase14-only` runs
      phases 1, 2 and 14 alone):
      convnext_tiny GenConViT at full width and depth, 224 px, seeded random
      weights (layer scale U(0.1, 1), both heads' last layer scaled, as in
@@ -252,6 +252,39 @@ Phases (any failed check raises and the exit code is non-zero):
      '0''s (floor 1e-3), and after the updated step all 7 BatchNorms'
      running means written back (moved, within 0.25 of the float32 step's
      change).
+
+  15. the fullframe fast paths' device half (it runs after phase 14 and
+     before phase 13; `--phase15-only` runs phases 1, 2 and 15 alone):
+     convnext_tiny GenConViT at full width and depth, 224 px, latent 12544,
+     15 frames, seeded weights as phase 14 makes them (heads scaled),
+     deterministic VAE, TF32 off for the float32 references. (a)
+     `normalize_yuv420` on the card on seeded [120,224,224] / [120,112,112]
+     planes with per-video [8,3,4] affines mixing bt601/bt709 and
+     full/limited range, against the port's CPU float32 version: max|diff|
+     <= 1e-5 after normalization; planted faults (U and V swapped, chroma
+     shifted one row, the range offset dropped) must fail; its time beside
+     `normalize_batch` on RGB frames; (b) `forward_batched_yuv` at V=8 in
+     the default plan (54 K1 + 3 K2 a forward) and under int8 heads +
+     'full' (54 K4 + 3 K2 + 1 K3) against the float32 plain path on the same
+     planes: max|dy_val| <= 2e-2 (4e-2 with the int8 tails), equal y on
+     decisive videos; V=8 videos/s by phase 6's protocol beside the RGB
+     `forward_batched`'s; (c) `predict_videos_stream_yuv` over four V=8
+     host batches equal to `forward_batched_yuv` on each, bit for bit, timed
+     against `predict_videos_stream` on the RGB frames of the same videos;
+     (d) with `data.native`'s `native_available`, `NativeVideoReader` and
+     `decode_videos_batch` swapped for an in-memory source of 16 videos at
+     224 px (one unreadable, one without frames; put back after),
+     `predict_files` under transfer_format 'rgb' (`predict_files_native_rgb`,
+     groups of 8) and 'yuv420' (`predict_files_yuv`, groups of 16), three
+     runs each: every verdict within 2e-3 of `forward_batched` /
+     `forward_batched_yuv` on the same frames or planes, y equal where
+     decisive, the unreadable video None (yuv420) or (0, 0.5) (rgb: count
+     0), the empty one (0, 0.5), 54 K1 + 3 K2 per group forward, videos/s;
+     `extract_faces` of one path bit for bit the source's frames and
+     `predict_video` 54 + 3; (e) `prediction.main` in-process over
+     placeholder files with `--face-backend fullframe --transfer-format
+     yuv420` (its Predictor given the phase's weights): the JAX package's
+     result keys, one group forward, the verdicts of (d).
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Without CUDA it exits non-zero at once.
@@ -3510,6 +3543,27 @@ def p14_params(torch, dev, variant: str = "original", head_act: str = "default",
     return {b: getattr(model, b).state_dict() for b in ("ed", "vae")}
 
 
+def verdict_parity(np, card: str, tag: str, m16, m32, what: str, tol: float) -> float:
+    """max|dy_val| of class means m16 against m32 (<= tol), and y equal
+    wherever m32's class means differ by more than twice tol."""
+
+    def verdicts(m):
+        return m.argmax(-1), np.where(m[:, 0] > m[:, 1], m[:, 0], np.abs(1 - m[:, 1]))
+
+    (y16, v16), (y32, v32) = verdicts(m16), verdicts(m32)
+    dyv = float(np.abs(v16 - v32).max())
+    decisive = np.abs(m32[:, 0] - m32[:, 1]) > 2 * tol
+    log(f"  {what}: max|dy_val| = {dyv:.3e} (limit {tol}); decisive videos "
+        f"{int(decisive.sum())}/{len(m32)}, y {y16.tolist()} ref {y32.tolist()} [{card}]")
+    if not dyv <= tol:
+        raise AssertionError(f"{tag} {what}: max|dy_val| {dyv} > {tol}")
+    if not decisive.any():
+        raise AssertionError(f"{tag} {what}: no decisive video")
+    if not (y16[decisive] == y32[decisive]).all():
+        raise AssertionError(f"{tag} {what}: y differs on a decisive video")
+    return dyv
+
+
 class P14Case:
     """One set of weights: the float32 plain path's class means on phase
     5's inputs, then each bf16 configuration held against them."""
@@ -3549,25 +3603,7 @@ class P14Case:
         return (sums / count.clamp(min=1)[:, None]).double().cpu().numpy()
 
     def dy_val(self, m16, m32, what: str, tol: float = YVAL_TOL) -> float:
-        """max|dy_val| of class means m16 against m32 (<= tol), and y equal
-        wherever m32's class means differ by more than twice tol."""
-        np = self.np
-
-        def verdicts(m):
-            return m.argmax(-1), np.where(m[:, 0] > m[:, 1], m[:, 0], np.abs(1 - m[:, 1]))
-
-        (y16, v16), (y32, v32) = verdicts(m16), verdicts(m32)
-        dyv = float(np.abs(v16 - v32).max())
-        decisive = np.abs(m32[:, 0] - m32[:, 1]) > 2 * tol
-        log(f"  {what}: max|dy_val| = {dyv:.3e} (limit {tol}); decisive videos "
-            f"{int(decisive.sum())}/{len(m32)}, y {y16.tolist()} ref {y32.tolist()} [{self.card}]")
-        if not dyv <= tol:
-            raise AssertionError(f"p14 [{self.name}] {what}: max|dy_val| {dyv} > {tol}")
-        if not decisive.any():
-            raise AssertionError(f"p14 [{self.name}] {what}: no decisive video")
-        if not (y16[decisive] == y32[decisive]).all():
-            raise AssertionError(f"p14 [{self.name}] {what}: y differs on a decisive video")
-        return dyv
+        return verdict_parity(self.np, self.card, f"p14 {self.name}", m16, m32, what, tol)
 
     def run(self, label: str, plan, parity: bool = True, rate: bool = False,
             profile: bool = False) -> dict:
@@ -3784,6 +3820,501 @@ def p14_summary(p14: dict, card: str) -> None:
             f"{r['bn']} BN running means written back [{card}]")
 
 
+# ---------------------------------------------------------------- phase 15
+
+P15_V = 8             # the YUV forward's and the stream's batch
+P15_NORM_TOL = 1e-5   # 15a: normalize_yuv420 on the card vs the CPU, after normalization
+P15_DRIVER_TOL = 2e-3  # 15d: a driver's verdict vs forward_batched(_yuv) on the same video:
+                       # the same bf16 path, only the batch differs (RECORDED_TOL's bound)
+P15_COLORS = (("bt601", False), ("bt709", True), ("bt709", False), ("bt601", True))
+P15_VIDEOS = 16       # 15d: the drivers' corpus (one unreadable, one without frames)
+P15_UNREADABLE = "p15_03.mp4"
+P15_EMPTY = "p15_11.mp4"
+
+
+def p15_planes(np, rng, v: int, f: int = FRAMES, s: int = IMG) -> tuple:
+    """Seeded uint8 planes y [v,f,s,s], u and v [v,f,s/2,s/2] and one [3,4]
+    affine a video, mixing bt601/bt709 and full/limited range."""
+    from genconvit_tpu_torch.data.preprocess import yuv_affine
+
+    y = rng.integers(0, 256, (v, f, s, s), np.uint8)
+    u = rng.integers(0, 256, (v, f, s // 2, s // 2), np.uint8)
+    w = rng.integers(0, 256, (v, f, s // 2, s // 2), np.uint8)
+    m = np.stack([yuv_affine(*P15_COLORS[i % len(P15_COLORS)]) for i in range(v)])
+    return y, u, w, m
+
+
+def p15_conversion(torch, np, dev, card: str) -> dict:
+    """15a: normalize_yuv420 on the card against the port's CPU float32
+    version on the same planes; the planted faults must fail."""
+    from genconvit_tpu_torch.data.preprocess import normalize_batch, normalize_yuv420
+
+    rng = np.random.default_rng(15)
+    y, u, w, m = p15_planes(np, rng, P15_V)
+    n = P15_V * FRAMES
+    host = [torch.from_numpy(a.reshape((n,) + a.shape[2:])) for a in (y, u, w)]
+    mats = torch.from_numpy(np.repeat(m, FRAMES, axis=0))
+    ref = normalize_yuv420(*host, mats)
+    yd, ud, wd = (t.to(dev) for t in host)
+    md = mats.to(dev)
+
+    def err(*args) -> float:
+        out = normalize_yuv420(*args)
+        if not out.is_contiguous(memory_format=torch.channels_last):
+            raise AssertionError("normalize_yuv420 on the card is not channels_last")
+        return float((out.cpu() - ref).abs().max())
+
+    e = err(yd, ud, wd, md)
+    if not e <= P15_NORM_TOL:
+        raise AssertionError(f"normalize_yuv420 card vs CPU: max|diff| {e} > {P15_NORM_TOL}")
+    no_offset = md.clone()
+    no_offset[:, :, 3] = 0
+    planted = {"U and V swapped": err(yd, wd, ud, md),
+               "chroma one row down": err(yd, ud.roll(1, 1), wd.roll(1, 1), md),
+               "range offset dropped": err(yd, ud, wd, no_offset)}
+    for what, pe in planted.items():
+        if not pe > P15_NORM_TOL:
+            raise AssertionError(f"15a planted fault '{what}' passed: {pe} <= {P15_NORM_TOL}")
+    rgb = torch.randint(0, 256, (n, IMG, IMG, 3), dtype=torch.uint8, device=dev)
+    ms_yuv = cuda_ms(torch, lambda: normalize_yuv420(yd, ud, wd, md, torch.bfloat16), 20)
+    ms_rgb = cuda_ms(torch, lambda: normalize_batch(rgb, torch.bfloat16), 20)
+    log(f"p15 [conversion]: normalize_yuv420 on [{n},{IMG},{IMG}] planes, 8 per-video [3,4] "
+        f"affines (bt601/bt709, limited/full), card vs CPU float32 max|diff| {e:.3e} (limit "
+        f"{P15_NORM_TOL}); planted faults refused: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in planted.items())
+        + f"; bf16 out {ms_yuv:.4f} ms against normalize_batch on the RGB frames "
+        f"{ms_rgb:.4f} ms [{card}]")
+    return {"err": e, "planted": planted, "ms_yuv": ms_yuv, "ms_rgb": ms_rgb}
+
+
+def p15_yuv_means(torch, np, pred, planes: tuple, mask) -> "np.ndarray":
+    """Per-video class means of video_logits_yuv (phase 5's readout)."""
+    from genconvit_tpu_torch.infer.aggregate import masked_prob_sums
+
+    sums, count = masked_prob_sums(*pred.video_logits_yuv(*planes, mask))
+    return (sums / count.clamp(min=1)[:, None]).double().cpu().numpy()
+
+
+def p15_throughput(torch, np, pred, dev, card: str, name: str) -> dict:
+    """V=8 videos/s of forward_batched_yuv by phase 6's protocol (4
+    rotating device buffers, 6 launches a trial, one sync a trial, best of
+    3), then forward_batched's on RGB frames the same way."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    bufs = []
+    for i in range(4):
+        yp = torch.randint(0, 256, (P15_V, FRAMES, IMG, IMG), dtype=torch.uint8, device=dev,
+                           generator=g)
+        cp = [torch.randint(0, 256, (P15_V, FRAMES, IMG // 2, IMG // 2), dtype=torch.uint8,
+                            device=dev, generator=g) for _ in range(2)]
+        bufs.append((yp, *cp))
+    mat = torch.from_numpy(p15_planes(np, np.random.default_rng(0), P15_V, 1, 2)[3]).to(dev)
+    mask = torch.ones(P15_V, FRAMES, device=dev)
+    for i in range(2):
+        pred.forward_batched_yuv(*bufs[i], mat, mask)
+    torch.cuda.synchronize()
+    rates = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        for i in range(6):
+            pred.forward_batched_yuv(*bufs[i % 4], mat, mask)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        rates.append((P15_V * 6 / dt, dt / 6 * 1e3))
+        log(f"throughput [p15 {name}, yuv420] V=8: {rates[-1][0]:.2f} videos/s, "
+            f"{rates[-1][1]:.2f} ms/launch [{card}]")
+    del bufs
+    best = max(rates)
+    rgb = phase_throughput(torch, pred, dev, card, f"p15 {name}, rgb", v1=False)
+    log(f"p15 [{name}]: V=8 yuv420 {best[0]:.2f} videos/s ({best[1]:.2f} ms/launch) against "
+        f"rgb {rgb['v8_videos_s']:.2f} ({rgb['v8_ms']:.2f}) in this call: "
+        f"{best[0] / rgb['v8_videos_s']:.3f}x [{card}]")
+    return {"yuv_videos_s": best[0], "yuv_ms": best[1], "rgb_videos_s": rgb["v8_videos_s"],
+            "rgb_ms": rgb["v8_ms"]}
+
+
+def p15_forward(torch, np, dev, card: str, params: dict) -> tuple:
+    """15b: forward_batched_yuv at V=8 in the default plan and under
+    int8_heads + 'full' against the float32 plain path on the same planes;
+    launches a forward; videos/s beside forward_batched's. Returns (the
+    records, the default plan's fullframe Predictor)."""
+    from genconvit_tpu_torch.infer.engine import Predictor
+    from genconvit_tpu_torch.ops import cuda as kcuda
+    from genconvit_tpu_torch.ops.kernel_plan import KernelPlan
+
+    rng = np.random.default_rng(151)
+    planes = tuple(torch.from_numpy(a).to(dev) for a in p15_planes(np, rng, P15_V))
+    mask = torch.ones(P15_V, FRAMES, device=dev)
+    mask[1, 8:] = 0
+    mask[3, 2:] = 0
+    base = Predictor(p14_config(), device=dev, params=params, dtype=torch.float32,
+                     deterministic_vae=True, kernel_plan=KernelPlan(), face_backend="fullframe")
+    tf32 = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        m32 = p15_yuv_means(torch, np, base, planes, mask)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    del base
+    torch.cuda.empty_cache()
+    log(f"p15 [yuv forward]: f32 plain class means {np.round(m32, 5).tolist()}")
+    out, keep = {}, None
+    for name, plan in (("default", KernelPlan()),
+                       ("int8_heads+full", KernelPlan(int8_heads=True, int8_mlp="full"))):
+        pred = Predictor(p14_config(), device=dev, params=params, deterministic_vae=True,
+                         kernel_plan=plan, face_backend="fullframe")
+        kcuda.reset_launch_counts()
+        m16 = p15_yuv_means(torch, np, pred, planes, mask)
+        got = kcuda.launch_counts()
+        want = expected_launches(kcuda, "", plan.int8_mlp, plan.int8_heads)
+        if got != want:
+            raise AssertionError(f"p15 [{name}] forward_batched_yuv: launches {got}, want {want}")
+        rec = {"launches": {k: v for k, v in got.items() if v}}
+        rec["dy_val"] = verdict_parity(np, card, f"p15 {name}", m16, m32, "yuv420 vs f32 plain",
+                                       YVAL_TOL_INT8 if plan.int8_mlp else YVAL_TOL)
+        rec.update(p15_throughput(torch, np, pred, dev, card, name))
+        out[name] = rec
+        if name == "default":
+            keep = pred
+        else:
+            del pred
+            torch.cuda.empty_cache()
+    return out, keep
+
+
+def p15_stream(torch, np, pred, dev, card: str) -> dict:
+    """15c: predict_videos_stream_yuv over four V=8 host batches against
+    forward_batched_yuv on each, bit for bit; timed against
+    predict_videos_stream on the RGB frames of the same videos."""
+    from genconvit_tpu_torch.data.preprocess import yuv420_to_rgb
+
+    rng = np.random.default_rng(152)
+    batches, rgb_batches = [], []
+    for _ in range(STREAM_BATCHES):
+        y, u, w, m = p15_planes(np, rng, P15_V)
+        mask = np.ones((P15_V, FRAMES), np.float32)
+        mask[2, 5:] = 0
+        batches.append(((y, u, w), m, mask))
+        n = P15_V * FRAMES
+        rgb = yuv420_to_rgb(*(torch.from_numpy(a.reshape((n,) + a.shape[2:])).to(dev)
+                              for a in (y, u, w)),
+                            torch.from_numpy(np.repeat(m, FRAMES, axis=0)).to(dev))
+        rgb_batches.append((rgb.round().to(torch.uint8).reshape(
+            P15_V, FRAMES, IMG, IMG, 3).cpu().numpy(), mask))
+    got = pred.predict_videos_stream_yuv(batches)
+    for b, ((planes, m, mask), (gy, gv)) in enumerate(zip(batches, got, strict=True)):
+        wy, wv = pred.forward_batched_yuv(*(torch.from_numpy(a).to(dev) for a in planes),
+                                          torch.from_numpy(m).to(dev),
+                                          torch.from_numpy(mask).to(dev))
+        if not (np.array_equal(gy, wy.cpu().numpy()) and np.array_equal(gv, wv.cpu().numpy())):
+            raise AssertionError(f"p15 stream batch {b}: {gy} {gv} != forward_batched_yuv's "
+                                 f"{wy.cpu().numpy()} {wv.cpu().numpy()}")
+    times = {"yuv420": [], "rgb": []}
+    for _ in range(3):
+        for fmt, run in (("yuv420", lambda: pred.predict_videos_stream_yuv(batches)),
+                         ("rgb", lambda: pred.predict_videos_stream(rgb_batches))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run()
+            times[fmt].append((time.perf_counter() - t0) * 1e3)
+    upload = {"yuv420": sum(sum(a.nbytes for a in p) for p, _, _ in batches) / STREAM_BATCHES,
+              "rgb": sum(f.nbytes for f, _ in rgb_batches) / STREAM_BATCHES}
+    log(f"p15 [stream]: {STREAM_BATCHES} V=8 batches, predict_videos_stream_yuv equals "
+        f"forward_batched_yuv on each, bit for bit; ms (3 runs) yuv420 "
+        f"{[round(t, 2) for t in times['yuv420']]} ({upload['yuv420'] / 1e6:.1f} MB a batch) "
+        f"against rgb {[round(t, 2) for t in times['rgb']]} ({upload['rgb'] / 1e6:.1f} MB) "
+        f"[{card}]")
+    return {"yuv420_ms": min(times["yuv420"]), "rgb_ms": min(times["rgb"]),
+            "mb": {k: v / 1e6 for k, v in upload.items()}}
+
+
+class P15Source:
+    """An in-memory stand-in for the native decoder's Python face
+    (`native_available`, `NativeVideoReader`, `decode_videos_batch`): each
+    video's planes at the model size, its colour transform and its RGB
+    frames (the planes converted on the card and rounded), by file name. A
+    name it does not hold cannot be opened (IOError; count 0 in a batch)."""
+
+    def __init__(self, torch, np, dev):
+        from genconvit_tpu_torch.data.preprocess import yuv420_to_rgb
+
+        self.np = np
+        rng = np.random.default_rng(153)
+        self.videos = {}
+        for i in range(P15_VIDEOS):
+            name = f"p15_{i:02d}.mp4"
+            if name == P15_UNREADABLE:
+                continue
+            n = 0 if name == P15_EMPTY else int(rng.integers(9, 31))
+            y, u, w, m = p15_planes(np, rng, 1, n)
+            color = P15_COLORS[i % len(P15_COLORS)]
+            rgb = (yuv420_to_rgb(*(torch.from_numpy(a[0]).to(dev) for a in (y, u, w)),
+                                 torch.from_numpy(m[0]).to(dev)).round().to(torch.uint8)
+                   .cpu().numpy()) if n else np.zeros((0, IMG, IMG, 3), np.uint8)
+            self.videos[name] = (rgb, (y[0], u[0], w[0]), color)
+        self.names = [f"p15_{i:02d}.mp4" for i in range(P15_VIDEOS)]
+
+    def _video(self, path: str):
+        import os
+
+        name = os.path.basename(path)
+        if name not in self.videos:
+            raise IOError(f"cannot open video: {path}")
+        return self.videos[name]
+
+    def reader(self, path: str, out_size=None):
+        rgb, planes, color = self._video(path)
+        if out_size is not None and tuple(out_size) != (IMG, IMG):
+            raise AssertionError(f"scaled open at {out_size}, not the model size")
+        return P15Reader(rgb, planes, color)
+
+    def decode_batch(self, paths, frames_per_video: int, out_w: int, out_h: int,
+                     threads: int = 0):
+        from genconvit_tpu_torch.data.frames import sample_frame_indices
+
+        np = self.np
+        out = np.zeros((len(paths), frames_per_video, out_h, out_w, 3), np.uint8)
+        counts = np.zeros((len(paths),), np.int64)
+        for i, p in enumerate(paths):
+            try:
+                rgb = self._video(p)[0]
+            except IOError:
+                continue
+            got = rgb[sample_frame_indices(len(rgb), frames_per_video)]
+            out[i, : len(got)] = got
+            counts[i] = len(got)
+        return out, counts
+
+
+class P15Reader:
+    def __init__(self, rgb, planes, color):
+        self._rgb, self._planes, self._color = rgb, planes, color
+        self.num_frames = len(rgb)
+
+    def __len__(self) -> int:
+        return self.num_frames
+
+    def read_frames(self, indices):
+        return self._rgb[list(indices)]
+
+    def read_frames_yuv(self, indices):
+        return tuple(p[list(indices)] for p in self._planes)
+
+    def color_info(self):
+        return self._color
+
+    def close(self) -> None:
+        pass
+
+
+def p15_references(torch, np, pred, src: P15Source) -> dict:
+    """Each readable video's verdict by forward_batched_yuv on its own
+    planes and transform and by forward_batched on its RGB frames, both at
+    V=8 (the drivers' frame selection and mask)."""
+    from genconvit_tpu_torch.data.frames import sample_frame_indices
+    from genconvit_tpu_torch.data.preprocess import yuv_affine
+
+    names = [n for n in src.names if n in src.videos and len(src.videos[n][0])]
+    ref = {"yuv420": {}, "rgb": {}}
+    for g in range(0, len(names), P15_V):
+        group = names[g: g + P15_V]
+        y = np.zeros((P15_V, FRAMES, IMG, IMG), np.uint8)
+        u = np.zeros((P15_V, FRAMES, IMG // 2, IMG // 2), np.uint8)
+        w = np.zeros_like(u)
+        rgb = np.zeros((P15_V, FRAMES, IMG, IMG, 3), np.uint8)
+        m = np.zeros((P15_V, 3, 4), np.float32)
+        mask = np.zeros((P15_V, FRAMES), np.float32)
+        for i, n in enumerate(group):
+            frames, planes, color = src.videos[n]
+            idx = sample_frame_indices(len(frames), FRAMES)
+            k = len(idx)
+            y[i, :k], u[i, :k], w[i, :k] = (p[idx] for p in planes)
+            rgb[i, :k] = frames[idx]
+            m[i] = yuv_affine(*color)
+            mask[i, :k] = 1
+        dev = pred.device
+        outs = {"yuv420": pred.forward_batched_yuv(*(torch.from_numpy(a).to(dev)
+                                                     for a in (y, u, w, m, mask))),
+                "rgb": pred.forward_batched(torch.from_numpy(rgb).to(dev),
+                                            torch.from_numpy(mask).to(dev))}
+        for fmt, (vy, vv) in outs.items():
+            vy, vv = vy.cpu().numpy(), vv.cpu().numpy()
+            for i, n in enumerate(group):
+                ref[fmt][n] = (int(vy[i]), float(vv[i]))
+    return ref
+
+
+def p15_check_driver(fmt: str, res: dict, ref: dict) -> float:
+    """A driver's verdicts against the references; the unreadable video
+    None (yuv420) or the default (rgb: its count is 0), the empty one the
+    default. Returns max|d y_val|."""
+    want_bad = None if fmt == "yuv420" else (0, 0.5)
+    if res[P15_UNREADABLE] != want_bad or res[P15_EMPTY] != (0, 0.5):
+        raise AssertionError(f"p15 [{fmt}]: unreadable {res[P15_UNREADABLE]} (want {want_bad}), "
+                             f"empty {res[P15_EMPTY]} (want (0, 0.5))")
+    worst = 0.0
+    for n, want in ref.items():
+        got = res[n]
+        d = abs(got[1] - want[1])
+        worst = max(worst, d)
+        if not d <= P15_DRIVER_TOL or (abs(want[1] - 0.5) > P15_DRIVER_TOL and got[0] != want[0]):
+            raise AssertionError(f"p15 [{fmt}] {n}: {got} against forward's {want}")
+    return worst
+
+
+def p15_drivers(torch, np, pred, card: str, tmp: str, params: dict) -> dict:
+    """15d and 15e: predict_files under 'rgb' (predict_files_native_rgb)
+    and 'yuv420' (predict_files_yuv), extract_faces/predict_video on one
+    path and the prediction CLI, with the decoder's Python face swapped for
+    an in-memory source (and put back after)."""
+    import functools
+    import os
+
+    from genconvit_tpu_torch import prediction
+    from genconvit_tpu_torch.data import native
+    from genconvit_tpu_torch.infer.aggregate import real_or_fake
+    from genconvit_tpu_torch.ops import cuda as kcuda
+
+    src = P15Source(torch, np, pred.device)
+    paths = [os.path.join(tmp, n) for n in src.names]
+    ref = p15_references(torch, np, pred, src)
+    saved = {k: getattr(native, k) for k in ("native_available", "NativeVideoReader",
+                                             "decode_videos_batch")}
+    native.native_available = lambda: True
+    native.NativeVideoReader = src.reader
+    native.decode_videos_batch = src.decode_batch
+    out = {}
+    try:
+        for fmt, groups in (("rgb", [src.names[g: g + VIDEO_BATCH]
+                                     for g in range(0, P15_VIDEOS, VIDEO_BATCH)]),
+                            ("yuv420", [src.names])):
+            pred.transfer_format = fmt
+            launches = sum(any(n in ref["rgb"] for n in grp) for grp in groups)
+            want = {k: v * launches for k, v in
+                    expected_launches(kcuda, "", "", False).items()}
+            rates = []
+            for run in range(3):
+                kcuda.reset_launch_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res = dict(pred.predict_files(paths, FRAMES))
+                rates.append(P15_VIDEOS / (time.perf_counter() - t0))
+                got = kcuda.launch_counts()
+                if got != want:
+                    raise AssertionError(f"p15 [{fmt}] predict_files: launches {got}, want "
+                                         f"{want} ({launches} group forwards)")
+                res = {os.path.basename(p): v for p, v in res.items()}
+                worst = p15_check_driver(fmt, res, ref[fmt])
+            rates.sort()
+            out[fmt] = {"worst": worst, "videos_s": rates[1], "spread": (rates[0], rates[2]),
+                        "launches": launches, "res": res}
+            log(f"p15 [predict_files {fmt}]: {launches} group forward(s), {54 * launches} K1 + "
+                f"{3 * launches} K2 in all; every verdict within {worst:.3e} of "
+                f"forward_batched{'_yuv' if fmt == 'yuv420' else ''} on the same "
+                f"{'planes' if fmt == 'yuv420' else 'frames'} (limit {P15_DRIVER_TOL}); "
+                f"unreadable -> {res[P15_UNREADABLE]}, no frames -> {res[P15_EMPTY]}; "
+                f"median {rates[1]:.2f} videos/s (min {rates[0]:.2f}, max {rates[2]:.2f}) over "
+                f"3 runs of {P15_VIDEOS} [{card}]")
+        # one path: extract_faces decodes straight to the model size
+        from genconvit_tpu_torch.data.frames import sample_frame_indices
+
+        pred.transfer_format = "rgb"
+        one = paths[0]
+        faces = pred.extract_faces(one, FRAMES)
+        frames = src.videos[src.names[0]][0]
+        if not np.array_equal(faces.cpu().numpy(),
+                              frames[sample_frame_indices(len(frames), FRAMES)]):
+            raise AssertionError("p15 extract_faces: not the source's frames")
+        kcuda.reset_launch_counts()
+        single = pred.predict_video(one, FRAMES)
+        if kcuda.launch_counts() != expected_launches(kcuda, "", "", False):
+            raise AssertionError(f"p15 predict_video: launches {kcuda.launch_counts()}")
+        d1 = abs(single[1] - ref["rgb"][src.names[0]][1])
+        if not d1 <= P15_DRIVER_TOL:
+            raise AssertionError(f"p15 predict_video {single} vs {ref['rgb'][src.names[0]]}")
+        log(f"p15 [one path]: extract_faces gave the source's frames at {IMG} px, bit for bit; "
+            f"predict_video {single}, {d1:.3e} from forward_batched; 54 K1 + 3 K2 [{card}]")
+        # e. the CLI in-process over placeholder files
+        vdir = os.path.join(tmp, "p15_videos")
+        os.makedirs(vdir)
+        for n in src.names:
+            open(os.path.join(vdir, n), "wb").close()
+        build = prediction.Predictor
+        prediction.Predictor = functools.partial(build, params=params)
+        try:
+            t0 = time.perf_counter()
+            kcuda.reset_launch_counts()
+            path = prediction.main(["--p", vdir, "--f", str(FRAMES), "--face-backend",
+                                    "fullframe", "--transfer-format", "yuv420",
+                                    "--deterministic-vae",
+                                    "--result-dir", os.path.join(tmp, "p15_result")])
+            dt = time.perf_counter() - t0
+            cli_launches = kcuda.launch_counts()
+        finally:
+            prediction.Predictor = build
+        with open(path) as f:
+            result = json.load(f)
+        keys = {"name", "pred", "klass", "pred_label", "correct_label"}
+        meta = {"dataset", "network", "num_frames", "runtime_seconds", "timestamp", "framework"}
+        if set(result) != {"video", "metadata"} or set(result["video"]) != keys \
+                or set(result["metadata"]) != meta or result["video"]["name"] != src.names:
+            raise AssertionError(f"p15 CLI result: keys {sorted(result)}, video "
+                                 f"{sorted(result['video'])}, names {result['video']['name']}")
+        if cli_launches != expected_launches(kcuda, "", "", False):
+            raise AssertionError(f"p15 CLI: launches {cli_launches}, want one group forward")
+        worst = 0.0
+        for n, pv, label in zip(result["video"]["name"], result["video"]["pred"],
+                                result["video"]["pred_label"]):
+            want = out["yuv420"]["res"][n] or (0, 0.5)
+            worst = max(worst, abs(pv - want[1]))
+            if not abs(pv - want[1]) <= P15_DRIVER_TOL or (
+                    abs(want[1] - 0.5) > P15_DRIVER_TOL and label != real_or_fake(want[0])):
+                raise AssertionError(f"p15 CLI {n}: {label} {pv} against 15d's {want}")
+        log(f"p15 [CLI]: prediction.main --face-backend fullframe --transfer-format yuv420 over "
+            f"{P15_VIDEOS} placeholder files {dt:.2f} s (Predictor built from the phase's "
+            f"weights), the JAX package's result keys, one group forward, verdicts within "
+            f"{worst:.3e} of 15d's [{card}]")
+    finally:
+        for k, v in saved.items():
+            setattr(native, k, v)
+        pred.transfer_format = "rgb"
+    return out
+
+
+def phase_p15(torch, np, dev, card: str, tmp: str) -> dict:
+    """Phase 15 (module docstring): the fullframe fast paths' device half."""
+    import gc
+
+    out = {"conversion": p15_conversion(torch, np, dev, card)}
+    params = p14_params(torch, dev, seed=15)
+    out["forward"], pred = p15_forward(torch, np, dev, card, params)
+    out["stream"] = p15_stream(torch, np, pred, dev, card)
+    out["drivers"] = p15_drivers(torch, np, pred, card, tmp, params)
+    del pred, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def p15_summary(p15: dict, card: str) -> None:
+    c = p15["conversion"]
+    log(f"summary [p15 conversion]: card vs CPU {c['err']:.3e}; normalize_yuv420 "
+        f"{c['ms_yuv']:.4f} ms against normalize_batch {c['ms_rgb']:.4f} ms [{card}]")
+    for name, r in p15["forward"].items():
+        log(f"summary [p15 {name}]: yuv420 V=8 {r['yuv_videos_s']:.2f} videos/s "
+            f"({r['yuv_ms']:.2f} ms/launch), rgb {r['rgb_videos_s']:.2f} ({r['rgb_ms']:.2f}); "
+            f"launches a forward {r['launches']}; max|dy_val| vs f32 plain {r['dy_val']:.3e} "
+            f"[{card}]")
+    s = p15["stream"]
+    log(f"summary [p15 stream]: {STREAM_BATCHES} V=8 batches yuv420 {s['yuv420_ms']:.2f} ms "
+        f"({s['mb']['yuv420']:.1f} MB a batch) against rgb {s['rgb_ms']:.2f} ms "
+        f"({s['mb']['rgb']:.1f} MB), best of 3 [{card}]")
+    for fmt in ("rgb", "yuv420"):
+        r = p15["drivers"][fmt]
+        log(f"summary [p15 predict_files {fmt}]: median {r['videos_s']:.2f} videos/s (min "
+            f"{r['spread'][0]:.2f}, max {r['spread'][1]:.2f}) over {P15_VIDEOS} in-memory videos, "
+            f"{r['launches']} group forward(s); max|d y_val| {r['worst']:.3e} [{card}]")
+
+
 def main() -> int:
     import argparse
     import gc
@@ -3800,6 +4331,9 @@ def main() -> int:
     ap.add_argument("--phase14-only", action="store_true",
                     help="phases 1, 2 and 14 alone (no result lines): the updated VAE, the "
                          "SwiGLU heads, dw_rank and the 'mlp' plan values")
+    ap.add_argument("--phase15-only", action="store_true",
+                    help="phases 1, 2 and 15 alone (no result lines): the fullframe fast "
+                         "paths (YUV420 conversion and forward, the stream, the drivers)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
@@ -3844,6 +4378,13 @@ def main() -> int:
         p14_summary(phase_p14(torch, np, dev, card, args.profile), card)
         log(f"phase 14: {time.perf_counter() - t:.1f} s")
         log(f"chip_smoke --phase14-only: phase 14 passed in {time.perf_counter() - t_all:.1f} s")
+        return 0
+    if args.phase15_only:
+        with tempfile.TemporaryDirectory(prefix="gcv_p15_") as tmp:
+            t = time.perf_counter()
+            p15_summary(phase_p15(torch, np, dev, card, tmp), card)
+            log(f"phase 15: {time.perf_counter() - t:.1f} s")
+        log(f"chip_smoke --phase15-only: phase 15 passed in {time.perf_counter() - t_all:.1f} s")
         return 0
     t = time.perf_counter()
     kernels = (phase_kernels(torch, dev, card) + phase_fused(torch, dev, card)
@@ -3893,6 +4434,11 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         t = time.perf_counter()
+        p15 = phase_p15(torch, np, dev, card, tmp)
+        log(f"phase 15: {time.perf_counter() - t:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
         training = phase_train(torch, np, dev, card, tmp, args.profile)
         log(f"phase 13: {time.perf_counter() - t:.1f} s")
     for name, r in runs.items():
@@ -3934,6 +4480,7 @@ def main() -> int:
                 f"{r['errs']['ed'][0]:.3e}, vae {r['errs']['vae'][0]:.3e}; launches a step "
                 f"{ {k: v for k, v in r['counts'].items() if v} } [{card}]")
     p14_summary(p14, card)
+    p15_summary(p15, card)
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_all:.1f} s [{card}]")
     # each kernel's launches: the count of the run whose main path runs it
     # (the counts were set to 0 just before its requests)

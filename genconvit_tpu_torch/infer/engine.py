@@ -1,5 +1,5 @@
 """Prediction engine (port of genconvit_tpu/infer/engine.py:64-150,
-281-308, 349-515, 653-874).
+281-308, 349-969).
 
 A uint8 face batch [V,F,S,S,3] with a [V,F] frame mask goes to the device
 once; normalization, the ensemble and the masked per-video aggregation run
@@ -30,9 +30,16 @@ and its grouped form for detector backends) decode on the host with the
 module-level `extract_frames`, looked up when called; each video's frames
 then go to the device once: the device detector cuts its windows from that
 copy and `crop_faces` crops the faces from it. Verdicts stay on the device
-until one fetch at the end of a call. The native fullframe fast paths of
-the JAX engine (decode straight to the model size, :444-470, :547-651) are
-not ported: where they would run, the Predictor raises NotImplementedError.
+until one fetch at the end of a call.
+
+With the fullframe backend and the native decoder (`data/native.py`,
+looked up through that module when called) the JAX engine's fast paths
+run: `extract_faces` decodes straight to the model size and skips detect
+and crop (:444-470 there); `predict_files` decodes whole groups in the
+library's thread pool (`predict_files_native_rgb`, :604-651) or, under
+transfer_format='yuv420', ships planar YUV420 with a per-video [3,4]
+colour transform and converts on the device (`predict_files_yuv`,
+`forward_batched_yuv`, `predict_videos_stream_yuv`; :517-602, :875-940).
 """
 
 from __future__ import annotations
@@ -48,9 +55,12 @@ import torch
 
 from genconvit_tpu_torch.config import Config
 from genconvit_tpu_torch.core.checkpoint import load_params, resolve_weight
+from genconvit_tpu_torch.data import native
 from genconvit_tpu_torch.data.faces import (FaceDetector, FullFrameDetector,
                                             RecordedDetector, crop_faces, make_detector)
-from genconvit_tpu_torch.data.preprocess import normalize_batch, pad_faces
+from genconvit_tpu_torch.data.frames import sample_frame_indices
+from genconvit_tpu_torch.data.preprocess import (normalize_batch, normalize_yuv420, pad_faces,
+                                                 yuv_affine)
 from genconvit_tpu_torch.data.video import _maybe_inject_fault, extract_frames
 from genconvit_tpu_torch.device import default_device
 from genconvit_tpu_torch.infer.aggregate import DEFAULT_VERDICT, aggregate_logits
@@ -80,6 +90,15 @@ def _backbone_classes(params: Mapping[str, Mapping[str, Any]], default: int) -> 
     return default
 
 
+def _pad_videos(block: np.ndarray, video_batch: int) -> np.ndarray:
+    """[v, ...] -> [video_batch, ...] with zero videos (an all-zero mask)
+    after the v given; as it is when v >= video_batch."""
+    pad = video_batch - len(block)
+    if pad <= 0:
+        return block
+    return np.concatenate([block, np.zeros((pad,) + block.shape[1:], block.dtype)])
+
+
 class Predictor:
     """params: {'ed': state_dict, 'vae': state_dict} with the reference
     checkpoints' keys (core/convert.py makes them from the JAX package's
@@ -95,6 +114,7 @@ class Predictor:
                  dtype: Optional[torch.dtype] = None, fp16: bool = False,
                  face_backend: Optional[str] = None,
                  prefer_native_decode: bool = True,
+                 transfer_format: str = "rgb",   # 'rgb' | 'yuv420' (fullframe + native)
                  backbone_classes: int = 1000):
         self.config = config or Config()
         self.net = net
@@ -116,8 +136,9 @@ class Predictor:
         self.dw_sep_stats: Optional[Dict[str, Any]] = None
         self.deterministic_vae = deterministic_vae
         self.prefer_native_decode = prefer_native_decode
+        self.transfer_format = transfer_format
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
-        self._copy_stream = None   # predict_videos_stream's uploads (CUDA)
+        self._copy_stream = None   # the streams' uploads (CUDA)
         self.timers = StageTimers()
         self.detector = self._make_detector(face_backend or self.config.face_backend)
 
@@ -211,6 +232,24 @@ class Predictor:
         v, f = frames_u8.shape[:2]
         x = normalize_batch(frames_u8.reshape((v * f,) + frames_u8.shape[2:]),
                             self.dtype)
+        return self._per_video_logits(x, v, f, mask)
+
+    @torch.inference_mode()
+    def video_logits_yuv(self, yp: torch.Tensor, up: torch.Tensor, vp: torch.Tensor,
+                         matrix: torch.Tensor, mask: torch.Tensor
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """video_logits of planar YUV420: y [V,F,S,S], u and v [V,F,S/2,S/2]
+        uint8, matrix [3,3|4] or one per video [V,3,3|4], mask [V,F]."""
+        v, f = yp.shape[:2]
+        if matrix.dim() == 3:   # one transform a video -> one a frame
+            matrix = matrix.repeat_interleave(f, dim=0)
+        x = normalize_yuv420(yp.reshape((v * f,) + yp.shape[2:]),
+                             up.reshape((v * f,) + up.shape[2:]),
+                             vp.reshape((v * f,) + vp.shape[2:]), matrix, self.dtype)
+        return self._per_video_logits(x, v, f, mask)
+
+    def _per_video_logits(self, x: torch.Tensor, v: int, f: int, mask: torch.Tensor
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
         logits = self.model(x, self.kernel_plan,
                             sample=not self.deterministic_vae,
                             generator=self.generator)
@@ -227,6 +266,15 @@ class Predictor:
         no host sync (the benchmark loop's entry)."""
         return aggregate_logits(*self.video_logits(frames_u8, mask))
 
+    @torch.inference_mode()
+    def forward_batched_yuv(self, yp: torch.Tensor, up: torch.Tensor, vp: torch.Tensor,
+                            matrix: torch.Tensor, mask: torch.Tensor
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """forward_batched of device-resident YUV420 planes (the JAX
+        engine's _forward_fn_yuv, :875-917 there): the conversion runs in
+        the normalization; no host sync."""
+        return aggregate_logits(*self.video_logits_yuv(yp, up, vp, matrix, mask))
+
     def _launch(self, faces: List[torch.Tensor], masks: List[torch.Tensor],
                 video_batch: int) -> torch.Tensor:
         """One forward of a group, the tail padded to video_batch videos:
@@ -236,11 +284,12 @@ class Predictor:
         if pad > 0:
             faces_b = torch.cat([faces_b, faces_b.new_zeros((pad,) + faces_b.shape[1:])])
             masks_b = torch.cat([masks_b, masks_b.new_zeros((pad,) + masks_b.shape[1:])])
-        return self._verdict_rows(faces_b, masks_b)
+        return self._rows(self.forward_batched(faces_b, masks_b))
 
-    def _verdict_rows(self, frames_u8: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        """forward_batched's (y, y_val) as device [2, V] float32 rows."""
-        y, y_val = self.forward_batched(frames_u8, mask)
+    @staticmethod
+    def _rows(verdicts: Tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+        """A forward's (y, y_val) as device [2, V] float32 rows."""
+        y, y_val = verdicts
         return torch.stack([y.float(), y_val.float()])
 
     def _fetch(self, names_per_launch: List[List[Any]], launches: List[torch.Tensor],
@@ -275,46 +324,63 @@ class Predictor:
         copy stream the forward waits for), each launch's [2, V] verdict
         rows stay on the device, no sync between launches, and ONE fetch
         at the end. Returns (y [V] int64, y_val [V] float32) per batch."""
+        return self._stream(((faces, torch.as_tensor(masks, dtype=torch.float32))
+                             for faces, masks in batches), self.forward_batched)
+
+    def predict_videos_stream_yuv(self, batches: Iterable[Tuple[Any, Any, Any]]
+                                  ) -> List[Tuple[np.ndarray, np.ndarray]]:
+        """predict_videos_stream of ((y, u, v) planes [V,F,...] uint8,
+        matrix [3,3|4] or [V,3,3|4], mask [V,F]) batches (:919-940 there):
+        the three planes, the matrix and the mask go up on the copy stream,
+        the forward is forward_batched_yuv."""
+        return self._stream(((*planes, torch.as_tensor(matrix, dtype=torch.float32),
+                              torch.as_tensor(masks, dtype=torch.float32))
+                             for planes, matrix, masks in batches), self.forward_batched_yuv)
+
+    def _stream(self, batches: Iterable[Tuple[Any, ...]], forward
+                ) -> List[Tuple[np.ndarray, np.ndarray]]:
+        """Each batch's arrays staged before the previous batch's forward
+        is issued; one fetch at the end."""
         launches: List[torch.Tensor] = []
         staged = None
-        for faces, masks in batches:
-            nxt = self._stage_batch(faces, masks)
+        for arrays in batches:
+            nxt = self._stage_batch(arrays)
             if staged is not None:
-                launches.append(self._stream_launch(*staged))
+                launches.append(self._stream_launch(forward, *staged))
             staged = nxt
         if staged is not None:
-            launches.append(self._stream_launch(*staged))
+            launches.append(self._stream_launch(forward, *staged))
         keys = [[(b, i) for i in range(rows.shape[1])] for b, rows in enumerate(launches)]
         ordered: Dict[Any, Verdict] = {}
         self._fetch(keys, launches, ordered)
         return [(np.array([ordered[k][0] for k in ks], np.int64),
                  np.array([ordered[k][1] for k in ks], np.float32)) for ks in keys]
 
-    def _stage_batch(self, faces, masks):
-        """(frames, mask, ready event or None) on the device; host arrays
-        are copied on the copy stream from pinned memory."""
-        frames = torch.as_tensor(faces)
-        mask = torch.as_tensor(masks, dtype=torch.float32)
-        if self.device.type != "cuda" or frames.is_cuda:
-            return frames.to(self.device), mask.to(self.device), None
+    def _stage_batch(self, arrays: Sequence[Any]
+                     ) -> Tuple[List[torch.Tensor], Optional["torch.cuda.Event"]]:
+        """(the arrays on the device, ready event or None); host arrays are
+        copied on the copy stream from pinned memory."""
+        ts = [torch.as_tensor(a) for a in arrays]
+        if self.device.type != "cuda" or ts[0].is_cuda:
+            return [t.to(self.device) for t in ts], None
         if self._copy_stream is None:
             self._copy_stream = torch.cuda.Stream(self.device)
         with torch.cuda.stream(self._copy_stream):
-            frames = frames.pin_memory().to(self.device, non_blocking=True)
-            mask = mask.pin_memory().to(self.device, non_blocking=True)
+            ts = [t if t.is_cuda else t.pin_memory().to(self.device, non_blocking=True)
+                  for t in ts]
             ready = torch.cuda.Event()
             ready.record(self._copy_stream)
-        return frames, mask, ready
+        return ts, ready
 
-    def _stream_launch(self, frames: torch.Tensor, mask: torch.Tensor,
+    def _stream_launch(self, forward, ts: List[torch.Tensor],
                        ready: Optional["torch.cuda.Event"]) -> torch.Tensor:
         if ready is not None:
             stream = torch.cuda.current_stream(self.device)
             stream.wait_event(ready)
             # the copy stream allocated them: keep them until this stream is done
-            frames.record_stream(stream)
-            mask.record_stream(stream)
-        return self._verdict_rows(frames, mask)
+            for t in ts:
+                t.record_stream(stream)
+        return self._rows(forward(*ts))
 
     def predict_faces(self, faces_u8, num_frames: int) -> Tuple[int, float]:
         """faces_u8: [k,S,S,3] uint8 (numpy or a device tensor), k in
@@ -328,19 +394,9 @@ class Predictor:
         return int(y[0]), float(y_val[0])
 
     def _native_fullframe(self) -> bool:
-        """Whether the JAX engine would take its native fullframe fast path."""
-        if not (isinstance(self.detector, FullFrameDetector) and self.prefer_native_decode):
-            return False
-        from genconvit_tpu_torch.data.native import native_available
-
-        return native_available()
-
-    def _refuse_native_fullframe(self, what: str) -> None:
-        if self._native_fullframe():
-            raise NotImplementedError(
-                f"{what}: the native fullframe fast path (decode straight to the model "
-                "size, genconvit_tpu/infer/engine.py:444-470, :547-651) is not ported; "
-                "pass prefer_native_decode=False or another face backend")
+        """Whether the fullframe fast paths may run: the fullframe backend
+        with native decode preferred (the library is asked separately)."""
+        return isinstance(self.detector, FullFrameDetector) and self.prefer_native_decode
 
     def _upload(self, frames: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(frames)).to(self.device)
@@ -368,9 +424,27 @@ class Predictor:
 
     def extract_faces(self, video_path: str, num_frames: int) -> torch.Tensor:
         """Decode + detect + crop of one video: uint8 faces [k,S,S,3] on
-        the device, k <= num_frames."""
+        the device, k <= num_frames. Fullframe with the native decoder:
+        decoded straight to the model size, no detect or crop."""
         _maybe_inject_fault(video_path)
-        self._refuse_native_fullframe("extract_faces")
+        if self._native_fullframe():
+            try:
+                if native.native_available():
+                    s = self.config.img_size
+                    with self.timers.stage("decode"):
+                        r = native.NativeVideoReader(video_path, out_size=(s, s))
+                        try:
+                            frames = r.read_frames(sample_frame_indices(len(r), num_frames))
+                        finally:
+                            r.close()
+                    return self._upload(frames) if len(frames) else self._empty_faces()
+            except IOError:
+                raise
+            except Exception as e:
+                # never silently: a decoder fault behind the generic path would
+                # show only as lost throughput
+                log.warning("native fast path failed on %s (%s: %s); using the generic "
+                            "decode path", os.path.basename(video_path), type(e).__name__, e)
         with self.timers.stage("decode"):
             frames = extract_frames(video_path, num_frames, self.prefer_native_decode)
         if frames.size == 0:
@@ -405,6 +479,109 @@ class Predictor:
         return self.predict_faces(self.extract_faces_from_frames_dir(frames_dir, num_frames),
                                   num_frames)
 
+    def _extract_yuv(self, video_path: str, num_frames: int):
+        """Fullframe YUV420 decode at the model size (:517-545 there): (y
+        [F,S,S], u, v [F,S/2,S/2] uint8, affine [3,4], mask [F]) as numpy.
+        The per-video affine carries the colour space and the range."""
+        _maybe_inject_fault(video_path)
+        s = self.config.img_size
+        with self.timers.stage("decode"):
+            r = native.NativeVideoReader(video_path, out_size=(s, s))
+            try:
+                y, u, v = r.read_frames_yuv(sample_frame_indices(len(r), num_frames))
+                space, full = r.color_info()
+            finally:
+                r.close()
+        k, f = min(len(y), num_frames), num_frames
+        yb = np.zeros((f, s, s), np.uint8)
+        ub = np.zeros((f, s // 2, s // 2), np.uint8)
+        vb = np.zeros((f, s // 2, s // 2), np.uint8)
+        yb[:k], ub[:k], vb[:k] = y[:k], u[:k], v[:k]
+        mask = np.zeros((f,), np.float32)
+        mask[:k] = 1.0
+        return yb, ub, vb, yuv_affine(space, full), mask
+
+    def predict_files_yuv(self, paths: Sequence[str], num_frames: int = 15,
+                          workers: int = 8, video_batch: int = 16,
+                          ) -> List[Tuple[str, Verdict]]:
+        """Fullframe driver with the YUV420 transfer (:547-602 there): each
+        video decoded to planes at the model size in the thread pool, in
+        order of completion grouped into [V,F,...] plane batches (tail padded
+        to video_batch) with one [3,4] transform a video, converted and
+        scored by forward_batched_yuv; one fetch at the end. A decode error
+        leaves None; a video without frames gets the (0, 0.5) default."""
+        ordered: Dict[str, Verdict] = {p: None for p in paths}
+        pending: List[Tuple[str, Tuple[np.ndarray, ...]]] = []
+        names_per_launch: List[List[str]] = []
+        launches: List[torch.Tensor] = []
+
+        def flush():
+            if pending:
+                blocks = [self._upload(_pad_videos(np.stack([it[j] for _, it in pending]),
+                                                   video_batch)) for j in range(5)]
+                names_per_launch.append([p for p, _ in pending])
+                launches.append(self._rows(self.forward_batched_yuv(*blocks)))
+                pending.clear()
+
+        with cf.ThreadPoolExecutor(max_workers=workers) as ex:
+            futures = {ex.submit(self._extract_yuv, p, num_frames): p for p in paths}
+            for fut in cf.as_completed(futures):
+                p = futures[fut]
+                try:
+                    item = fut.result()
+                except Exception as e:  # per-video tolerance
+                    log.error("error on %s: %s", p, e)
+                    continue
+                if item[4].sum() == 0:
+                    ordered[p] = DEFAULT_VERDICT
+                    continue
+                pending.append((p, item))
+                if len(pending) >= video_batch:
+                    flush()
+        flush()
+        self._fetch(names_per_launch, launches, ordered)
+        return [(p, ordered[p]) for p in paths]
+
+    def predict_files_native_rgb(self, paths: Sequence[str], num_frames: int = 15,
+                                 video_batch: int = 8) -> List[Tuple[str, Verdict]]:
+        """Fullframe RGB driver over the library's batch decoder (:604-651
+        there): one decode_videos_batch call a group fills its [V,F,S,S,3]
+        block at the model size; the launches are not synchronized, so the
+        next group decodes while this one computes; one fetch at the end.
+        A video the decoder cannot read (count 0) gets the (0, 0.5) default
+        and takes no row of the launch."""
+        s = self.config.img_size
+        ordered: Dict[str, Verdict] = {p: None for p in paths}
+        names_per_launch: List[List[str]] = []
+        launches: List[torch.Tensor] = []
+        for g in range(0, len(paths), video_batch):
+            group = []
+            for p in paths[g: g + video_batch]:
+                try:  # per-video tolerance (ref prediction.py:25-45)
+                    _maybe_inject_fault(p)
+                    group.append(p)
+                except Exception as e:
+                    log.error("error on %s: %s", p, e)
+            if not group:
+                continue
+            with self.timers.stage("decode"):
+                frames, counts = native.decode_videos_batch(group, num_frames, s, s)
+            for p, c in zip(group, counts):
+                if c == 0:
+                    ordered[p] = DEFAULT_VERDICT
+            keep = np.flatnonzero(counts > 0)
+            if len(keep) == 0:
+                continue
+            if len(keep) < len(group):
+                frames, counts = frames[keep], counts[keep]
+            masks = (np.arange(num_frames)[None, :] < counts[:, None]).astype(np.float32)
+            names_per_launch.append([group[i] for i in keep])
+            launches.append(self._rows(self.forward_batched(
+                self._upload(_pad_videos(frames, video_batch)),
+                self._upload(_pad_videos(masks, video_batch)))))
+        self._fetch(names_per_launch, launches, ordered)
+        return [(p, ordered[p]) for p in paths]
+
     def predict_files(self, paths: Sequence[str], num_frames: int = 15,
                       workers: int = 8, video_batch: int = 8,
                       ) -> List[Tuple[str, Verdict]]:
@@ -413,8 +590,19 @@ class Predictor:
         the end. A failed video yields None (per-video fault tolerance, ref
         prediction.py:25-45); a zero-face video the (0, 0.5) default without
         a device trip. Detector backends take the grouped driver
-        (predict_files_group_detect) unless GENCONVIT_GROUP_DETECT=0."""
-        self._refuse_native_fullframe("predict_files")
+        (predict_files_group_detect) unless GENCONVIT_GROUP_DETECT=0. With
+        the fullframe backend and the native decoder, several paths take
+        predict_files_native_rgb, or predict_files_yuv (in groups of 16)
+        under transfer_format='yuv420'; should that driver fail, the
+        generic one runs."""
+        if len(paths) > 1 and self._native_fullframe():
+            try:
+                if native.native_available():
+                    if self.transfer_format == "yuv420":
+                        return self.predict_files_yuv(paths, num_frames, workers)
+                    return self.predict_files_native_rgb(paths, num_frames, video_batch)
+            except Exception as e:
+                log.warning("native batch path unavailable (%s); using the generic driver", e)
         if (len(paths) > 1 and not isinstance(self.detector, FullFrameDetector)
                 and os.environ.get("GENCONVIT_GROUP_DETECT", "1") == "1"):
             return self.predict_files_group_detect(paths, num_frames, workers, video_batch)

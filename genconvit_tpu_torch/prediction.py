@@ -6,13 +6,15 @@ prediction.py:269-338):
         [--s tiny|large] [--e NAME] [--v NAME] [--fp16 x] [--net ...]
         [--face-backend B] [--face-sidecar JSON] [--weights-dir D]
         [--json-dir D] [--result-dir D] [--deterministic-vae]
-        [--device cuda|cpu] [--workers N]
+        [--transfer-format rgb|yuv420] [--device cuda|cpu] [--workers N]
 
 Videos under --p are decoded on the host (cv2, or native/libgcvdecode.so
 where it is built), faces detected and cropped, the ensemble scores them on
 the card (--device cpu runs the plain float32 path on the CPU), and the
-result JSON goes to --result-dir. `--transfer-format yuv420` is refused:
-the YUV path is not ported yet.
+result JSON goes to --result-dir. With `--face-backend fullframe` and the
+native decoder built, videos decode straight to the model size in the
+decoder's thread pool; `--transfer-format yuv420` then ships planar YUV420
+(half RGB's bytes) and converts on the card.
 """
 
 from __future__ import annotations
@@ -55,7 +57,8 @@ def gen_parser() -> argparse.ArgumentParser:
     p.add_argument("--deterministic-vae", action="store_true",
                    help="z = mu instead of eval-time sampling (quirk B4 off)")
     p.add_argument("--transfer-format", choices=["rgb", "yuv420"], default="rgb",
-                   help="yuv420: not ported yet (refused)")
+                   help="yuv420: with --face-backend fullframe and the native decoder, "
+                        "ship planar YUV420 and convert on the device")
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
     p.add_argument("--workers", type=int, default=8)
     return p
@@ -68,10 +71,6 @@ def main(argv: Optional[List[str]] = None) -> str:
     args = gen_parser().parse_args(argv)
     if not args.p or not os.path.isdir(args.p):
         raise SystemExit(f"error: --p must name an existing directory (got {args.p!r})")
-    if args.transfer_format == "yuv420":
-        raise NotImplementedError(
-            "--transfer-format yuv420: the YUV420 path (predict_files_yuv, "
-            "normalize_yuv420) is not ported yet")
     config = load_config()
     if args.s:
         apply_size(config, args.s)
@@ -83,7 +82,8 @@ def main(argv: Optional[List[str]] = None) -> str:
 
     predictor = Predictor(config, net=args.net, ed_weight=args.e, vae_weight=args.v,
                           fp16=bool(args.fp16), face_backend=args.face_backend,
-                          deterministic_vae=args.deterministic_vae, device=args.device)
+                          deterministic_vae=args.deterministic_vae, device=args.device,
+                          transfer_format=args.transfer_format)
 
     dataset = args.d if args.d in ("dfdc", "faceforensics", "timit", "celeb") else "other"
     if dataset == "other":

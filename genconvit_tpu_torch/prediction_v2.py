@@ -5,7 +5,8 @@ plus --device:
     python -m genconvit_tpu_torch.prediction_v2 --p DIR [--f 15] [--d dataset]
         [--s tiny|large] [--e NAME] [--v NAME] [--fp16 x] [--arch-type original|v2]
         [--net ...] [--face-backend B] [--weights-dir D] [--json-dir D]
-        [--result-dir D] [--workers N] [--device cuda|cpu]
+        [--result-dir D] [--transfer-format rgb|yuv420] [--workers N]
+        [--device cuda|cpu]
 
 The spine of `prediction` plus the v2 result JSON: a metrics block
 (accuracy, precision, recall, F1 in numpy, infer/result.compute_metrics) and
@@ -15,8 +16,8 @@ flat directories by filename containing 'fake', DFDC by the '_0.mp4' suffix,
 timit walking the real directories too. --arch-type v2 runs the same graph
 as 'original' (the reference's v2 module is never instantiated, SURVEY.md §8
 B12); --use-attention and --use-residual are accepted and ignored, as in
-the reference. `--transfer-format yuv420` is refused: the YUV path is not
-ported yet.
+the reference. `--transfer-format yuv420` takes the YUV420 transfer path
+as in `prediction` (fullframe backend, native decoder).
 """
 
 from __future__ import annotations
@@ -52,7 +53,8 @@ def gen_parser() -> argparse.ArgumentParser:
     p.add_argument("--net", choices=["ed", "vae", "genconvit"], default="genconvit")
     p.add_argument("--face-backend", default=None)
     p.add_argument("--transfer-format", choices=["rgb", "yuv420"], default="rgb",
-                   help="yuv420: not ported yet (refused)")
+                   help="yuv420: with --face-backend fullframe and the native decoder, "
+                        "ship planar YUV420 and convert on the device")
     p.add_argument("--weights-dir", default="weight")
     p.add_argument("--json-dir", default="json_file")
     p.add_argument("--result-dir", default="result")
@@ -68,10 +70,6 @@ def main(argv: Optional[List[str]] = None) -> str:
     args = gen_parser().parse_args(argv)
     if not args.p or not os.path.isdir(args.p):
         raise SystemExit(f"error: --p must name an existing directory (got {args.p!r})")
-    if args.transfer_format == "yuv420":
-        raise NotImplementedError(
-            "--transfer-format yuv420: the YUV420 path (predict_files_yuv, "
-            "normalize_yuv420) is not ported yet")
     config = load_config()
     if args.s:
         apply_size(config, args.s)
@@ -79,7 +77,7 @@ def main(argv: Optional[List[str]] = None) -> str:
 
     predictor = Predictor(config, net=args.net, ed_weight=args.e, vae_weight=args.v,
                           fp16=bool(args.fp16), face_backend=args.face_backend,
-                          device=args.device)
+                          device=args.device, transfer_format=args.transfer_format)
 
     dataset = args.d if args.d in WALKERS else "other"
     if dataset == "other":

@@ -223,26 +223,58 @@ def test_cli_result_matches_root_prediction(corpus, small_backbone, tmp_path, mo
             assert got["video"]["pred_label"][i] == want["video"]["pred_label"][i], name
 
 
-def test_cli_refuses_yuv420(corpus):
-    with pytest.raises(NotImplementedError, match="yuv420"):
-        port_cli.main(["--p", str(corpus["videos"]), "--transfer-format", "yuv420"])
+def test_cli_refuses_yuv420(corpus, small_backbone, tmp_path, monkeypatch):
+    """`--transfer-format yuv420` is no longer refused: with a detector
+    backend it scores on the RGB path, as the JAX engine does (the YUV
+    transfer needs the fullframe backend and the native decoder), so the
+    result equals the rgb run's; an unknown format is still refused."""
+    (tmp_path / "model").mkdir()
+    (tmp_path / "model" / "config.yaml").write_text(
+        f"model:\n  backbone: {small_backbone}\n  latent_dims: {256 * (IMG // 32) ** 2}\n"
+        f"img_size: {IMG}\nnum_classes: 2\n")
+    monkeypatch.chdir(tmp_path)
+    common = ["--p", str(corpus["videos"]), "--f", str(FRAMES), "--face-backend", "center",
+              "--weights-dir", str(corpus["weights"]), "--deterministic-vae", "--workers", "2",
+              "--device", "cpu"]
+    results = []
+    for fmt in ("rgb", "yuv420"):
+        with open(port_cli.main(common + ["--transfer-format", fmt, "--result-dir",
+                                          str(tmp_path / fmt)])) as f:
+            results.append(json.load(f)["video"])
+    assert results[0] == results[1] and len(results[0]["name"]) == 6
+    with pytest.raises(SystemExit):
+        port_cli.main(["--p", str(corpus["videos"]), "--transfer-format", "yuv444"])
 
 
 def test_native_fullframe_path_is_refused(corpus, small_backbone, monkeypatch):
-    """Where the native decoder loads, fullframe + prefer_native_decode is
-    the JAX engine's fast path, not ported: the port raises, it does not
-    take the generic path."""
+    """Where the native decoder loads (here an in-memory stand-in for its
+    reader and batch decoder), fullframe + prefer_native_decode takes the
+    fast path: frames at the model size, no detect or crop, and several
+    files through predict_files_native_rgb; prefer_native_decode=False
+    takes the generic path (cv2 decode of the mp4s, the decoder unused)."""
     from genconvit_tpu_torch.data import native
 
+    from tests.test_torch_util import InMemoryDecoder
+
+    dec = InMemoryDecoder.seeded(3, IMG, (6, 5))
+    dec.videos = {"v0.mp4": dec.videos["m0.mp4"], "v1.mp4": dec.videos["m1.mp4"]}
+    dec.install(monkeypatch, native)
     pp = _port_predictor(corpus, "fullframe", small_backbone)
-    monkeypatch.setattr(native, "native_available", lambda: True)
-    path = str(corpus["videos"] / "v0.mp4")
-    with pytest.raises(NotImplementedError, match="fast path"):
-        pp.predict_video(path, FRAMES)
-    with pytest.raises(NotImplementedError, match="fast path"):
-        pp.predict_files([path, path], FRAMES)
+    paths = [str(corpus["videos"] / n) for n in ("v0.mp4", "v1.mp4")]
+    got = pp.predict_video(paths[0], FRAMES)
+    assert got == pp.predict_faces(dec.videos["v0.mp4"][0][:FRAMES], FRAMES)
+    assert "detect" not in pp.timers.summary()
+    files = dict(pp.predict_files(paths, FRAMES, workers=2))
+    y, y_val = pp.predict_videos_batched(np.stack([dec.videos[n][0][:FRAMES]
+                                                   for n in ("v0.mp4", "v1.mp4")]),
+                                         np.ones((2, FRAMES), np.float32))
+    for i, p in enumerate(paths):
+        assert files[p][0] == y[i] and abs(files[p][1] - y_val[i]) <= 1e-5
+    opened = len(dec.opened)
     pp.prefer_native_decode = False
-    assert pp.predict_video(path, FRAMES) != DEFAULT_VERDICT
+    generic = pp.predict_video(paths[0], FRAMES)
+    assert generic != DEFAULT_VERDICT and generic != got
+    assert len(dec.opened) == opened and "detect" in pp.timers.summary()
 
 
 def test_extract_frames_is_looked_up_when_called(corpus, small_backbone, monkeypatch):

@@ -24,6 +24,7 @@ from genconvit_tpu.infer import engine as jax_engine
 from genconvit_tpu_torch import evaluate, prediction_v2
 from genconvit_tpu_torch.config import Config, ModelConfig
 from genconvit_tpu_torch.infer import engine
+from genconvit_tpu_torch.infer.aggregate import DEFAULT_VERDICT
 from genconvit_tpu_torch.ops.kernel_plan import KernelPlan
 
 from tests.test_torch_drivers import _write_video
@@ -161,10 +162,40 @@ def test_prediction_v2_matches_root_cli(corpus, tmp_path, monkeypatch):
     assert set(got["metrics"]) == {"accuracy", "precision", "recall", "f1"}
 
 
-def test_prediction_v2_refuses_yuv420_and_needs_the_gpu(corpus, monkeypatch):
+def test_prediction_v2_refuses_yuv420_and_needs_the_gpu(corpus, tmp_path, monkeypatch):
+    """`--transfer-format yuv420` with the fullframe backend runs the YUV
+    driver (here over an in-memory stand-in for the native decoder, named
+    as the corpus's files): each video's pred is predict_files_yuv's on the
+    same Predictor, the broken one the default; a missing directory and a
+    card-less run are refused."""
+    from genconvit_tpu_torch.data import native
+
+    from tests.test_torch_util import InMemoryDecoder
+
     monkeypatch.setenv("GENCONVIT_CONFIG", corpus["config"])
-    with pytest.raises(NotImplementedError, match="yuv420"):
-        prediction_v2.main(["--p", corpus["videos"], "--transfer-format", "yuv420"])
+    names = sorted(n for n in os.listdir(corpus["videos"]) if n != "broken_fake.mp4")
+    dec = InMemoryDecoder.seeded(4, IMG, (6, 5, 4, 7, 3))
+    dec.videos = {n: dec.videos[f"m{i}.mp4"] for i, n in enumerate(names)}
+    dec.install(monkeypatch, native)
+    made = []
+    _deterministic(monkeypatch, prediction_v2, kernel_plan=KernelPlan())
+    build = prediction_v2.Predictor
+    monkeypatch.setattr(prediction_v2, "Predictor", lambda *a, **k: made.append(build(*a, **k))
+                        or made[-1])
+    out = prediction_v2.main(["--p", corpus["videos"], "--f", str(FRAMES), "--face-backend",
+                              "fullframe", "--transfer-format", "yuv420", "--weights-dir",
+                              corpus["weights"], "--workers", "2", "--device", "cpu",
+                              "--result-dir", str(tmp_path)])
+    (pp,) = made
+    assert pp.transfer_format == "yuv420"
+    paths = [os.path.join(corpus["videos"], n) for n in names]
+    want = dict(pp.predict_files_yuv(paths, FRAMES, workers=2))
+    with open(out) as f:
+        video = json.load(f)["video"]
+    assert video["name"] == sorted(names + ["broken_fake.mp4"])
+    for name, pred in zip(video["name"], video["pred"]):
+        v = want.get(os.path.join(corpus["videos"], name)) or DEFAULT_VERDICT
+        assert abs(pred - v[1]) <= 1e-6, name
     with pytest.raises(SystemExit):
         prediction_v2.main(["--p", os.path.join(corpus["videos"], "missing")])
     monkeypatch.setattr(engine.torch.cuda, "is_available", lambda: False)

@@ -134,3 +134,96 @@ def write_small_config(path):
     path.write_text(f"model:\n  backbone: {SMALL_NAME}\n  latent_dims: {256 * (IMG // 32) ** 2}\n"
                     f"img_size: {IMG}\nnum_classes: 2\n")
     return str(path)
+
+
+class InMemoryDecoder:
+    """A stand-in for the native decoder's Python face (`native_available`,
+    `NativeVideoReader`, `decode_videos_batch`) that serves videos from
+    memory by file name: each video's RGB frames [n,S,S,3] and YUV420
+    planes at the model size S, with its (space, full_range). A name it
+    does not hold cannot be opened (IOError; count 0 in a batch decode).
+    `install` swaps it into data.native modules (the port's, the JAX
+    package's) for the life of a MonkeyPatch, so that the fullframe drivers
+    run where the library cannot be built."""
+
+    def __init__(self, videos):
+        self.videos = videos   # name -> (rgb, (y, u, v), (space, full_range))
+        self.opened = []       # (name, out_size) of every reader opened
+
+    @classmethod
+    def seeded(cls, seed, size, frame_counts, color=(("bt601", False), ("bt709", True))):
+        """Videos 'm{i}.mp4' with frame_counts[i] frames (0: a video without
+        frames) of seeded planes; the RGB frames are the planes converted by
+        the port's yuv420_to_rgb and rounded."""
+        from genconvit_tpu_torch.data.preprocess import yuv420_to_rgb, yuv_affine
+
+        rng = np.random.default_rng(seed)
+        videos = {}
+        for i, n in enumerate(frame_counts):
+            space, full = color[i % len(color)]
+            base = rng.integers(16, 236, (1, size, size), np.uint8)
+            y = np.clip(base.astype(np.int32) + rng.integers(-20, 21, (n, size, size)),
+                        0, 255).astype(np.uint8)
+            u = rng.integers(64, 192, (n, size // 2, size // 2), np.uint8)
+            v = rng.integers(64, 192, (n, size // 2, size // 2), np.uint8)
+            rgb = yuv420_to_rgb(torch.from_numpy(y), torch.from_numpy(u), torch.from_numpy(v),
+                                yuv_affine(space, full)).round().to(torch.uint8).numpy()
+            videos[f"m{i}.mp4"] = (rgb, (y, u, v), (space, full))
+        return cls(videos)
+
+    def _video(self, path):
+        import os
+
+        name = os.path.basename(path)
+        if name not in self.videos:
+            raise IOError(f"cannot open video: {path}")
+        return self.videos[name]
+
+    def reader(self, path, out_size=None):
+        rgb, planes, color = self._video(path)
+        size = rgb.shape[1:3] if len(rgb) else planes[0].shape[1:3]
+        assert out_size is None or tuple(out_size) == tuple(size)[::-1], (out_size, size)
+        self.opened.append((path, out_size))
+        return _MemoryReader(path, rgb, planes, color)
+
+    def decode_batch(self, paths, frames_per_video, out_w, out_h, threads=0):
+        from genconvit_tpu_torch.data.frames import sample_frame_indices
+
+        out = np.zeros((len(paths), frames_per_video, out_h, out_w, 3), np.uint8)
+        counts = np.zeros((len(paths),), np.int64)
+        for i, p in enumerate(paths):
+            try:
+                rgb = self._video(p)[0]
+            except IOError:
+                continue
+            got = rgb[sample_frame_indices(len(rgb), frames_per_video)]
+            out[i, : len(got)] = got
+            counts[i] = len(got)
+        return out, counts
+
+    def install(self, mp, *modules):
+        for m in modules:
+            mp.setattr(m, "native_available", lambda: True)
+            mp.setattr(m, "NativeVideoReader", self.reader)
+            mp.setattr(m, "decode_videos_batch", self.decode_batch)
+
+
+class _MemoryReader:
+    def __init__(self, path, rgb, planes, color):
+        self.path, self._rgb, self._planes, self._color = path, rgb, planes, color
+        self.num_frames = len(rgb)
+
+    def __len__(self):
+        return self.num_frames
+
+    def read_frames(self, indices):
+        return self._rgb[list(indices)]
+
+    def read_frames_yuv(self, indices):
+        return tuple(p[list(indices)] for p in self._planes)
+
+    def color_info(self):
+        return self._color
+
+    def close(self):
+        pass
