@@ -286,6 +286,30 @@ Phases (any failed check raises and the exit code is non-zero):
      yuv420` (its Predictor given the phase's weights): the JAX package's
      result keys, one group forward, the verdicts of (d).
 
+  16. data parallelism on torch.distributed (it runs after phase 15 and
+     before phase 13; `--phase16-only` runs phases 1, 2 and 16 alone):
+     convnext_tiny GenConViT at full width and depth, 224 px, the bf16
+     default plan, seeded weights as phase 14 makes them (heads scaled),
+     deterministic VAE. (a) NCCL, world 1, in this process:
+     `parallel.eval_shard.predict_sharded` on V=8 (15 frames) bit-equal to
+     `forward_batched`, `predict_long_video` on 60 frames (the last 7
+     masked) within 1e-6 of `forward_batched` on [1, 60], 54 K1 + 3 K2 a
+     forward, V=8 videos/s of predict_sharded beside forward_batched in
+     turns; (b) two ranks spawned on the card (`parallel.dryrun.Ranks`),
+     gloo on CUDA tensors, each loading 16a's weights from a temporary file:
+     predict_sharded (4 videos a rank) y equal to and y_val within 5e-4 of
+     16a's forward_batched on each rank's block of 4, the long video (30
+     frames a rank) within 5e-4 of 16a's sums over the two halves, both
+     within 2e-2 of the whole-batch forwards (the bf16 batch effect alone
+     moves them: 16a reads it in one process), 54 K1 + 3 K2 a forward on
+     each rank; one float32 data-parallel train step at global
+     batch 16 (TF32 off) against the one-process step on rank 0: loss within
+     1e-4 relative, parameter change within 1e-3 relative L2; one bf16 step
+     in the default plan (108 K1 + 6 K2 a rank) within 1e-2 of the
+     one-process bf16 step's loss; planted faults caught: the gather's rank
+     order rotated, each rank's own BatchNorm statistics. Two ranks on one
+     card are time-sliced: their times are no scaling numbers.
+
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Without CUDA it exits non-zero at once.
 """
@@ -3248,8 +3272,8 @@ def train_planted(torch, tb: TrainBench, refs: dict, rec: dict, card: str) -> No
     # nn.BatchNorm2d.train() does): the recompute applies the momentum again
     bn_train = vae_mod.batch_norm_train
 
-    def in_place(x, bn, momentum=0.1, eps=1e-5):
-        y, (mean, var) = bn_train(x, bn, momentum, eps)
+    def in_place(x, bn, momentum=0.1, eps=1e-5, group=None):
+        y, (mean, var) = bn_train(x, bn, momentum, eps, group)
         with torch.no_grad():
             bn.running_mean.copy_(mean)
             bn.running_var.copy_(var)
@@ -4315,6 +4339,372 @@ def p15_summary(p15: dict, card: str) -> None:
             f"{r['launches']} group forward(s); max|d y_val| {r['worst']:.3e} [{card}]")
 
 
+P16_V = 8             # 16a/16b: predict_sharded's videos (4 a rank in 16b)
+P16_F_LONG = 60       # predict_long_video's frames (30 a rank in 16b) ...
+P16_TAIL = 7          # ... the last of them masked
+P16_RANKS = 2         # 16b: spawned ranks sharing the card, gloo on CUDA tensors
+P16_LONG_TOL = 1e-6   # 16a: predict_long_video vs forward_batched on [1, F]
+P16_TOL = 5e-4        # 16b: a rank's verdicts vs 16a's one-process forward on the same
+                      # block of videos or frames (the same bf16 path and batch)
+P16_BATCH = 16        # 16b: the global training batch (8 a rank)
+P16_LOSS_TOL = 1e-4   # 16b: float32 step vs the one-process step: loss, relative
+P16_CHANGE_TOL = 1e-3  # ... and the parameter change, relative L2
+P16_BF16_TOL = 1e-2   # 16b: bf16 step's loss vs the one-process bf16 step (tests/test_torch_train.py)
+P16_TIMEOUT = 600.0   # 16b: every rank killed past this
+
+
+def p16_inputs(torch, dev) -> dict:
+    """Phase 16's seeded inputs on the card: V=8 videos of 15 frames with
+    two masked tails, one video of 60 frames whose last 7 are masked."""
+    g = torch.Generator(device=dev).manual_seed(16)
+    frames = torch.randint(0, 256, (P16_V, FRAMES, IMG, IMG, 3), dtype=torch.uint8, device=dev,
+                           generator=g)
+    mask = torch.ones(P16_V, FRAMES, device=dev)
+    mask[1, 8:] = 0
+    mask[3, 2:] = 0
+    long = torch.randint(0, 256, (P16_F_LONG, IMG, IMG, 3), dtype=torch.uint8, device=dev,
+                         generator=g)
+    lmask = torch.ones(P16_F_LONG, device=dev)
+    lmask[-P16_TAIL:] = 0
+    return {"frames": frames, "mask": mask, "long": long, "lmask": lmask}
+
+
+def p16_blocks(torch, pred, d: dict) -> dict:
+    """16b's one-process references: forward_batched on each rank's block of
+    the V videos, and the long video's masked frame sums over each rank's
+    block of frames, added, then aggregated (what P16_RANKS ranks compute,
+    in one process): {'y', 'v', 'yl', 'vl'}."""
+    from genconvit_tpu_torch.infer.aggregate import finish_aggregate, masked_prob_sums
+
+    b = P16_V // P16_RANKS
+    ys, vs = zip(*(pred.forward_batched(d["frames"][i:i + b], d["mask"][i:i + b])
+                   for i in range(0, P16_V, b)))
+    f = P16_F_LONG // P16_RANKS
+    total = 0
+    for i in range(0, P16_F_LONG, f):
+        logits, mask = pred.video_logits(d["long"][None, i:i + f], d["lmask"][None, i:i + f])
+        sums, count = masked_prob_sums(logits[0], mask[0])
+        total = total + torch.cat([sums, count[None]])
+    yl, vl = finish_aggregate(total[:2], total[2])
+    return {"y": torch.cat(ys).cpu().numpy(), "v": torch.cat(vs).cpu().numpy(),
+            "yl": int(yl), "vl": float(vl)}
+
+
+def p16_model(torch, dev):
+    """16b's float32 master model (convnext_tiny GenConViT at full width,
+    layer scale U(0.1, 1), seeded as TrainBench makes it), its weights w0,
+    a seeded uint8 batch of P16_BATCH, labels and eps: the same on every
+    rank and in every run."""
+    from genconvit_tpu_torch.models.convnext import Block
+    from genconvit_tpu_torch.train import loop
+
+    model = loop.new_model(p14_config(), "genconvit", dev, seed=16)
+    g = torch.Generator(device=dev).manual_seed(16)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, Block):
+                m.gamma.uniform_(0.1, 1.0, generator=g)
+    w0 = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    x = torch.randint(0, 256, (P16_BATCH, IMG, IMG, 3), dtype=torch.uint8, device=dev,
+                      generator=g)
+    y = torch.randint(0, 2, (P16_BATCH,), device=dev, generator=g)
+    eps = torch.randn((P16_BATCH, model.vae.encoder.mu.out_features), device=dev, generator=g)
+    return model, w0, (x, y, eps)
+
+
+def p16_step(torch, model, w0, batch, dtype, group):
+    """One train step from w0 (a fresh optimizer) under the default plan:
+    (loss, the parameters after it, launches)."""
+    from genconvit_tpu_torch.ops import cuda as kcuda
+    from genconvit_tpu_torch.ops.kernel_plan import KernelPlan
+    from genconvit_tpu_torch.parallel.mesh import shard_rows
+    from genconvit_tpu_torch.train import loop, optim
+
+    model.load_state_dict(w0)
+    model.zero_grad(set_to_none=True)
+    opt = optim.make_optimizer(model.parameters(), 1e-4, 1e-4)
+    step = loop.make_train_step(model, "genconvit", opt, False, dtype, KernelPlan(), group)
+    x, y, eps = batch
+    if group is not None:   # the step takes this rank's rows of the images
+        x = x[shard_rows(len(y), group)]
+    kcuda.reset_launch_counts()
+    loss = float(step(x, y, eps.to(dtype))[0])
+    counts = kcuda.launch_counts()
+    return loss, {n: p.detach().clone() for n, p in model.named_parameters()}, counts
+
+
+def p16_change_error(torch, w0, got: dict, ref: dict) -> float:
+    """Relative L2 of the parameter change got - w0 against ref - w0, over
+    every parameter."""
+    num = den = 0.0
+    for n, r in ref.items():
+        d_ref = (r - w0[n]).double()
+        num += float((got[n] - w0[n]).double().sub_(d_ref).square().sum())
+        den += float(d_ref.square().sum())
+    return (num / max(den, 1e-300)) ** 0.5
+
+
+def p16_rank(rank: int, n: int, weights: str, inputs: str) -> dict:
+    """16b, one of the ranks sharing the card (gloo on CUDA tensors): the
+    sharded eval on the weights of 16a, then the data-parallel steps; rank 0
+    also runs the one-process steps and compares. Returns its readings."""
+    import torch
+    import torch.distributed as dist
+
+    from genconvit_tpu_torch.infer.engine import Predictor
+    from genconvit_tpu_torch.models import vae as vae_mod
+    from genconvit_tpu_torch.ops import cuda as kcuda
+    from genconvit_tpu_torch.ops.kernel_plan import KernelPlan
+    from genconvit_tpu_torch.parallel import eval_shard
+    from genconvit_tpu_torch.parallel.mesh import data_group, make_mesh
+    from genconvit_tpu_torch.parallel.multihost import rank_device
+
+    dev = rank_device()
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh()
+    group = data_group(mesh)
+    out = {}
+    pred = Predictor(p14_config(), net="genconvit", device=dev,
+                     params=torch.load(weights, map_location=dev), deterministic_vae=True,
+                     kernel_plan=KernelPlan())
+    d = {k: v.to(dev) for k, v in torch.load(inputs).items()}
+    eval_shard.predict_sharded(pred, d["frames"], d["mask"], mesh)    # the broadcast, warm-up
+    torch.cuda.synchronize()
+    kcuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    out["sharded"] = eval_shard.predict_sharded(pred, d["frames"], d["mask"], mesh)
+    out["sharded_s"] = time.perf_counter() - t0
+    out["sharded_counts"] = kcuda.launch_counts()
+    kcuda.reset_launch_counts()
+    out["long"] = eval_shard.predict_long_video(pred, d["long"], d["lmask"], mesh)
+    out["long_counts"] = kcuda.launch_counts()
+    real_gather = eval_shard.gather_blocks
+    eval_shard.gather_blocks = lambda rows, index, k, grp: real_gather(rows, (index + 1) % k,
+                                                                        k, grp)
+    try:
+        out["rotated"] = eval_shard.predict_sharded(pred, d["frames"], d["mask"], mesh)
+    finally:
+        eval_shard.gather_blocks = real_gather
+    del pred, d
+    torch.cuda.empty_cache()
+
+    model, w0, batch = p16_model(torch, dev)
+    t0 = time.perf_counter()
+    loss, params, _ = p16_step(torch, model, w0, batch, torch.float32, group)
+    out["f32"] = {"loss": loss, "s": time.perf_counter() - t0}
+    ref = None
+    if rank == 0:
+        ref = p16_step(torch, model, w0, batch, torch.float32, None)[:2]
+        out["f32"].update(ref_loss=ref[0], change=p16_change_error(torch, w0, params, ref[1]))
+    del params
+    dist.barrier(group=group)
+    t0 = time.perf_counter()
+    loss, params, counts = p16_step(torch, model, w0, batch, torch.bfloat16, group)
+    out["bf16"] = {"loss": loss, "counts": counts, "s": time.perf_counter() - t0}
+    del params
+    if rank == 0:
+        out["bf16"]["ref_loss"] = p16_step(torch, model, w0, batch, torch.bfloat16, None)[0]
+    dist.barrier(group=group)
+    # each rank's own BatchNorm statistics: the planted fault
+    real_bn = vae_mod.batch_norm_train
+    vae_mod.batch_norm_train = lambda x, bn, momentum=0.1, eps=1e-5, group=None: real_bn(
+        x, bn, momentum, eps)
+    try:
+        loss, params, _ = p16_step(torch, model, w0, batch, torch.float32, group)
+    finally:
+        vae_mod.batch_norm_train = real_bn
+    out["planted_bn"] = {"loss": loss}
+    if rank == 0:
+        out["planted_bn"]["change"] = p16_change_error(torch, w0, params, ref[1])
+    out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    return out
+
+
+def p16_rates(torch, pred, d: dict, mesh, card: str) -> dict:
+    """V=8 videos/s of predict_sharded beside forward_batched by phase 6's
+    protocol (2 warm-up calls, 3 trials of 6 calls, best), in turns, on the
+    same device-resident batch: predict_sharded fetches its verdicts every
+    call, forward_batched once a trial."""
+    from genconvit_tpu_torch.parallel.eval_shard import predict_sharded
+
+    calls = {"forward_batched": lambda: pred.forward_batched(d["frames"], d["mask"]),
+             "predict_sharded": lambda: predict_sharded(pred, d["frames"], d["mask"], mesh)}
+    for fn in calls.values():
+        fn()
+        fn()
+    rates = {k: [] for k in calls}
+    for _ in range(3):
+        for name, fn in calls.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(6):
+                fn()
+            torch.cuda.synchronize()
+            rates[name].append(P16_V * 6 / (time.perf_counter() - t0))
+    for name, r in rates.items():
+        log(f"p16a throughput [{name}] V=8: {', '.join(f'{x:.2f}' for x in r)} videos/s "
+            f"[{card}]")
+    return {k: max(r) for k, r in rates.items()}
+
+
+def phase_p16(torch, np, dev, card: str, tmp: str) -> dict:
+    """Phase 16 (module docstring): data parallelism on torch.distributed."""
+    import gc
+    import os
+
+    import torch.distributed as dist
+
+    from genconvit_tpu_torch.infer.engine import Predictor
+    from genconvit_tpu_torch.ops import cuda as kcuda
+    from genconvit_tpu_torch.ops.kernel_plan import KernelPlan
+    from genconvit_tpu_torch.parallel.dryrun import Ranks
+    from genconvit_tpu_torch.parallel.eval_shard import predict_long_video, predict_sharded
+    from genconvit_tpu_torch.parallel.mesh import make_mesh
+    from genconvit_tpu_torch.parallel.multihost import initialize_multihost
+
+    t = time.perf_counter()
+    want = expected_launches(kcuda, "", "", False)
+    pred = Predictor(p14_config(), net="genconvit", device=dev,
+                     params=p14_params(torch, dev, seed=16), deterministic_vae=True,
+                     kernel_plan=KernelPlan())
+    d = p16_inputs(torch, dev)
+    y_ref, v_ref = (a.cpu().numpy() for a in pred.forward_batched(d["frames"], d["mask"]))
+    yl_ref, vl_ref = (a.cpu().numpy()[0] for a in
+                      pred.forward_batched(d["long"][None], d["lmask"][None]))
+    blk = p16_blocks(torch, pred, d)
+    dv_batch = float(np.abs(blk["v"] - v_ref).max())
+    dl_batch = abs(blk["vl"] - float(vl_ref))
+    log(f"p16a: one process, the V={P16_V} forward against {P16_RANKS} blocks of "
+        f"{P16_V // P16_RANKS} videos: max|dy_val| {dv_batch:.3e}, y equal "
+        f"{bool(np.array_equal(blk['y'], y_ref))}; the F={P16_F_LONG} video against its "
+        f"{P16_RANKS} halves' summed frames: |dy_val| {dl_batch:.3e} (the batch effect alone, "
+        f"bf16) [{card}]")
+    out = {}
+    # 16a: NCCL, world 1, in this process
+    initialize_multihost(f"file://{os.path.join(tmp, 'p16a_store')}", 1, 0, backend="nccl")
+    try:
+        mesh = make_mesh()
+        predict_sharded(pred, d["frames"], d["mask"], mesh)   # the broadcast and refold, once
+        kcuda.reset_launch_counts()
+        y, v = predict_sharded(pred, d["frames"], d["mask"], mesh)
+        got = kcuda.launch_counts()
+        if got != want:
+            raise AssertionError(f"p16a predict_sharded: launches {got}, want {want}")
+        if not (np.array_equal(y, y_ref) and np.array_equal(v, v_ref)):
+            raise AssertionError(f"p16a predict_sharded not bit-equal to forward_batched: "
+                                 f"{y} {v} against {y_ref} {v_ref}")
+        kcuda.reset_launch_counts()
+        yl, vl = predict_long_video(pred, d["long"], d["lmask"], mesh)
+        got = kcuda.launch_counts()
+        if got != want:
+            raise AssertionError(f"p16a predict_long_video: launches {got}, want {want}")
+        dl = abs(vl - float(vl_ref))
+        if not (yl == int(yl_ref) and dl <= P16_LONG_TOL):
+            raise AssertionError(f"p16a predict_long_video ({yl}, {vl}) against forward_batched "
+                                 f"({int(yl_ref)}, {float(vl_ref)}): |dy_val| {dl}")
+        log(f"p16a [nccl, world 1]: predict_sharded V={P16_V} bit-equal to forward_batched "
+            f"(y {y.tolist()}); predict_long_video F={P16_F_LONG} ({P16_TAIL} masked) y {yl}, "
+            f"|dy_val| {dl:.3e} (limit {P16_LONG_TOL}); {want['ln_mlp_residual']} K1 + "
+            f"{want['layer_norm_rows']} K2 a forward [{card}]")
+        out["rates"] = p16_rates(torch, pred, d, mesh, card)
+        out["long_err"] = dl
+    finally:
+        dist.destroy_process_group()
+    weights = os.path.join(tmp, "p16_weights.pt")
+    inputs = os.path.join(tmp, "p16_inputs.pt")
+    torch.save({b: getattr(pred.model, b).state_dict() for b in ("ed", "vae")}, weights)
+    torch.save({k: v.cpu() for k, v in d.items()}, inputs)
+    del pred, d
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"p16a: {time.perf_counter() - t:.1f} s")
+
+    # 16b: two spawned ranks on this card, gloo on CUDA tensors
+    t = time.perf_counter()
+    ranks = Ranks(p16_rank, P16_RANKS, weights, inputs).join(timeout=P16_TIMEOUT)
+    os.remove(weights)
+    out["ranks_s"] = time.perf_counter() - t
+    train_want = {k: 2 * v for k, v in want.items()}   # forward and recompute
+    for rank, r in enumerate(ranks):
+        for what in ("sharded_counts", "long_counts"):
+            if r[what] != want:
+                raise AssertionError(f"p16b rank {rank} {what}: {r[what]}, want {want}")
+        if r["bf16"]["counts"] != train_want:
+            raise AssertionError(f"p16b rank {rank} bf16 step: launches {r['bf16']['counts']}, "
+                                 f"want {train_want}")
+        y, v = r["sharded"]
+        if not np.array_equal(y, blk["y"]):
+            raise AssertionError(f"p16b rank {rank}: y {y} against 16a's {blk['y']}")
+        r["dv"] = float(np.abs(v - blk["v"]).max())
+        r["dl"] = abs(r["long"][1] - blk["vl"])
+        if not (r["dv"] <= P16_TOL and r["long"][0] == blk["yl"] and r["dl"] <= P16_TOL):
+            raise AssertionError(f"p16b rank {rank}: max|dy_val| {r['dv']}, long video "
+                                 f"{r['long']} against ({blk['yl']}, {blk['vl']})")
+        r["dv8"] = float(np.abs(v - v_ref).max())
+        r["dl60"] = abs(r["long"][1] - float(vl_ref))
+        if not (r["dv8"] <= YVAL_TOL and r["dl60"] <= YVAL_TOL):
+            raise AssertionError(f"p16b rank {rank}: against the V={P16_V} and F={P16_F_LONG} "
+                                 f"forwards max|dy_val| {r['dv8']}, {r['dl60']} > {YVAL_TOL}")
+        yr, vr = r["rotated"]
+        if np.array_equal(yr, blk["y"]) and float(np.abs(vr - blk["v"]).max()) <= P16_TOL:
+            raise AssertionError(f"p16b rank {rank}: the rotated gather passed the check")
+    f32, bf16, planted = ranks[0]["f32"], ranks[0]["bf16"], ranks[0]["planted_bn"]
+    dloss = abs(f32["loss"] - f32["ref_loss"]) / abs(f32["ref_loss"])
+    dloss16 = abs(bf16["loss"] - bf16["ref_loss"]) / abs(bf16["ref_loss"])
+    dloss_pl = abs(planted["loss"] - f32["ref_loss"]) / abs(f32["ref_loss"])
+    if not (dloss <= P16_LOSS_TOL and f32["change"] <= P16_CHANGE_TOL):
+        raise AssertionError(f"p16b f32 step vs one process: loss rel {dloss}, parameter change "
+                             f"rel L2 {f32['change']}")
+    if not dloss16 <= P16_BF16_TOL:
+        raise AssertionError(f"p16b bf16 step vs one process: loss rel {dloss16}")
+    if dloss_pl <= P16_LOSS_TOL and planted["change"] <= P16_CHANGE_TOL:
+        raise AssertionError(f"p16b per-rank BatchNorm statistics passed the check: loss rel "
+                             f"{dloss_pl}, change {planted['change']}")
+    for rank, r in enumerate(ranks):
+        if r["f32"]["loss"] != f32["loss"] or r["bf16"]["loss"] != bf16["loss"]:
+            raise AssertionError(f"p16b rank {rank}: its losses {r['f32']['loss']}, "
+                                 f"{r['bf16']['loss']} differ from rank 0's")
+    log(f"p16b [{P16_RANKS} ranks on one card, gloo]: predict_sharded y equal, max|dy_val| "
+        f"{max(r['dv'] for r in ranks):.3e} against 16a's blocks, long video "
+        f"{max(r['dl'] for r in ranks):.3e} against its halves (limit {P16_TOL}); against the "
+        f"V={P16_V} and F={P16_F_LONG} forwards {max(r['dv8'] for r in ranks):.3e} and "
+        f"{max(r['dl60'] for r in ranks):.3e} (limit {YVAL_TOL}); f32 step N={P16_BATCH} loss {f32['loss']:.6f} against "
+        f"{f32['ref_loss']:.6f} (rel {dloss:.2e}, limit {P16_LOSS_TOL}), parameter change rel "
+        f"L2 {f32['change']:.3e} (limit {P16_CHANGE_TOL}); bf16 step loss rel {dloss16:.2e} "
+        f"(limit {P16_BF16_TOL}), launches a rank {train_want['ln_mlp_residual']} K1 + "
+        f"{train_want['layer_norm_rows']} K2; planted per-rank BatchNorm statistics: loss rel "
+        f"{dloss_pl:.2e}, change {planted['change']:.3e} (caught); the rotated gather caught "
+        f"[{card}]")
+    log(f"p16b time-sliced on one card (not scaling): predict_sharded V={P16_V} "
+        f"{max(r['sharded_s'] for r in ranks) * 1e3:.1f} ms a call, f32 step "
+        f"{max(r['f32']['s'] for r in ranks):.2f} s, bf16 step "
+        f"{max(r['bf16']['s'] for r in ranks):.2f} s; peak device memory a rank "
+        f"{max(r['peak_gib'] for r in ranks):.2f} GiB; {out['ranks_s']:.1f} s [{card}]")
+    out.update(sharded_dv=max(r["dv"] for r in ranks), long_dv=max(r["dl"] for r in ranks),
+               sharded_dv8=max(r["dv8"] for r in ranks), long_dv60=max(r["dl60"] for r in ranks),
+               batch_dv=dv_batch, batch_dl=dl_batch,
+               f32_dloss=dloss, f32_change=f32["change"], bf16_dloss=dloss16,
+               planted_dloss=dloss_pl, planted_change=planted["change"],
+               sharded_ms=max(r["sharded_s"] for r in ranks) * 1e3,
+               f32_s=max(r["f32"]["s"] for r in ranks), bf16_s=max(r["bf16"]["s"] for r in ranks))
+    return out
+
+
+def p16_summary(p16: dict, card: str) -> None:
+    r = p16["rates"]
+    log(f"summary [p16a]: V=8 predict_sharded {r['predict_sharded']:.2f} videos/s against "
+        f"forward_batched {r['forward_batched']:.2f} (nccl, world 1); long video |dy_val| "
+        f"{p16['long_err']:.3e} [{card}]")
+    log(f"summary [p16b]: {P16_RANKS} gloo ranks on one card: max|dy_val| {p16['sharded_dv']:.3e}, "
+        f"long {p16['long_dv']:.3e} against 16a's blocks; against the whole-batch forwards "
+        f"{p16['sharded_dv8']:.3e}, {p16['long_dv60']:.3e} (one process, blocks against the whole "
+        f"batch: {p16['batch_dv']:.3e}, {p16['batch_dl']:.3e}); f32 step loss rel {p16['f32_dloss']:.2e}, change "
+        f"{p16['f32_change']:.3e}; bf16 loss rel {p16['bf16_dloss']:.2e}; planted BN loss rel "
+        f"{p16['planted_dloss']:.2e}, change {p16['planted_change']:.3e}; time-sliced: "
+        f"predict_sharded {p16['sharded_ms']:.1f} ms, steps {p16['f32_s']:.2f} / "
+        f"{p16['bf16_s']:.2f} s [{card}]")
+
+
 def main() -> int:
     import argparse
     import gc
@@ -4334,6 +4724,9 @@ def main() -> int:
     ap.add_argument("--phase15-only", action="store_true",
                     help="phases 1, 2 and 15 alone (no result lines): the fullframe fast "
                          "paths (YUV420 conversion and forward, the stream, the drivers)")
+    ap.add_argument("--phase16-only", action="store_true",
+                    help="phases 1, 2 and 16 alone (no result lines): data parallelism on "
+                         "torch.distributed (NCCL world 1, then two gloo ranks on the card)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
@@ -4385,6 +4778,13 @@ def main() -> int:
             p15_summary(phase_p15(torch, np, dev, card, tmp), card)
             log(f"phase 15: {time.perf_counter() - t:.1f} s")
         log(f"chip_smoke --phase15-only: phase 15 passed in {time.perf_counter() - t_all:.1f} s")
+        return 0
+    if args.phase16_only:
+        with tempfile.TemporaryDirectory(prefix="gcv_p16_") as tmp:
+            t = time.perf_counter()
+            p16_summary(phase_p16(torch, np, dev, card, tmp), card)
+            log(f"phase 16: {time.perf_counter() - t:.1f} s")
+        log(f"chip_smoke --phase16-only: phase 16 passed in {time.perf_counter() - t_all:.1f} s")
         return 0
     t = time.perf_counter()
     kernels = (phase_kernels(torch, dev, card) + phase_fused(torch, dev, card)
@@ -4439,6 +4839,11 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         t = time.perf_counter()
+        p16 = phase_p16(torch, np, dev, card, tmp)
+        log(f"phase 16: {time.perf_counter() - t:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
         training = phase_train(torch, np, dev, card, tmp, args.profile)
         log(f"phase 13: {time.perf_counter() - t:.1f} s")
     for name, r in runs.items():
@@ -4481,6 +4886,7 @@ def main() -> int:
                 f"{ {k: v for k, v in r['counts'].items() if v} } [{card}]")
     p14_summary(p14, card)
     p15_summary(p15, card)
+    p16_summary(p16, card)
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_all:.1f} s [{card}]")
     # each kernel's launches: the count of the run whose main path runs it
     # (the counts were set to 0 just before its requests)

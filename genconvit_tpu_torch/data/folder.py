@@ -12,7 +12,7 @@ read); normalization runs on the device.
 from __future__ import annotations
 
 import os
-from typing import Dict, Iterator, List, Optional, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
@@ -63,23 +63,41 @@ class FolderDataset:
         return len(self.paths)
 
     def batches(self, batch_size: int, shuffle: bool = False,
-                epoch: int = 0, drop_last: bool = False
+                epoch: int = 0, drop_last: bool = False,
+                part: Optional[Callable[[int], slice]] = None
                 ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
-        """Yields (images uint8 [B,S,S,3], labels int32 [B])."""
-        from genconvit_tpu_torch.data.augment import strong_aug
+        """Yields (images uint8 [B,S,S,3], labels int32 [B]).
+
+        part: a function of a batch's length to the slice of its rows to
+        read (a data-parallel rank's block, `parallel.mesh.shard_rows`).
+        The images are then those rows alone and the labels still the
+        whole batch's; the other rows are not read, and under augmentation
+        only their random draws are made (`skip_aug`), so every row read
+        equals the whole batch's."""
+        from genconvit_tpu_torch.data import augment
 
         n = len(self.paths)
         order = np.arange(n)
         rng = np.random.default_rng(self.seed + epoch)
         if shuffle:
             rng.shuffle(order)
+        size = (self.img_size, self.img_size) if self.img_size else (0, 0)
         for start in range(0, n, batch_size):
             idx = order[start:start + batch_size]
             if drop_last and len(idx) < batch_size:
                 break
-            imgs = np.stack([load_image(self.paths[i], self.img_size) for i in idx])
+            keep = range(len(idx))[part(len(idx))] if part else range(len(idx))
+            imgs = [load_image(self.paths[idx[j]], self.img_size) for j in keep]
             if self.augment:
-                imgs = np.stack([strong_aug(im, rng) for im in imgs])
+                mine = iter(imgs)
+                imgs = []
+                for j, i in enumerate(idx):
+                    if j in keep:
+                        imgs.append(augment.strong_aug(next(mine), rng))
+                    else:
+                        augment.skip_aug(size + (3,) if self.img_size else
+                                         load_image(self.paths[i]).shape, rng)
+            imgs = np.stack(imgs) if imgs else np.zeros((0,) + size + (3,), np.uint8)
             yield imgs, np.asarray([self.labels[i] for i in idx], np.int32)
 
 

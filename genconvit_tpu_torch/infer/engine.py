@@ -177,9 +177,14 @@ class Predictor:
             # after the cast, as the JAX engine does: the int8 weights come
             # from the weights the default path would multiply with
             model.quantize_heads_int8_()
-        if self.dtype == torch.bfloat16:
-            model.prepare_kernels(self.kernel_plan)  # K1/K4 folds or K5/K6 packs, from bf16
         self.model = model
+        self.prepare_kernels()
+
+    def prepare_kernels(self) -> None:
+        """The bf16 model's K1/K4 folds or K5/K6 packs for the plan, from
+        its current weights (again after any change to them)."""
+        if self.dtype == torch.bfloat16:
+            self.model.prepare_kernels(self.kernel_plan)
 
     # ------------------------------------------------------------- set-up
 
@@ -225,14 +230,17 @@ class Predictor:
     # ------------------------------------------------------------- forward
 
     @torch.inference_mode()
-    def video_logits(self, frames_u8: torch.Tensor, mask: torch.Tensor
+    def video_logits(self, frames_u8: torch.Tensor, mask: torch.Tensor,
+                     generator: Optional[torch.Generator] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Device tensors [V,F,S,S,3] uint8 and [V,F] -> per-video logits
-        [V,K,2] and mask [V,K] (K = 2F for the ensemble, ED rows first)."""
+        [V,K,2] and mask [V,K] (K = 2F for the ensemble, ED rows first).
+        generator: the VAE's draw when it samples (the predictor's own by
+        default)."""
         v, f = frames_u8.shape[:2]
         x = normalize_batch(frames_u8.reshape((v * f,) + frames_u8.shape[2:]),
                             self.dtype)
-        return self._per_video_logits(x, v, f, mask)
+        return self._per_video_logits(x, v, f, mask, generator)
 
     @torch.inference_mode()
     def video_logits_yuv(self, yp: torch.Tensor, up: torch.Tensor, vp: torch.Tensor,
@@ -248,11 +256,12 @@ class Predictor:
                              vp.reshape((v * f,) + vp.shape[2:]), matrix, self.dtype)
         return self._per_video_logits(x, v, f, mask)
 
-    def _per_video_logits(self, x: torch.Tensor, v: int, f: int, mask: torch.Tensor
+    def _per_video_logits(self, x: torch.Tensor, v: int, f: int, mask: torch.Tensor,
+                          generator: Optional[torch.Generator] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
         logits = self.model(x, self.kernel_plan,
                             sample=not self.deterministic_vae,
-                            generator=self.generator)
+                            generator=self.generator if generator is None else generator)
         if self.net == "genconvit":
             ed, vae = logits[: v * f], logits[v * f:]
             per_video = torch.cat([ed.reshape(v, f, 2), vae.reshape(v, f, 2)], dim=1)
@@ -260,11 +269,13 @@ class Predictor:
         return logits.reshape(v, f, 2), mask
 
     @torch.inference_mode()
-    def forward_batched(self, frames_u8: torch.Tensor, mask: torch.Tensor
+    def forward_batched(self, frames_u8: torch.Tensor, mask: torch.Tensor,
+                        generator: Optional[torch.Generator] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Device-resident [V,F,S,S,3] uint8 + [V,F] -> device (y, y_val);
-        no host sync (the benchmark loop's entry)."""
-        return aggregate_logits(*self.video_logits(frames_u8, mask))
+        no host sync (the benchmark loop's entry). generator as in
+        video_logits."""
+        return aggregate_logits(*self.video_logits(frames_u8, mask, generator))
 
     @torch.inference_mode()
     def forward_batched_yuv(self, yp: torch.Tensor, up: torch.Tensor, vp: torch.Tensor,

@@ -85,12 +85,14 @@ class GenConViT(nn.Module):
     def forward(self, x: torch.Tensor, plan: KernelPlan = DEFAULT_PLAN, *,
                 sample: bool = True, generator: Optional[torch.Generator] = None,
                 eps: Optional[torch.Tensor] = None, train: bool = False,
-                return_aux: bool = False):
+                return_aux: bool = False, bn_group=None):
         """x: [N,3,H,W] normalized -> [N,2] ('ed'/'vae') or [2N,2]; with
         train or return_aux, (logits, aux). train: batch statistics in the
         VAE's BatchNorms and the backbones' differentiable kernel paths;
         return_aux alone (an eval step during training): running statistics,
-        kernels folded per call, aux with 'vae_recon'."""
+        kernels folded per call, aux with 'vae_recon'. bn_group: in training,
+        the process group over whose global batch the VAE's BatchNorms take
+        their statistics (data parallelism)."""
         out = []
         aux: Dict[str, Any] = {}
         fresh = train or return_aux
@@ -99,7 +101,8 @@ class GenConViT(nn.Module):
         if hasattr(self, "vae"):
             if fresh:
                 logits, vaux = self.vae(x, plan, sample=sample, generator=generator, eps=eps,
-                                        return_recon=True, train=train, per_call_folds=True)
+                                        return_recon=True, train=train, per_call_folds=True,
+                                        bn_group=bn_group)
                 aux.update({f"vae_{k}": v for k, v in vaux.items()} if train
                            else {"vae_recon": vaux})
             else:

@@ -77,11 +77,12 @@ class Int8Linear(nn.Module):
         return matmul_wint8(x, self.wq, self.scale, self.bias)
 
 
-def _bn_act(x: torch.Tensor, bn: nn.BatchNorm2d, train: bool, stats: Stats) -> torch.Tensor:
-    """BatchNorm (batch statistics appended to `stats` in training) ->
-    LeakyReLU."""
+def _bn_act(x: torch.Tensor, bn: nn.BatchNorm2d, train: bool, stats: Stats,
+            group=None) -> torch.Tensor:
+    """BatchNorm (batch statistics appended to `stats` in training; the
+    global batch's over `group` under data parallelism) -> LeakyReLU."""
     if train:
-        x, new = batch_norm_train(x, bn)
+        x, new = batch_norm_train(x, bn, group=group)
         stats.append(new)
     else:
         x = batch_norm(x, bn)
@@ -99,14 +100,16 @@ class Encoder(nn.Module):
         self.mu = nn.Linear(flat, latent)
         self.var = nn.Linear(flat, latent)
 
-    def forward(self, x: torch.Tensor, train: bool = False, logvar: bool = False):
+    def forward(self, x: torch.Tensor, train: bool = False, logvar: bool = False,
+                bn_group=None):
         """[N,3,H,W] -> mu [N, latent]; with logvar, (mu, logvar); with
-        train, (mu, logvar, the four BatchNorms' new running (mean, var))."""
+        train, (mu, logvar, the four BatchNorms' new running (mean, var)),
+        the statistics over `bn_group`'s global batch where given."""
         stats: Stats = []
         for i in range(4):
             conv = self.features[3 * i]
             h = conv2d(x, conv.weight, conv.bias, stride=2, padding=1)
-            x = _bn_act(h, self.features[3 * i + 1], train, stats)
+            x = _bn_act(h, self.features[3 * i + 1], train, stats, bn_group)
         # torch flattens in CHW order; flatten(1) of the channels_last
         # tensor gathers exactly that order
         flat = x.flatten(1)
@@ -151,7 +154,8 @@ class Decoder(nn.Module):
                        nn.LeakyReLU()]
         self.features = nn.Sequential(*layers)
 
-    def forward(self, z: torch.Tensor, train: bool = False) -> Tuple[torch.Tensor, Stats]:
+    def forward(self, z: torch.Tensor, train: bool = False,
+                bn_group=None) -> Tuple[torch.Tensor, Stats]:
         """z [N, 256*s*s] -> ([N,3,16s,16s], no statistics)."""
         n, latent = z.shape
         s = int(round((latent / 256) ** 0.5))
@@ -174,9 +178,11 @@ class UpdatedDecoder(nn.Module):
             layers += [nn.BatchNorm2d(_UPD_CH[i + 1]), nn.LeakyReLU()] if i < 3 else [nn.Tanh()]
         self.features = nn.Sequential(*layers)
 
-    def forward(self, z: torch.Tensor, train: bool = False) -> Tuple[torch.Tensor, Stats]:
+    def forward(self, z: torch.Tensor, train: bool = False,
+                bn_group=None) -> Tuple[torch.Tensor, Stats]:
         """z [N, latent] -> ([N,3,16s,16s], with train the three BatchNorms'
-        new running (mean, var))."""
+        new running (mean, var), over `bn_group`'s global batch where
+        given)."""
         h = F.linear(z, self.decoder_input.weight, self.decoder_input.bias)
         n = h.shape[0]
         s = int(round((h.shape[1] / _UPD_CH[0]) ** 0.5))
@@ -185,7 +191,8 @@ class UpdatedDecoder(nn.Module):
         for i in range(4):
             convt = self.features[3 * i]
             x = conv_transpose2d(x, convt.weight, convt.bias, stride=2)
-            x = _bn_act(x, self.features[3 * i + 1], train, stats) if i < 3 else torch.tanh(x)
+            x = (_bn_act(x, self.features[3 * i + 1], train, stats, bn_group) if i < 3
+                 else torch.tanh(x))
         return x, stats
 
 
@@ -258,22 +265,23 @@ class GenConViTVAE(nn.Module):
     def forward(self, x: torch.Tensor, plan: KernelPlan = DEFAULT_PLAN, *,
                 sample: bool = True, generator: Optional[torch.Generator] = None,
                 eps: Optional[torch.Tensor] = None, return_recon: bool = False,
-                train: bool = False, per_call_folds: bool = False):
+                train: bool = False, per_call_folds: bool = False, bn_group=None):
         """x: [N,3,H,W] normalized -> logits [N, num_classes], and with
         return_recon the reconstruction at H x W (the original's resized,
         torchvision bilinear, antialias), which scoring never reads. train:
         the BatchNorms on batch statistics, the backbones' differentiable
         kernel paths, and (logits, aux) as vae_apply(train=True) returns
         them. per_call_folds alone: the backbones fold per call (an eval
-        step during training)."""
+        step during training). bn_group: in training, the process group whose
+        global batch the BatchNorms' statistics cover (data parallelism)."""
         stats: Stats = []
         if train:
-            mu, logvar, stats = self.encoder(x, train=True)
+            mu, logvar, stats = self.encoder(x, train=True, bn_group=bn_group)
             z = self.sample_z(mu, logvar if self.updated else None, sample=sample,
                               generator=generator, eps=eps)
         else:
             z = self.encode(x, sample=sample, generator=generator, eps=eps)
-        x_hat, dec_stats = self.decoder(z, train)
+        x_hat, dec_stats = self.decoder(z, train, bn_group)
         x1, x2, x_hat = self._features(x, x_hat, plan, train or per_call_folds)
         h = relu(torch.cat([x1, x2], dim=1))
         h = F.linear(h, self.fc.weight, self.fc.bias)

@@ -11,6 +11,8 @@ from typing import Tuple
 
 import torch
 
+from genconvit_tpu_torch.ops.collective import all_reduce_sum
+
 
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                eps: float = 1e-6) -> torch.Tensor:
@@ -42,7 +44,8 @@ def batch_norm(x: torch.Tensor, bn: torch.nn.BatchNorm2d,
 
 
 def batch_norm_train(x: torch.Tensor, bn: torch.nn.BatchNorm2d, momentum: float = 0.1,
-                     eps: float = 1e-5) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+                     eps: float = 1e-5, group=None
+                     ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Train BatchNorm2d (genconvit_tpu/ops/norm.py:33-62): normalize with the
     batch's float32 statistics (biased variance); return the output and the
     new running statistics, (1 - m) * old + m * batch with the unbiased
@@ -51,14 +54,32 @@ def batch_norm_train(x: torch.Tensor, bn: torch.nn.BatchNorm2d, momentum: float 
     statistic is taken in its own dtype, as the JAX package's
     `(1 - momentum) * params["mean"]` (a weakly typed scalar keeps a
     bfloat16 array bfloat16); the sum with the float32 batch term is
-    float32."""
+    float32.
+
+    group: a process group whose ranks each hold a block of one global
+    batch (data parallelism). The statistics are then the global batch's,
+    as the JAX step under jit computes them: the per-channel sums and the
+    element count all-reduced over the group for the mean, then the sums of
+    (x - mean)^2 for the biased variance, and the global count in the
+    unbiased one. The all-reduces are differentiable (`all_reduce_sum`), so
+    the backward carries the statistics' terms across the ranks."""
     shape = (1, -1, 1, 1)
     x32 = x.float()
-    mean = x32.mean(dim=(0, 2, 3))
-    var = (x32 - mean.view(shape)).square().mean(dim=(0, 2, 3))
-    with torch.no_grad():
+    if group is None:
+        mean = x32.mean(dim=(0, 2, 3))
+        var = (x32 - mean.view(shape)).square().mean(dim=(0, 2, 3))
         n = x.shape[0] * x.shape[2] * x.shape[3]
-        unbiased = var * (n / max(n - 1, 1))
+        corr = n / max(n - 1, 1)
+    else:
+        local = x.shape[0] * x.shape[2] * x.shape[3]
+        sums = all_reduce_sum(torch.cat([x32.sum(dim=(0, 2, 3)), x32.new_full((1,), local)]),
+                              group)
+        n = sums[-1].detach()
+        mean = sums[:-1] / n
+        var = all_reduce_sum((x32 - mean.view(shape)).square().sum(dim=(0, 2, 3)), group) / n
+        corr = n / (n - 1).clamp(min=1)
+    with torch.no_grad():
+        unbiased = var * corr
         keep = torch.tensor(1 - momentum, dtype=bn.running_mean.dtype)
         new = (bn.running_mean * keep + momentum * mean,
                bn.running_var * keep + momentum * unbiased)

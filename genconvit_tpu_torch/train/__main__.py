@@ -5,9 +5,14 @@ train.py:161-196: -e/--epoch, -v/--version, -d/--dir, -m/--model,
 
     python -m genconvit_tpu_torch.train -d DATA -m genconvit -e 1 -b 8 --bf16
     python -m genconvit_tpu_torch.train -d DATA -m ed --device cpu
+    torchrun --nproc-per-node N -m genconvit_tpu_torch.train -d DATA -m genconvit -b 32
 
 It trains on the card unless --device names another device; without CUDA
-that raises. The kernel plan is the environment's (GENCONVIT_PALLAS,
+that raises. Under a launcher (torchrun sets RANK, WORLD_SIZE, LOCAL_RANK,
+MASTER_ADDR, MASTER_PORT) it trains data-parallel over the ranks, each on
+cuda:LOCAL_RANK (NCCL; gloo with --device cpu), as the JAX CLI does over
+every visible chip; without one it runs in one process. Tensor parallelism
+is not ported. The kernel plan is the environment's (GENCONVIT_PALLAS,
 GENCONVIT_INT8_MLP, ...; GENCONVIT_PALLAS=mlp[:i,j] trains through the
 per-stage kernel path). `--vae-variant updated` trains the updated VAE
 (ref model/genconvit_vae_updated.py, the reference's train_updated.py).
@@ -21,8 +26,10 @@ import time
 from typing import Optional, Sequence
 
 import torch
+import torch.distributed as dist
 
 from genconvit_tpu_torch.config import load_config
+from genconvit_tpu_torch.parallel.multihost import initialize_multihost
 from genconvit_tpu_torch.train.loop import train_model
 
 
@@ -66,19 +73,26 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     if args.vae_variant:
         config.model.vae_variant = args.vae_variant
     mod = args.model if args.model in ("ed", "genconvit") else "vae"
-    summary = train_model(
-        args.dir, mod, args.epoch if args.epoch else config.epoch,
-        pretrained=args.pretrained,
-        test_model=bool(args.test),
-        batch_size=int(args.batch_size) if args.batch_size else config.batch_size,
-        config=config,
-        weight_dir=args.weight_dir,
-        seed=args.seed,
-        use_kl=args.kl,
-        save_best=args.save_best,
-        dtype=torch.bfloat16 if args.bf16 else torch.float32,
-        device=args.device,
-    )
+    on_cpu = args.device is not None and torch.device(args.device).type == "cpu"
+    started = not dist.is_initialized() and initialize_multihost(
+        backend="gloo" if on_cpu else None)
+    try:
+        summary = train_model(
+            args.dir, mod, args.epoch if args.epoch else config.epoch,
+            pretrained=args.pretrained,
+            test_model=bool(args.test),
+            batch_size=int(args.batch_size) if args.batch_size else config.batch_size,
+            config=config,
+            weight_dir=args.weight_dir,
+            seed=args.seed,
+            use_kl=args.kl,
+            save_best=args.save_best,
+            dtype=torch.bfloat16 if args.bf16 else torch.float32,
+            device=args.device,
+        )
+    finally:
+        if started:
+            dist.destroy_process_group()
     print(f"\n\n--- {time.perf_counter() - start:.2f} seconds ---")
     return summary
 

@@ -21,10 +21,27 @@ bfloat16 backbone the forward runs the plan's kernels through
 differentiable autograd Functions (models/convnext.py), so each step
 launches each kernel twice per forward pass: once forward and once on the
 recompute.
+
+Data parallelism (`group`): every rank holds the whole model and takes
+its own contiguous block of the global batch's images (`parallel.mesh.
+shard_rows` of the batch's length, rank order; an uneven batch is split as
+evenly as it can be: train_model reads and uploads only those rows) with
+the global batch's labels and eps, of which it keeps the same rows; every
+rank draws the global eps with the same generator, as the JAX step draws
+it for the global shape. Its loss is its share of the global mean (sums over its rows
+over the global counts), the VAE's BatchNorms take the global batch's
+statistics (`ops.norm.batch_norm_train`, differentiable all-reduces that
+the recompute runs again in the same order on every rank), and after the
+backward the gradients are summed over the group (`all_reduce_grads`).
+No DistributedDataParallel wrapper: the forward runs through
+functional_call under checkpoint, whose graph DDP's hooks do not see.
+Every step equals the one-process step on the same batch up to float32
+summation order, and leaves every rank's parameters bit-equal.
 """
 
 from __future__ import annotations
 
+import functools
 import logging
 import os
 import pickle
@@ -33,6 +50,7 @@ from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint, set_checkpoint_early_stop
@@ -47,6 +65,8 @@ from genconvit_tpu_torch.device import default_device
 from genconvit_tpu_torch.models.genconvit import GenConViT, model_spec
 from genconvit_tpu_torch.models.init import init_genconvit_
 from genconvit_tpu_torch.ops.kernel_plan import KernelPlan
+from genconvit_tpu_torch.parallel.mesh import (DATA_AXIS, all_reduce_grads, data_group,
+                                               make_mesh, shard_params, shard_rows)
 from genconvit_tpu_torch.train import optim
 
 log = logging.getLogger("genconvit_tpu_torch")
@@ -79,22 +99,42 @@ def draw_eps(model: GenConViT, n: int, dtype: torch.dtype,
                        dtype=torch.float32).to(dtype)
 
 
+def _check_rows(images_u8: torch.Tensor, n: int, rows: slice) -> None:
+    """images_u8 must be this rank's rows of a batch of n."""
+    if len(images_u8) != rows.stop - rows.start:
+        raise ValueError(f"{len(images_u8)} images for this rank's rows {rows.start}:"
+                         f"{rows.stop} of a batch of {n} (pass only those rows)")
+
+
 def _targets(net: str, labels: torch.Tensor) -> torch.Tensor:
     return torch.cat([labels, labels]) if net == "genconvit" else labels
 
 
 def make_loss_fn(model: GenConViT, net: str, use_kl: bool = False,
-                 dtype: torch.dtype = torch.float32, plan: Optional[KernelPlan] = None):
+                 dtype: torch.dtype = torch.float32, plan: Optional[KernelPlan] = None,
+                 group=None):
     """loss_fn(images_u8, labels, eps) -> (loss, {"acc", "bn_stats"}), as
     make_loss_fn of the JAX package (loop.py:36-82) with its remat on.
-    plan: resolved here, once (the environment's by default)."""
+    plan: resolved here, once (the environment's by default). group: data
+    parallelism (module docstring): loss_fn takes this rank's rows of the
+    images and the global batch's labels and eps, and returns this rank's
+    share of the loss and of the accuracy (their sums over the group are
+    the batch's)."""
     plan = plan or KernelPlan.from_env()
+    vae = net in ("vae", "genconvit")
 
     def fwd(tensors, x, eps):
-        return functional_call(model, tensors, (x, plan), {"eps": eps, "train": True})
+        return functional_call(model, tensors, (x, plan),
+                               {"eps": eps, "train": True, "bn_group": group})
 
     def loss_fn(images_u8: torch.Tensor, labels: torch.Tensor,
                 eps: Optional[torch.Tensor] = None):
+        n = len(labels)
+        if group is not None:
+            rows = shard_rows(n, group)
+            _check_rows(images_u8, n, rows)
+            labels = labels[rows]
+            eps = None if eps is None else eps[rows]
         x = normalize_batch(images_u8, dtype)
         tensors = model_tensors(model)
         if dtype != torch.float32:
@@ -103,13 +143,16 @@ def make_loss_fn(model: GenConViT, net: str, use_kl: bool = False,
         with set_checkpoint_early_stop(False):
             logits, aux = checkpoint(fwd, tensors, x, eps, use_reentrant=False)
         tgt = _targets(net, labels)
-        loss = F.cross_entropy(logits.float(), tgt)
-        if net in ("vae", "genconvit"):
-            loss = loss + torch.mean(torch.square(aux["vae_recon"].float() - x.float()))
-            if use_kl:   # the reference keeps this commented out (train/train_vae.py:25)
-                loss = loss + aux["vae_kl"]
-        acc = (logits.argmax(-1) == tgt).float().mean()
-        return loss, {"acc": acc, "bn_stats": aux.get("vae_bn_stats")}
+        logit_rows = n * (2 if net == "genconvit" else 1)   # the global batch's
+        loss = F.cross_entropy(logits.float(), tgt, reduction="sum") / logit_rows
+        if vae:
+            err = torch.square(aux["vae_recon"].float() - x.float()).sum()
+            loss = loss + err / (n * x[0].numel())
+            if use_kl:   # the reference keeps this commented out (train/train_vae.py:25);
+                # vae_kl is the mean over this rank's rows
+                loss = loss + aux["vae_kl"] * (len(labels) / n)
+        hits = (logits.argmax(-1) == tgt).float().sum() / logit_rows
+        return loss, {"acc": hits, "bn_stats": aux.get("vae_bn_stats")}
 
     return loss_fn
 
@@ -136,46 +179,76 @@ def write_back_bn(model: GenConViT, bn_stats, net: str) -> None:
 
 def make_train_step(model: GenConViT, net: str, optimizer: torch.optim.Optimizer,
                     use_kl: bool = False, dtype: torch.dtype = torch.float32,
-                    plan: Optional[KernelPlan] = None):
+                    plan: Optional[KernelPlan] = None, group=None):
     """step(images_u8, labels, eps=None) -> (loss, acc): one optimizer step
-    on the model's master parameters (make_train_step, loop.py:118-131)."""
-    loss_fn = make_loss_fn(model, net, use_kl, dtype, plan)
+    on the model's master parameters (make_train_step, loop.py:118-131).
+    group: data parallelism (module docstring): every rank passes its rows
+    of the images and the global batch's labels and eps; the gradients are summed over the group before
+    the optimizer step, and loss and accuracy are the global batch's. A
+    batch with fewer rows than ranks is refused (a rank would hold none)."""
+    loss_fn = make_loss_fn(model, net, use_kl, dtype, plan, group)
+    params = [p for g in optimizer.param_groups for p in g["params"]]
 
     def step(images_u8: torch.Tensor, labels: torch.Tensor,
              eps: Optional[torch.Tensor] = None):
+        if group is not None and len(labels) < dist.get_world_size(group):
+            raise ValueError(f"a batch of {len(labels)} rows over "
+                             f"{dist.get_world_size(group)} ranks leaves a rank without rows")
         optimizer.zero_grad(set_to_none=False)
         loss, aux = loss_fn(images_u8, labels, eps)
         loss.backward()
         optim.fill_missing_grads(optimizer)
+        acc = aux["acc"]
+        if group is not None:
+            all_reduce_grads(params, group)
+            both = torch.stack([loss.detach(), acc])
+            dist.all_reduce(both, group=group)
+            loss, acc = both[0], both[1]
         optimizer.step()
         write_back_bn(model, aux["bn_stats"], net)
-        return loss.detach(), aux["acc"]
+        return loss.detach(), acc
 
     return step
 
 
 def make_eval_step(model: GenConViT, net: str, dtype: torch.dtype = torch.float32,
-                   plan: Optional[KernelPlan] = None):
+                   plan: Optional[KernelPlan] = None, group=None):
     """step(images_u8, labels, eps=None) -> (loss, acc, preds), BatchNorms on
     their running statistics, the same mixed precision as training
-    (make_eval_step, loop.py:134-159; like it, no KL term)."""
+    (make_eval_step, loop.py:134-159; like it, no KL term). group: every
+    rank passes its rows of the images and the global batch's labels and
+    eps, scores its rows (none, and no forward, where the batch has fewer
+    rows than ranks) and gets the global batch's loss, accuracy and
+    predictions."""
     plan = plan or KernelPlan.from_env()
+    vae = net in ("vae", "genconvit")
 
     @torch.no_grad()
     def step(images_u8: torch.Tensor, labels: torch.Tensor,
              eps: Optional[torch.Tensor] = None):
-        x = normalize_batch(images_u8, dtype)
-        tensors = model_tensors(model)
-        if dtype != torch.float32:
-            tensors = cast_floats(tensors, dtype)
-        logits, aux = functional_call(model, tensors, (x, plan),
-                                      {"eps": eps, "return_aux": True})
-        tgt = _targets(net, labels)
-        loss = F.cross_entropy(logits.float(), tgt)
-        if net in ("vae", "genconvit"):
-            loss = loss + torch.mean(torch.square(aux["vae_recon"].float() - x.float()))
-        preds = logits.argmax(-1)
-        return loss, (preds == tgt).float().mean(), preds
+        n, m = len(labels), 2 if net == "genconvit" else 1
+        rows = slice(0, n) if group is None else shard_rows(n, group)
+        # [ce sum, squared error sum, hits, the m x n predictions] (summed over the group)
+        buf = torch.zeros(3 + m * n, device=labels.device)
+        _check_rows(images_u8, n, rows)
+        if rows.stop > rows.start:
+            x = normalize_batch(images_u8, dtype)
+            tensors = model_tensors(model)
+            if dtype != torch.float32:
+                tensors = cast_floats(tensors, dtype)
+            logits, aux = functional_call(model, tensors, (x, plan), {
+                "eps": None if eps is None else eps[rows], "return_aux": True})
+            tgt = _targets(net, labels[rows])
+            preds = logits.argmax(-1)
+            buf[0] = F.cross_entropy(logits.float(), tgt, reduction="sum")
+            if vae:
+                buf[1] = torch.square(aux["vae_recon"].float() - x.float()).sum()
+            buf[2] = (preds == tgt).float().sum()
+            buf[3:].view(m, n)[:, rows] = preds.view(m, -1).float()
+        if group is not None:
+            dist.all_reduce(buf, group=group)
+        loss = buf[0] / (m * n) + buf[1] / (n * images_u8.shape[1:].numel())
+        return loss, buf[2] / (m * n), buf[3:].long()
 
     return step
 
@@ -214,16 +287,42 @@ def train_model(
     dtype: torch.dtype = torch.float32,   # torch.bfloat16: mixed precision
     device: Any = None,
     plan: Optional[KernelPlan] = None,
+    data_parallel: bool = True,
 ) -> Dict[str, Any]:
-    """Mirror of ref train.py:36-127 on one device (train_model of the JAX
-    package, loop.py:162-305, without its data parallelism): the data order
-    of `load_data`, the `.pkl` history, `genconvit_{mod}_best.gcv` under
-    save_best, the final checkpoint with the optimizer state and the
-    reference's epoch (start + epochs + 1), and the test accuracy with
-    quirk B5 fixed. device: the card unless given. Returns a summary."""
+    """Mirror of ref train.py:36-127 (train_model of the JAX package,
+    loop.py:162-305): the data order of `load_data`, the `.pkl` history,
+    `genconvit_{mod}_best.gcv` under save_best, the final checkpoint with
+    the optimizer state and the reference's epoch (start + epochs + 1), and
+    the test accuracy with quirk B5 fixed. device: the card unless given
+    (under a launcher, the rank's: `initialize_multihost` makes it current).
+
+    Data parallel over every rank of the process group by default, as the
+    JAX loop is over every visible chip (data_parallel False: one process
+    even in a group). The batch size is cut to a multiple of the ranks;
+    every rank builds the model from the seed, which is then broadcast from
+    the first, and resumes from the same `.gcv`. Each rank reads, decodes,
+    augments and uploads only its own rows of every batch (`FolderDataset.
+    batches`' part: the other rows' augmentation draws alone, so each row
+    equals the one-process batch's) and trains on them (module docstring). Where the JAX loop drops every partial
+    batch, this one splits the last one as evenly as it can, so that each
+    step equals the one-process step on that batch; a last training batch
+    with fewer rows than ranks is skipped (logged). Validation and test
+    batches are scored whole. Only the first rank writes files. Returns a
+    summary."""
     config = config or Config()
     weight_dir = weight_dir or config.weight_dir
     device = torch.device(device) if device is not None else default_device()
+    mesh, group, part, writer = None, None, None, True
+    if data_parallel and dist.is_initialized() and dist.get_world_size() > 1:
+        mesh = make_mesh()
+        group = data_group(mesh)
+        part = functools.partial(shard_rows, group=group)
+        ndata = mesh.size(0)
+        writer = mesh.get_local_rank(DATA_AXIS) == 0
+        if batch_size % ndata:
+            batch_size = max(ndata, batch_size - batch_size % ndata)
+            log.info("batch size adjusted to %d (multiple of %d ranks)", batch_size, ndata)
+        log.info("data-parallel over %d ranks", ndata)
     datasets, sizes = load_data(dir_path, batch_size, config.img_size, seed=seed)
     log.info("data: %s", sizes)
 
@@ -250,10 +349,12 @@ def train_model(
         start_epoch = payload.get("epoch", 0)
         min_loss = payload.get("min_loss", min_loss)
         log.info("resumed from %s (epoch %d)", pretrained, start_epoch)
+    if mesh is not None:
+        shard_params(model, mesh)
 
     plan = plan or KernelPlan.from_env()
-    train_step = make_train_step(model, mod, optimizer, use_kl, dtype, plan)
-    eval_step = make_eval_step(model, mod, dtype, plan)
+    train_step = make_train_step(model, mod, optimizer, use_kl, dtype, plan, group)
+    eval_step = make_eval_step(model, mod, dtype, plan, group)
     lr_of = optim.step_lr(config.learning_rate)
 
     def upload(imgs, labels):
@@ -272,7 +373,11 @@ def train_model(
         optim.set_lr(optimizer, lr_of(epoch))
         losses, accs = [], []
         for bi, (imgs, labels) in enumerate(
-                datasets["train"].batches(batch_size, shuffle=True, epoch=epoch)):
+                datasets["train"].batches(batch_size, shuffle=True, epoch=epoch, part=part)):
+            if mesh is not None and len(labels) < ndata:
+                log.info("epoch %d batch %d: %d rows over %d ranks, skipped", epoch, bi,
+                         len(labels), ndata)
+                continue
             x, y = upload(imgs, labels)
             loss, acc = train_step(x, y, draw_eps(model, len(labels), dtype, step_gen))
             losses.append(float(loss))
@@ -284,7 +389,7 @@ def train_model(
         history["train_acc"].append(float(np.mean(accs)) if accs else float("nan"))
 
         vlosses, vaccs = [], []
-        for imgs, labels in datasets["valid"].batches(batch_size):
+        for imgs, labels in datasets["valid"].batches(batch_size, part=part):
             x, y = upload(imgs, labels)
             loss, acc, _ = eval_step(x, y, draw_eps(model, len(labels), dtype, step_gen))
             vlosses.append(float(loss))
@@ -297,30 +402,36 @@ def train_model(
                  vloss, history["valid_acc"][-1], lr_of(epoch))
         if save_best and vloss < best_val:
             best_val = vloss
-            save_checkpoint(os.path.join(weight_dir, f"genconvit_{mod}_best.gcv"),
-                            params_tree(model), epoch=epoch + 1, min_loss=vloss,
-                            extra={"history": history})
+            if writer:
+                save_checkpoint(os.path.join(weight_dir, f"genconvit_{mod}_best.gcv"),
+                                params_tree(model), epoch=epoch + 1, min_loss=vloss,
+                                extra={"history": history})
 
     elapsed = time.time() - since
     log.info("Training complete in %.0fm %.0fs", elapsed // 60, elapsed % 60)
 
-    stamp = time.strftime("%b_%d_%Y_%H_%M_%S", time.localtime())
-    base = os.path.join(weight_dir, f"genconvit_{mod}_{stamp}")
-    os.makedirs(weight_dir, exist_ok=True)
-    with open(f"{base}.pkl", "wb") as f:
-        pickle.dump([history["train_loss"], history["train_acc"],
-                     history["valid_loss"], history["valid_acc"]], f)
+    stamp = [time.strftime("%b_%d_%Y_%H_%M_%S", time.localtime())]
+    if group is not None:   # the writer's name on every rank
+        dist.broadcast_object_list(stamp, dist.get_global_rank(group, 0), group=group)
+    base = os.path.join(weight_dir, f"genconvit_{mod}_{stamp[0]}")
     ckpt_path = f"{base}.gcv"
-    save_checkpoint(ckpt_path, params_tree(model),
-                    epoch=start_epoch + num_epochs + 1,  # ref semantics: epochs + 1
-                    min_loss=epoch_loss, opt_state=opt_state_tree(optimizer, parts))
-    log.info("saved %s", ckpt_path)
+    if writer:
+        os.makedirs(weight_dir, exist_ok=True)
+        with open(f"{base}.pkl", "wb") as f:
+            pickle.dump([history["train_loss"], history["train_acc"],
+                         history["valid_loss"], history["valid_acc"]], f)
+        save_checkpoint(ckpt_path, params_tree(model),
+                        epoch=start_epoch + num_epochs + 1,  # ref semantics: epochs + 1
+                        min_loss=epoch_loss, opt_state=opt_state_tree(optimizer, parts))
+        log.info("saved %s", ckpt_path)
+    if group is not None:   # no rank returns before the checkpoint is there
+        dist.barrier(group=group)
 
     summary: Dict[str, Any] = {"history": history, "checkpoint": ckpt_path, "model": model,
                                "optimizer": optimizer}
     if test_model:
         correct, total = 0, 0
-        for imgs, labels in datasets["test"].batches(batch_size):
+        for imgs, labels in datasets["test"].batches(batch_size, part=part):
             x, y = upload(imgs, labels)
             _, _, preds = eval_step(x, y, draw_eps(model, len(labels), dtype, step_gen))
             # the correct accuracy (the reference's test() indexes labels by

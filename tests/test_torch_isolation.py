@@ -1,6 +1,7 @@
 """The port stands alone: importing every module of genconvit_tpu_torch
 loads no JAX, flax, optax, yaml, msgpack or genconvit_tpu, no cv2, sklearn or
-matplotlib (the host libraries stay lazy) and builds no kernel; its
+matplotlib (the host libraries stay lazy), builds no kernel and starts no
+process group; its
 sources carry no such import and no torch.compile; chip_smoke.py refuses
 to run without CUDA before it builds anything."""
 
@@ -22,11 +23,13 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for n in names:
     importlib.import_module(n)
 from genconvit_tpu_torch.ops.cuda import _build
+import torch.distributed
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "yaml", "msgpack",
                                     "genconvit_tpu",
                                     "triton", "cv2", "sklearn", "matplotlib"))
-print(json.dumps({"modules": names, "bad": bad, "built": _build.is_loaded()}))
+print(json.dumps({"modules": names, "bad": bad, "built": _build.is_loaded(),
+                  "group": torch.distributed.is_initialized()}))
 """
 
 
@@ -52,10 +55,12 @@ def test_importing_every_module_loads_nothing_forbidden():
                  "evalx.plots", "data.folder", "data.augment", "infer.batcher",
                  "infer.serve_pipeline", "serve", "prediction_v2", "evaluate", "result_all",
                  "plot_comparison", "train.optim", "train.loop", "train.facedet_train",
-                 "train.__main__", "ops.dwsep"):
+                 "train.__main__", "ops.dwsep", "parallel.multihost", "parallel.mesh",
+                 "parallel.eval_shard", "parallel.dryrun", "ops.collective"):
         assert f"genconvit_tpu_torch.{name}" in rec["modules"]
     assert rec["bad"] == []
     assert rec["built"] is False
+    assert rec["group"] is False
 
 
 def test_sources_import_no_jax_and_compile_nothing():
@@ -69,7 +74,8 @@ def test_sources_import_no_jax_and_compile_nothing():
             "prediction.py", "metrics.py", "plots.py", "folder.py", "augment.py", "batcher.py",
             "serve_pipeline.py", "serve.py", "prediction_v2.py", "evaluate.py", "result_all.py",
             "plot_comparison.py", "optim.py", "loop.py", "facedet_train.py",
-            "__main__.py"} <= {p.name for p in paths}
+            "__main__.py", "multihost.py", "mesh.py", "eval_shard.py",
+            "dryrun.py", "collective.py"} <= {p.name for p in paths}
     for path in paths + [ROOT / "chip_smoke.py"]:
         assert not pattern.search(path.read_text()), path
 
