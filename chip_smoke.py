@@ -310,6 +310,39 @@ Phases (any failed check raises and the exit code is non-zero):
      order rotated, each rank's own BatchNorm statistics. Two ranks on one
      card are time-sliced: their times are no scaling numbers.
 
+  17. tensor parallelism (it runs after phase 16 and before phase 13;
+     `--phase17-only` runs phases 1, 2 and 17 alone): two gloo ranks
+     spawned on the card (`parallel.dryrun.Ranks`) on a 1x2 ('data',
+     'model') mesh; convnext_tiny GenConViT at full width and depth, 224 px,
+     15 frames, seeded weights as phase 14 makes them (heads scaled by 30),
+     deterministic VAE, each rank's one-process references on its own
+     predictors. (a) `predict_sharded(..., tensor_parallel=True)` on V=8
+     under the default plan: no kernel launched (the JAX package's rule:
+     pallas '' takes the plain graph on a split backbone), y equal where
+     decisive and y_val within 2e-2 of the one-process forward under
+     pallas '0' and under the default plan; (b) int8 heads: K3 on each
+     rank's 6272-column shard of the latent heads against
+     `matmul_wint8_plain` at M = 120 and 240 (bias dropped: refused), K3's
+     launches a rank equal to the one-process count, y_val within 2e-2;
+     after the ranks, K3 at N = 6272 timed in this process alone beside its
+     plain version, F.linear on the bf16 block and the bound (a record of
+     the kernels' line); (c) pallas 'stage' and 'mlpfull' (the kernels on
+     whole weights, gathered once): launches a rank equal to the one-process
+     ones, y_val within 5e-3 of the one-process forward of the plan (the
+     split products round differently from the unsplit ones: the bf16
+     noise, read beside as the one-process V=8 forward against its two
+     blocks of 4); (d)
+     one float32 DP+TP train step at batch 16 (TF32 off) against the
+     one-process step (each rank takes its turn): loss within 1e-5
+     relative, each group of split parameters' gradients (mlp.fc1,
+     mlp.fc2, head.fc, fc, fc2, the latent heads) and the replicated ones
+     within 1e-4 relative L2, the parameter change within 1e-3, the
+     replicated parameters bit-equal across the ranks; (e) planted faults
+     caught: a SwiGLU fc split contiguously (SwiGLU heads against pallas
+     '0', where the right split holds 5e-3), fc2's bias added on every
+     rank, all_reduce_sum in place of reduce_from_model (the gradients);
+     peak device memory a rank. Time-sliced on one card: no scaling number.
+
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Without CUDA it exits non-zero at once.
 """
@@ -3242,7 +3275,7 @@ def train_planted(torch, tb: TrainBench, refs: dict, rec: dict, card: str) -> No
 
     # (2) pallas '1': the LN-folded blocks' folds taken without a graph
     fold_ln = pc.Block.fold_ln
-    pc.Block.fold_ln = lambda self: pc.LNFold(*(t.detach() for t in fold_ln(self)))
+    pc.Block.fold_ln = lambda self, tp=None: pc.LNFold(*(t.detach() for t in fold_ln(self, tp)))
     try:
         tb.step(bf, make_plan("1", "", False), n)
         bad = tb.errors(refs[n][1])["LN-folded norm+fc1"][0]
@@ -4705,6 +4738,455 @@ def p16_summary(p16: dict, card: str) -> None:
         f"{p16['bf16_s']:.2f} s [{card}]")
 
 
+P17_RANKS = 2         # gloo ranks sharing the card, on a 1x2 ('data', 'model') mesh
+P17_TOL = 5e-3        # 17c/e: y_val vs the one-process forward of the same path: the
+                      # split products round differently from the unsplit cuBLAS ones
+                      # (features 1-2 bf16 ulps apart); the heads' 30x scale carries that
+                      # to y_val as the bf16 batch effect does (phase 16: 1.4e-3), which
+                      # 17c reads beside as its control
+P17_LOSS_TOL = 1e-5   # 17d: float32 DP+TP step vs the one-process step: loss, relative
+P17_GRAD_TOL = 1e-4   # ... each group of split parameters' gradients, relative L2
+P17_CHANGE_TOL = 1e-3  # ... and the parameter change, relative L2
+P17_K3_M = (120, 240)  # 17b: K3's rows on a rank's 6272-column shard
+P17_TIMEOUT = 600.0   # every rank killed past this
+# videos of the V=8 that each TP call scores past 17a (each video's verdict is
+# its own, so they are held against the same videos of the one-process V=8):
+# the split plain graph's float32 partial sums pass through gloo's host copies
+P17_V = {"int8": 2, "stage": 4, "mlpfull": 8, "swiglu": 4, "bias": 2}   # the planted
+                      # SwiGLU split runs on all eight
+# the groups of split parameters, by their names in a branch
+P17_GROUPS = {"mlp.fc1": lambda k: ".mlp.fc1." in k,
+              "mlp.fc2": lambda k: k.endswith(".mlp.fc2.weight"),
+              "head.fc": lambda k: ".head.fc." in k,
+              "fc": lambda k: k.startswith("fc."),
+              "fc2": lambda k: k == "fc2.weight",
+              "latent heads": lambda k: k.startswith(("encoder.mu.", "encoder.var."))}
+
+
+def p17_means(torch, pred, d: dict) -> dict:
+    """The one-process forward of the V=8 videos under the predictor's plan:
+    (y, y_val) as numpy and the class means, with each kernel's launches."""
+    from genconvit_tpu_torch.infer.aggregate import finish_aggregate, masked_prob_sums
+    from genconvit_tpu_torch.ops import cuda as kcuda
+
+    kcuda.reset_launch_counts()
+    with torch.inference_mode():
+        logits, mask = pred.video_logits(d["frames"], d["mask"])
+        sums, count = masked_prob_sums(logits, mask)
+    counts = kcuda.launch_counts()
+    y, v = finish_aggregate(sums, count)
+    return {"y": y.cpu().numpy(), "v": v.cpu().numpy(), "counts": counts,
+            "means": (sums / count.clamp(min=1.0)[:, None]).cpu().numpy()}
+
+
+def p17_batch_effect(np, torch, pred, d: dict) -> float:
+    """The one-process forward's own bf16 noise under the predictor's plan:
+    max|dy_val| of the V=8 forward against its two blocks of 4 (the same
+    function, other cuBLAS calls)."""
+    whole = pred.forward_batched(d["frames"], d["mask"])[1]
+    half = len(d["frames"]) // 2
+    blocks = torch.cat([pred.forward_batched(d["frames"][i:i + half], d["mask"][i:i + half])[1]
+                        for i in (0, half)])
+    return float((whole - blocks).abs().max())
+
+
+def p17_tp(torch, pred, d: dict, mesh, videos: int = P16_V) -> dict:
+    """predict_sharded with tensor parallelism on the first `videos` of the
+    V=8, its launches counted and timed (the split copy and its folds made
+    first, `sharded_params`)."""
+    from genconvit_tpu_torch.ops import cuda as kcuda
+    from genconvit_tpu_torch.parallel.eval_shard import predict_sharded, sharded_params
+
+    sharded_params(pred, mesh, tensor_parallel=True)
+    torch.cuda.synchronize()
+    kcuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    y, v = predict_sharded(pred, d["frames"][:videos], d["mask"][:videos], mesh,
+                           tensor_parallel=True)
+    return {"y": y, "v": v, "s": time.perf_counter() - t0, "counts": kcuda.launch_counts()}
+
+
+def p17_parity(np, fails: list, tag: str, got: dict, ref: dict, tol: float) -> float:
+    """max|dy_val| of got (the first videos of the V=8) against ref (<=
+    tol) and y equal wherever ref's class means differ by more than twice
+    tol, at least one such video; a miss is appended to fails (the phase
+    raises once every reading is printed)."""
+    k = len(got["v"])
+    dv = float(np.abs(got["v"] - ref["v"][:k]).max())
+    decisive = np.abs(ref["means"][:k, 0] - ref["means"][:k, 1]) > 2 * tol
+    if not (dv <= tol and decisive.any()
+            and (got["y"][decisive] == ref["y"][:k][decisive]).all()):
+        fails.append(f"{tag}: max|dy_val| {dv} (limit {tol}), y {got['y'].tolist()} against "
+                     f"{ref['y'][:k].tolist()} on {int(decisive.sum())} decisive")
+    return dv
+
+
+def p17_grads(torch, model) -> tuple:
+    """(every parameter's gradient, every parameter) of a model after a
+    step, by branch and name, cloned."""
+    from genconvit_tpu_torch.train import loop
+
+    return ({b: {k: p.grad.detach().clone() for k, p in m.named_parameters()}
+             for b, m in loop.branches(model).items()},
+            {b: {k: p.detach().clone() for k, p in m.named_parameters()}
+             for b, m in loop.branches(model).items()})
+
+
+def p17_step(torch, mesh, planted: bool = False) -> dict:
+    """One float32 step of phase 16's model and batch (TF32 off), split over
+    the mesh's 'model' axis and data-parallel over 'data'; planted: with
+    all_reduce_sum in place of reduce_from_model. Returns the loss, the
+    gradients, the parameters before and after, this rank's blocks."""
+    from genconvit_tpu_torch.ops import collective
+    from genconvit_tpu_torch.ops.kernel_plan import KernelPlan
+    from genconvit_tpu_torch.parallel.mesh import (data_group, model_axis, shard_params,
+                                                   shard_rows, split_state_dict)
+    from genconvit_tpu_torch.parallel.multihost import rank_device
+    from genconvit_tpu_torch.train import loop, optim
+
+    model, w0, (x, y, eps) = p16_model(torch, rank_device())
+    axis = model_axis(mesh)
+    w0 = {b: split_state_dict({k[len(b) + 1:]: v for k, v in w0.items()
+                               if k.startswith(b + ".")}, axis.index, axis.size)
+          for b in ("ed", "vae")}
+    shard_params(model, mesh, tensor_parallel=True)
+    group = data_group(mesh)
+    opt = optim.make_optimizer(model.parameters(), 1e-4, 1e-4)
+    step = loop.make_train_step(model, "genconvit", opt, plan=KernelPlan(), group=group)
+    real = collective.reduce_from_model
+    if planted:
+        collective.reduce_from_model = collective.all_reduce_sum
+    try:
+        loss = float(step(x[shard_rows(len(y), group)], y, eps)[0])
+    finally:
+        collective.reduce_from_model = real
+    grads, params = p17_grads(torch, model)
+    return {"loss": loss, "grads": grads, "params": params, "w0": w0}
+
+
+def p17_reference(torch, rank: int, index: int, n: int) -> dict:
+    """The one-process float32 step of phase 16's model and batch, cut to
+    this rank's blocks (`split_state_dict`), its loss, gradients and
+    parameters after; the ranks take their turn, one at a time."""
+    import torch.distributed as dist
+
+    from genconvit_tpu_torch.parallel.mesh import split_state_dict
+    from genconvit_tpu_torch.parallel.multihost import rank_device
+    from genconvit_tpu_torch.train import loop, optim
+
+    out = None
+    for turn in range(n):
+        if turn == rank:
+            model, _, (x, y, eps) = p16_model(torch, rank_device())
+            opt = optim.make_optimizer(model.parameters(), 1e-4, 1e-4)
+            loss = float(loop.make_train_step(model, "genconvit", opt)(x, y, eps)[0])
+            grads, params = p17_grads(torch, model)
+            out = {"loss": loss,
+                   "grads": {b: split_state_dict(g, index, n) for b, g in grads.items()},
+                   "params": {b: split_state_dict(p, index, n) for b, p in params.items()}}
+            del model, opt, grads, params
+            torch.cuda.empty_cache()
+        dist.barrier()
+    return out
+
+
+def p17_rel(torch, got: dict, ref: dict, keys) -> float:
+    num = sum(float((got[k].double() - ref[k].double()).square().sum()) for k in keys)
+    den = sum(float(ref[k].double().square().sum()) for k in keys)
+    return (num / max(den, 1e-300)) ** 0.5
+
+
+def p17_rank(rank: int, n: int) -> dict:
+    """Phase 17 on one of the ranks sharing the card (gloo on CUDA tensors,
+    a 1x2 mesh): (a)-(c) and (e)'s eval parts against the one-process
+    forwards on the rank's own predictors, (d) the DP+TP step and (e)'s
+    planted reduce against the one-process step. Returns its readings."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from genconvit_tpu_torch.infer.engine import Predictor
+    from genconvit_tpu_torch.ops import collective
+    from genconvit_tpu_torch.ops.cuda import convnext_mlp as km
+    from genconvit_tpu_torch.ops.cuda import int8_matmul as k3
+    from genconvit_tpu_torch.ops.kernel_plan import KernelPlan
+    from genconvit_tpu_torch.parallel import mesh as mesh_mod
+    from genconvit_tpu_torch.parallel.mesh import make_mesh, model_axis, tp_rule
+    from genconvit_tpu_torch.parallel.multihost import rank_device
+
+    t_start = time.perf_counter()
+    dev = rank_device()
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh(data=1, model=n)
+    axis = model_axis(mesh)
+    d = p16_inputs(torch, dev)
+    fails = []
+    out = {"index": axis.index, "fails": fails}
+
+    def predictor(params, plan):
+        return Predictor(p14_config(), net="genconvit", device=dev, params=params,
+                         deterministic_vae=True, kernel_plan=plan)
+
+    def with_plan(pred, plan):
+        pred.kernel_plan = plan
+        pred.prepare_kernels()
+        return pred
+
+    # (a) the default plan: the split backbone runs the plain graph (no K1)
+    params = p14_params(torch, dev, seed=17)
+    pred = predictor(params, KernelPlan())
+    ref_default = p17_means(torch, pred, d)
+    ref_plain = p17_means(torch, with_plan(pred, KernelPlan(pallas="0")), d)
+    tp = p17_tp(torch, with_plan(pred, KernelPlan()), d, mesh)
+    out["a"] = {"dv_plain": p17_parity(np, fails, "p17a vs pallas '0'", tp, ref_plain,
+                                       YVAL_TOL),
+                "dv_default": p17_parity(np, fails, "p17a vs the default plan", tp,
+                                         ref_default, YVAL_TOL),
+                "counts": tp["counts"], "s": tp["s"]}
+    # (e) fc2's bias added on every rank: against pallas '0'
+    real_row = collective.row_linear
+
+    def bias_everywhere(x, weight, bias, tp_axis):
+        if tp_axis is None:
+            return real_row(x, weight, bias, tp_axis)
+        z = x.float() @ weight.float().t() + bias.float()   # before the sum
+        return collective.reduce_from_model(z, tp_axis.group).to(x.dtype)
+
+    collective.row_linear = bias_everywhere
+    try:
+        planted = p17_tp(torch, pred, d, mesh, P17_V["bias"])
+    finally:
+        collective.row_linear = real_row
+    out["e_bias"] = float(np.abs(planted["v"] - ref_plain["v"][:P17_V["bias"]]).max())
+    # (c) pallas 'stage' and 'mlpfull': the kernels on whole weights
+    for pallas in ("stage", "mlpfull"):
+        plan = KernelPlan(pallas=pallas)
+        ref = p17_means(torch, with_plan(pred, plan), d)
+        tp = p17_tp(torch, pred, d, mesh, P17_V[pallas])
+        if tp["counts"] != ref["counts"]:
+            fails.append(f"p17c {pallas}: launches a rank {tp['counts']}, one process "
+                         f"{ref['counts']}")
+        out[pallas] = {"dv": p17_parity(np, fails, f"p17c {pallas}", tp, ref, P17_TOL),
+                       "counts": tp["counts"], "s": tp["s"],
+                       "control": p17_batch_effect(np, torch, pred, d)}
+    del pred
+    torch.cuda.empty_cache()
+
+    # (b) int8 heads: K3 on this rank's 6272-column shard
+    pred = predictor(params, KernelPlan(int8_heads=True))
+    ref = p17_means(torch, pred, d)
+    tp = p17_tp(torch, pred, d, mesh, P17_V["int8"])
+    if tp["counts"]["matmul_wint8"] != ref["counts"]["matmul_wint8"]:
+        fails.append(f"p17b K3 launches a rank {tp['counts']['matmul_wint8']}, one process "
+                     f"{ref['counts']['matmul_wint8']}")
+    split, = pred._sharded_params_cache.values()
+    head = split.vae.encoder.mu
+    g = torch.Generator(device=dev).manual_seed(170 + rank)
+    k3_checks = []
+    for m in P17_K3_M:
+        x = torch.randn(m, head.wq.shape[1], device=dev, generator=g).to(torch.bfloat16)
+        ref_k3 = k3.matmul_wint8_plain(x, head.wq, head.scale, head.bias)
+        err, rel, ulps = compare(torch, km, f"p17b K3 M={m} N={head.wq.shape[0]}",
+                                 k3.matmul_wint8(x, head.wq, head.scale, head.bias), ref_k3)
+        bad = must_fail(torch, km, "K3 on the shard, bias dropped",
+                        k3.matmul_wint8(x, head.wq, head.scale, torch.zeros_like(head.bias)),
+                        ref_k3)
+        k3_checks.append((m, tuple(head.wq.shape), err, rel, ulps, bad))
+    out["b"] = {"dv": p17_parity(np, fails, "p17b int8 heads", tp, ref, YVAL_TOL),
+                "k3": k3_checks, "counts": tp["counts"],
+                "one_k3": ref["counts"]["matmul_wint8"], "s": tp["s"]}
+    del pred, split, head
+    torch.cuda.empty_cache()
+
+    # (e) a SwiGLU fc split contiguously: against pallas '0'
+    sw = p14_params(torch, dev, head_act="swiglu", seed=17)
+    pred = predictor(sw, KernelPlan(pallas="0"))
+    ref = p17_means(torch, pred, d)
+    tp = p17_tp(torch, with_plan(pred, KernelPlan()), d, mesh, P17_V["swiglu"])
+    out["swiglu"] = p17_parity(np, fails, "p17e SwiGLU heads", tp, ref, P17_TOL)
+    # the split copy made again (the replication kept), with the fault
+    cache = pred._sharded_params_cache
+    for key in [k for k in cache if k[2]]:
+        del cache[key]
+    real_halves = mesh_mod._halves
+    mesh_mod._halves = lambda name, shapes: 1
+    try:
+        planted = p17_tp(torch, pred, d, mesh)
+    finally:
+        mesh_mod._halves = real_halves
+    out["e_swiglu"] = float(np.abs(planted["v"] - ref["v"]).max())
+    del pred, params, sw
+    torch.cuda.empty_cache()
+
+    # (d) the float32 DP+TP step against the one-process step, gradients too
+    ref = p17_reference(torch, rank, axis.index, n)
+    t0 = time.perf_counter()
+    got = p17_step(torch, mesh)
+    out["d_s"] = time.perf_counter() - t0
+    dloss = abs(got["loss"] - ref["loss"]) / abs(ref["loss"])
+    errs, change_num, change_den = {}, 0.0, 0.0
+    digest = hashlib.sha256()
+    for b, grads in got["grads"].items():
+        for name, member in P17_GROUPS.items():
+            keys = [k for k in grads if member(k)]
+            if keys:
+                errs[f"{b} {name}"] = p17_rel(torch, grads, ref["grads"][b], keys)
+        rep = [k for k in grads if tp_rule(k, grads[k].dim()) is None]
+        errs[f"{b} replicated"] = p17_rel(torch, grads, ref["grads"][b], rep)
+        for k, p in got["params"][b].items():
+            w0 = got["w0"][b][k].double()
+            dr = ref["params"][b][k].double() - w0
+            change_num += float((p.double() - w0 - dr).square().sum())
+            change_den += float(dr.square().sum())
+        for k in sorted(rep):
+            digest.update(got["params"][b][k].cpu().numpy().tobytes())
+    change = (change_num / max(change_den, 1e-300)) ** 0.5
+    if not (dloss <= P17_LOSS_TOL and max(errs.values()) <= P17_GRAD_TOL
+            and change <= P17_CHANGE_TOL):
+        fails.append(f"p17d rank {rank}: loss rel {dloss}, gradients {errs}, parameter "
+                     f"change rel L2 {change}")
+    out["d"] = {"loss": got["loss"], "ref_loss": ref["loss"], "dloss": dloss, "errs": errs,
+                "change": change, "digest": digest.hexdigest()}
+    del got
+    torch.cuda.empty_cache()
+    planted = p17_step(torch, mesh, planted=True)
+    out["e_reduce"] = max(p17_rel(torch, planted["grads"][b], ref["grads"][b],
+                                  [k for k in planted["grads"][b] if P17_GROUPS[group](k)])
+                          for b in planted["grads"] for group in ("mlp.fc1", "head.fc"))
+    out["e_reduce_loss"] = planted["loss"]
+    out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    out["s"] = time.perf_counter() - t_start
+    return out
+
+
+def p17_k3_times(torch, km, k3, dev, card: str) -> dict:
+    """K3 on one rank's block of the latent head at a 'model' axis of two
+    (N = 6272 of 12544 columns, K = 25088) at M = 120 and 240, timed in
+    this process alone beside its plain version and F.linear on the bf16
+    block, with the bound; planted faults refused."""
+    import torch.nn.functional as F
+
+    from genconvit_tpu_torch.ops.quant import quantize_wint8
+
+    g = torch.Generator(device=dev).manual_seed(1717)
+    k, n = LATENT[0], LATENT[1] // P17_RANKS
+    w16 = (0.01 * torch.randn(n, k, device=dev, generator=g)).to(torch.bfloat16)
+    wq, sc = quantize_wint8(w16, dim=1)
+    b = 0.1 * torch.randn(n, device=dev, generator=g)
+    b16 = b.to(torch.bfloat16)
+    rec = {"err": 0.0, "shapes": []}
+    for m in P17_K3_M:
+        x = torch.randn(m, k, device=dev, generator=g).to(torch.bfloat16)
+        ref = k3.matmul_wint8_plain(x, wq, sc, b)
+        err, rel, ulps = compare(torch, km, f"K3 M={m} N={n}", k3.matmul_wint8(x, wq, sc, b),
+                                 ref)
+        rec["err"] = max(rec["err"], err)
+        bad = must_fail(torch, km, "scale by its mean",
+                        k3.matmul_wint8(x, wq, sc.mean().expand_as(sc).contiguous(), b), ref)
+        t_k = cuda_ms(torch, lambda: k3.matmul_wint8(x, wq, sc, b), 20)
+        t_p = cuda_ms(torch, lambda: k3.matmul_wint8_plain(x, wq, sc, b), 5)
+        t_l = cuda_ms(torch, lambda: F.linear(x, w16, b16), 20)
+        bd, by = bound(m * k * 2 + n * k + 8 * n + m * n * 2, {BF16: 2 * m * k * n})
+        rec["shapes"].append((m, t_k, t_p, t_l, bd, by))
+        log(f"p17 K3 on a rank's shard M={m} K={k} N={n}: max|diff|={err:.3e} rel={rel:.3e} "
+            f"ulps={ulps:.3f}; {bad}; kernel {t_k:.4f} ms, plain {t_p:.4f} ms, F.linear on the "
+            f"bf16 block {t_l:.4f} ms, bound {bd:.4f} ms ({by}) [{card}]")
+    return rec
+
+
+def phase_p17(torch, np, dev, card: str) -> dict:
+    """Phase 17 (module docstring): tensor parallelism."""
+    from genconvit_tpu_torch.ops.cuda import convnext_mlp as km
+    from genconvit_tpu_torch.ops.cuda import int8_matmul as k3
+    from genconvit_tpu_torch.parallel.dryrun import Ranks
+
+    t = time.perf_counter()
+    ranks = Ranks(p17_rank, P17_RANKS).join(timeout=P17_TIMEOUT)
+    ranks_s = time.perf_counter() - t
+    fails = [f for r in ranks for f in r["fails"]]
+    for r in ranks:
+        a = r["a"]
+        if any(a["counts"].values()):
+            fails.append(f"p17a rank {r['index']}: launches {a['counts']} under the default "
+                         f"plan (JAX's rule: the plain graph, no kernel)")
+        if r["e_bias"] <= P17_TOL:
+            fails.append(f"p17e fc2's bias on every rank passed: {r['e_bias']}")
+        if r["e_swiglu"] <= P17_TOL:
+            fails.append(f"p17e the contiguous SwiGLU split passed: {r['e_swiglu']}")
+        if r["e_reduce"] <= P17_GRAD_TOL:
+            fails.append(f"p17e all_reduce_sum for reduce_from_model passed: {r['e_reduce']}")
+        for m, shape, err, rel, ulps, bad in r["b"]["k3"]:
+            log(f"p17b rank {r['index']} K3 on its shard M={m} wq {shape}: max|diff|={err:.3e} "
+                f"rel={rel:.3e} ulps={ulps:.3f}; {bad} [{card}]")
+    if len({r["d"]["digest"] for r in ranks}) != 1:
+        fails.append("p17d the replicated parameters differ across the 'model' ranks")
+    if len({r["d"]["loss"] for r in ranks}) != 1:
+        fails.append(f"p17d losses differ across ranks: {[r['d']['loss'] for r in ranks]}")
+    r0 = ranks[0]
+    log(f"p17a [{P17_RANKS} ranks on one card, 1x2 mesh, gloo]: predict_sharded tensor_parallel "
+        f"V={P16_V} under the default plan: launches "
+        f"{ {k: v for k, v in r0['a']['counts'].items() if v} } (the plain graph); "
+        f"max|dy_val| {max(r['a']['dv_plain'] for r in ranks):.3e} against the one-process "
+        f"pallas '0' forward, {max(r['a']['dv_default'] for r in ranks):.3e} against the "
+        f"one-process default plan (limit {YVAL_TOL}), y equal where decisive [{card}]")
+    log(f"p17b int8 heads, V={P17_V['int8']}: K3 launches a rank "
+        f"{r0['b']['counts']['matmul_wint8']} = one process {r0['b']['one_k3']}; max|dy_val| {max(r['b']['dv'] for r in ranks):.3e} against the "
+        f"one-process int8 forward (limit {YVAL_TOL}) [{card}]")
+    for pallas in ("stage", "mlpfull"):
+        log(f"p17c pallas {pallas!r}, V={P17_V[pallas]}: launches a rank "
+            f"{ {k: v for k, v in r0[pallas]['counts'].items() if v} } = one process; "
+            f"max|dy_val| {max(r[pallas]['dv'] for r in ranks):.3e} (limit {P17_TOL}); the "
+            f"one-process V=8 forward against its two blocks of 4 (control) "
+            f"{r0[pallas]['control']:.3e} [{card}]")
+    log(f"p17d float32 DP+TP step N={P16_BATCH} (TF32 off): loss {r0['d']['loss']:.6f} against "
+        f"{r0['d']['ref_loss']:.6f} (rel {max(r['d']['dloss'] for r in ranks):.2e}, limit "
+        f"{P17_LOSS_TOL}); gradients rel L2 by group, worst of the ranks: "
+        + ", ".join(f"{k} {max(r['d']['errs'][k] for r in ranks):.2e}" for k in r0["d"]["errs"])
+        + f" (limit {P17_GRAD_TOL}); parameter change rel L2 "
+        f"{max(r['d']['change'] for r in ranks):.3e} (limit {P17_CHANGE_TOL}); replicated "
+        f"parameters bit-equal across the ranks [{card}]")
+    log(f"p17e planted faults caught: fc2's bias on every rank max|dy_val| "
+        f"{min(r['e_bias'] for r in ranks):.3e}, the contiguous SwiGLU split "
+        f"{min(r['e_swiglu'] for r in ranks):.3e} (limit {P17_TOL}; the correct split "
+        f"{max(r['swiglu'] for r in ranks):.3e}), all_reduce_sum for reduce_from_model gradient "
+        f"rel L2 {min(r['e_reduce'] for r in ranks):.3e} (limit {P17_GRAD_TOL}) [{card}]")
+    log(f"p17 time-sliced on one card (not scaling): predict_sharded tp a call, V={P16_V} "
+        f"default plan {max(r['a']['s'] for r in ranks) * 1e3:.1f} ms, V={P17_V['int8']} int8 "
+        f"heads {max(r['b']['s'] for r in ranks) * 1e3:.1f} ms, V={P17_V['stage']} 'stage' "
+        f"{max(r['stage']['s'] for r in ranks) * 1e3:.1f} ms, V={P17_V['mlpfull']} 'mlpfull' "
+        f"{max(r['mlpfull']['s'] for r in ranks) * 1e3:.1f} ms; f32 DP+TP step "
+        f"{max(r['d_s'] for r in ranks):.2f} s; peak device memory a rank "
+        f"{max(r['peak_gib'] for r in ranks):.2f} GiB; ranks {ranks_s:.1f} s [{card}]")
+    k3rec = p17_k3_times(torch, km, k3, dev, card)
+    seconds = time.perf_counter() - t
+    if fails:
+        raise AssertionError("phase 17: " + "; ".join(fails))
+    m120 = [s for s in k3rec["shapes"] if s[0] == 120][0]
+    return {"ranks": ranks, "k3": k3rec, "seconds": seconds, "ranks_s": ranks_s,
+            "tp_k3": r0["b"]["counts"]["matmul_wint8"],
+            "record": {"name": f"matmul_wint8[N={LATENT[1] // P17_RANKS}]", "route": "cuda",
+                       "source": "genconvit_tpu_torch/csrc/int8_matmul.cu",
+                       "replaces": "genconvit_tpu/ops/pallas/int8_matmul.py:30",
+                       "launches": 0, "max_abs_err": k3rec["err"], "ms": m120[1],
+                       "plain_ms": m120[2], "bound_ms": m120[4], "bound_by": m120[5],
+                       "library_ms": m120[3]}}
+
+
+def p17_summary(p17: dict, card: str) -> None:
+    ranks = p17["ranks"]
+    k3 = ", ".join(f"M={m} {tk:.4f} ms (plain {tp:.4f}, F.linear {tl:.4f}, bound {bd:.4f} {by})"
+                   for m, tk, tp, tl, bd, by in p17["k3"]["shapes"])
+    log(f"summary [p17]: {P17_RANKS} gloo ranks on one card, 1x2 mesh: default plan max|dy_val| "
+        f"{max(r['a']['dv_default'] for r in ranks):.3e}, int8 heads "
+        f"{max(r['b']['dv'] for r in ranks):.3e}, 'stage' {max(r['stage']['dv'] for r in ranks):.3e}, "
+        f"'mlpfull' {max(r['mlpfull']['dv'] for r in ranks):.3e}; f32 step loss rel "
+        f"{max(r['d']['dloss'] for r in ranks):.2e}, worst gradient group "
+        f"{max(max(r['d']['errs'].values()) for r in ranks):.2e}; K3 on a 6272-column shard "
+        f"{k3}; peak {max(r['peak_gib'] for r in ranks):.2f} GiB a rank; {p17['seconds']:.1f} s "
+        f"[{card}]")
+
+
 def main() -> int:
     import argparse
     import gc
@@ -4727,6 +5209,9 @@ def main() -> int:
     ap.add_argument("--phase16-only", action="store_true",
                     help="phases 1, 2 and 16 alone (no result lines): data parallelism on "
                          "torch.distributed (NCCL world 1, then two gloo ranks on the card)")
+    ap.add_argument("--phase17-only", action="store_true",
+                    help="phases 1, 2 and 17 alone (no result lines): tensor parallelism "
+                         "(two gloo ranks on the card, a 1x2 mesh)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
@@ -4786,6 +5271,12 @@ def main() -> int:
             log(f"phase 16: {time.perf_counter() - t:.1f} s")
         log(f"chip_smoke --phase16-only: phase 16 passed in {time.perf_counter() - t_all:.1f} s")
         return 0
+    if args.phase17_only:
+        t = time.perf_counter()
+        p17_summary(phase_p17(torch, np, dev, card), card)
+        log(f"phase 17: {time.perf_counter() - t:.1f} s")
+        log(f"chip_smoke --phase17-only: phase 17 passed in {time.perf_counter() - t_all:.1f} s")
+        return 0
     t = time.perf_counter()
     kernels = (phase_kernels(torch, dev, card) + phase_fused(torch, dev, card)
                + [phase_k7(torch, dev, card)])
@@ -4844,6 +5335,12 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         t = time.perf_counter()
+        p17 = phase_p17(torch, np, dev, card)
+        kernels.append(p17["record"])
+        log(f"phase 17: {time.perf_counter() - t:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
         training = phase_train(torch, np, dev, card, tmp, args.profile)
         log(f"phase 13: {time.perf_counter() - t:.1f} s")
     for name, r in runs.items():
@@ -4887,6 +5384,7 @@ def main() -> int:
     p14_summary(p14, card)
     p15_summary(p15, card)
     p16_summary(p16, card)
+    p17_summary(p17, card)
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_all:.1f} s [{card}]")
     # each kernel's launches: the count of the run whose main path runs it
     # (the counts were set to 0 just before its requests)
@@ -4896,8 +5394,10 @@ def main() -> int:
                   "ln_mlp_residual_int8[full]": "int8_heads+full",
                   "fused_convnext_block": "pallas=1", "fused_convnext_stage": "pallas=stage",
                   "window_attention": "swin", "dots_bf16": "probes", "dots_int8": "probes",
-                  "block_parts": "probes", "dw_moments": "probes"}
+                  "block_parts": "probes", "dw_moments": "probes",
+                  p17["record"]["name"]: "tp_int8_heads"}
     counts = {name: r["launches"] for name, r in runs.items()}
+    counts["tp_int8_heads"] = {"matmul_wint8": p17["tp_k3"]}
     counts["swin"] = swin["launches"]
     counts["probes"] = probe_counts
     for k in kernels:

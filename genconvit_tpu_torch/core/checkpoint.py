@@ -374,7 +374,11 @@ def opt_state_tree(optimizer: torch.optim.Optimizer,
     count and hyperparams.lr, the masked decay's empty state ("0"), Adam's
     count, mu and nu ("1") as trees of each branch's parameters (the
     BatchNorm running statistics' moments, which optax keeps and which stay
-    zero, as zeros), the scale's empty state ("2")."""
+    zero, as zeros), the scale's empty state ("2"). A branch split over a
+    mesh's 'model' axis (its `tp`) has its moments gathered into the
+    one-device layout (every rank of the model group must call it)."""
+    from genconvit_tpu_torch.parallel.mesh import all_gather_state_dict
+
     count = 0
     mu: Dict[str, Any] = {}
     nu: Dict[str, Any] = {}
@@ -387,6 +391,9 @@ def opt_state_tree(optimizer: torch.optim.Optimizer,
                 count = int(st["step"])
             mu_sd[key] = st.get("exp_avg", torch.zeros_like(v))
             nu_sd[key] = st.get("exp_avg_sq", torch.zeros_like(v))
+        tp = getattr(module, "tp", None)
+        if tp is not None:
+            mu_sd, nu_sd = all_gather_state_dict(mu_sd, tp), all_gather_state_dict(nu_sd, tp)
         mu[name] = tree_from_state_dict(mu_sd, name)
         nu[name] = tree_from_state_dict(nu_sd, name)
     lr = optimizer.param_groups[0]["lr"]
@@ -403,7 +410,10 @@ def restore_opt_state(optimizer: torch.optim.Optimizer, branches: Mapping[str, t
                       saved: Mapping[str, Any]) -> None:
     """Load an optimizer state of `opt_state_tree`'s layout, written by
     either package, into the torch Adam over `branches`' parameters: the
-    learning rate, and Adam's count and moments per parameter."""
+    learning rate, and Adam's count and moments per parameter (this rank's
+    blocks of them for a branch split over a mesh's 'model' axis)."""
+    from genconvit_tpu_torch.parallel.mesh import split_state_dict
+
     lr = float(np.asarray(saved["hyperparams"]["lr"]))
     adam = saved["inner_state"]["1"]
     count = int(np.asarray(adam["count"]))
@@ -412,6 +422,9 @@ def restore_opt_state(optimizer: torch.optim.Optimizer, branches: Mapping[str, t
     for name, module in branches.items():
         mu = state_dict_from_jax(_list_form(adam["mu"][name]), name)
         nu = state_dict_from_jax(_list_form(adam["nu"][name]), name)
+        tp = getattr(module, "tp", None)
+        if tp is not None:
+            mu, nu = (split_state_dict(m, tp.index, tp.size) for m in (mu, nu))
         for key, p in module.named_parameters():
             if count == 0:
                 optimizer.state.pop(p, None)

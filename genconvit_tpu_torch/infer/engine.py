@@ -231,16 +231,17 @@ class Predictor:
 
     @torch.inference_mode()
     def video_logits(self, frames_u8: torch.Tensor, mask: torch.Tensor,
-                     generator: Optional[torch.Generator] = None
-                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+                     generator: Optional[torch.Generator] = None,
+                     model: Optional[GenConViT] = None) -> Tuple[torch.Tensor, torch.Tensor]:
         """Device tensors [V,F,S,S,3] uint8 and [V,F] -> per-video logits
         [V,K,2] and mask [V,K] (K = 2F for the ensemble, ED rows first).
         generator: the VAE's draw when it samples (the predictor's own by
-        default)."""
+        default). model: another copy of the predictor's model to run (a
+        rank's split copy, parallel/eval_shard.sharded_params)."""
         v, f = frames_u8.shape[:2]
         x = normalize_batch(frames_u8.reshape((v * f,) + frames_u8.shape[2:]),
                             self.dtype)
-        return self._per_video_logits(x, v, f, mask, generator)
+        return self._per_video_logits(x, v, f, mask, generator, model)
 
     @torch.inference_mode()
     def video_logits_yuv(self, yp: torch.Tensor, up: torch.Tensor, vp: torch.Tensor,
@@ -257,11 +258,13 @@ class Predictor:
         return self._per_video_logits(x, v, f, mask)
 
     def _per_video_logits(self, x: torch.Tensor, v: int, f: int, mask: torch.Tensor,
-                          generator: Optional[torch.Generator] = None
+                          generator: Optional[torch.Generator] = None,
+                          model: Optional[GenConViT] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
-        logits = self.model(x, self.kernel_plan,
-                            sample=not self.deterministic_vae,
-                            generator=self.generator if generator is None else generator)
+        logits = (model or self.model)(x, self.kernel_plan,
+                                       sample=not self.deterministic_vae,
+                                       generator=self.generator if generator is None
+                                       else generator)
         if self.net == "genconvit":
             ed, vae = logits[: v * f], logits[v * f:]
             per_video = torch.cat([ed.reshape(v, f, 2), vae.reshape(v, f, 2)], dim=1)
@@ -270,12 +273,13 @@ class Predictor:
 
     @torch.inference_mode()
     def forward_batched(self, frames_u8: torch.Tensor, mask: torch.Tensor,
-                        generator: Optional[torch.Generator] = None
+                        generator: Optional[torch.Generator] = None,
+                        model: Optional[GenConViT] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
         """Device-resident [V,F,S,S,3] uint8 + [V,F] -> device (y, y_val);
-        no host sync (the benchmark loop's entry). generator as in
-        video_logits."""
-        return aggregate_logits(*self.video_logits(frames_u8, mask, generator))
+        no host sync (the benchmark loop's entry). generator and model as
+        in video_logits."""
+        return aggregate_logits(*self.video_logits(frames_u8, mask, generator, model))
 
     @torch.inference_mode()
     def forward_batched_yuv(self, yp: torch.Tensor, up: torch.Tensor, vp: torch.Tensor,

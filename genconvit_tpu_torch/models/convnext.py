@@ -51,6 +51,18 @@ the JAX engine does; the training Functions read the exact weights.
 
 Activations are NCHW in channels_last memory, so the NHWC view the kernels
 read as [N*H*W, C] rows is the tensor's own storage.
+
+Split over a mesh's 'model' axis (`tp`, parallel/mesh.split_module), each
+block holds fc1's column block and fc2's row block, and the LN fold is
+split by hidden column like fc1: the plain and LN-folded blocks sum fc2's
+partial products over the axis once, then add its bias, the layer scale
+and the residual (ops/collective.row_linear); the classifier head.fc is
+split by column and gathered. The kernel paths read whole weights: their
+folds and packs are gathered once (`prepare_kernels`) and, in training,
+the Functions take the gathered tensors (`whole_block`). `backbone_path`
+sends pallas '' to the plain graph there, as the JAX package does on more
+than one device; depthwise, stem, downsample and every LayerNorm stay
+replicated.
 """
 
 from __future__ import annotations
@@ -60,9 +72,10 @@ from typing import (AbstractSet, Callable, List, NamedTuple, Optional, Sequence,
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
+from genconvit_tpu_torch.ops import collective as col
 from genconvit_tpu_torch.ops.act import gelu
+from genconvit_tpu_torch.ops.collective import ModelAxis
 from genconvit_tpu_torch.ops.conv import conv2d
 from genconvit_tpu_torch.ops.cuda.convnext_block import (FusedBlockWeights,
                                                          fused_convnext_block,
@@ -169,43 +182,64 @@ def depthwise(x: torch.Tensor, t: BlockTensors, sep: Optional[DwSep] = None) -> 
 
 
 def block_reference(x: torch.Tensor, t: BlockTensors, gelu_tier: str = "default",
-                    sep: Optional[DwSep] = None) -> torch.Tensor:
-    """The plain block (genconvit_tpu/models/convnext.py:106-115, _block_xla)."""
+                    sep: Optional[DwSep] = None, tp: Optional[ModelAxis] = None) -> torch.Tensor:
+    """The plain block (genconvit_tpu/models/convnext.py:106-115, _block_xla).
+    tp: t holds fc1's column block and fc2's row block of the 'model' axis;
+    fc2's partial products are summed over it once, then its bias, the
+    layer scale and the residual are added (ops/collective.py)."""
     h = _nhwc(depthwise(x, t, sep))
     h = layer_norm(h, t.ln_weight, t.ln_bias, LN_EPS)
-    h = F.linear(h, t.fc1_weight, t.fc1_bias)
+    h = col.column_linear(h, t.fc1_weight, t.fc1_bias, tp)
     h = gelu(h, gelu_tier)
-    h = F.linear(h, t.fc2_weight, t.fc2_bias)
+    h = col.row_linear(h, t.fc2_weight, t.fc2_bias, tp)
     h = h * t.gamma.to(h.dtype)
     return x + _nchw(h)
 
 
 def block_folded(x: torch.Tensor, t: BlockTensors, gelu_tier: str, fold: LNFold,
-                 sep: Optional[DwSep] = None) -> torch.Tensor:
+                 sep: Optional[DwSep] = None, tp: Optional[ModelAxis] = None) -> torch.Tensor:
     """The block with its LayerNorm folded into fc1, as the JAX package
     runs a bf16 block outside its kernels (_block_xla_folded,
     convnext.py:118-157): one-pass f32 moments of the depthwise output
     d, z = d . wg in f32, y = ((z - mean * gw) * rsqrt(var + eps) + bw)
-    in the activations' dtype, then GELU, fc2 and the layer scale in it."""
+    in the activations' dtype, then GELU, fc2 and the layer scale in it.
+    tp: fold and fc2 are this rank's blocks (`ln_fold` of the split
+    tensors); d feeds the column split whole, moments included."""
     d = _nhwc(depthwise(x, t, sep))
+    if tp is not None:
+        d = col.copy_to_model(d, tp.group)
     mean, inv = _row_moments(d.float())
     z = f32_product(d, fold.wg)
     h = ((z - mean * fold.gw) * inv + fold.bw).to(x.dtype)
     h = gelu(h, gelu_tier)
-    h = F.linear(h, t.fc2_weight, t.fc2_bias)
+    h = col.row_linear(h, t.fc2_weight, t.fc2_bias, tp)
     h = h * t.gamma.to(h.dtype)
     return x + _nchw(h)
 
 
-def ln_fold(t: BlockTensors) -> LNFold:
+def ln_fold(t: BlockTensors, tp: Optional[ModelAxis] = None) -> LNFold:
     """The LayerNorm fold of block_folded, in f32 from the given weights; wg
     in the weights' dtype. Differentiable, as the JAX package's fold inside
-    the block."""
+    the block. tp: of fc1's column block, split by hidden column like it;
+    the replicated LayerNorm parameters feed it whole."""
     w1 = t.fc1_weight.float().t()
-    s = t.ln_weight.float()
+    s, b = t.ln_weight.float(), t.ln_bias.float()
+    if tp is not None:
+        s, b = col.copy_to_model(s, tp.group), col.copy_to_model(b, tp.group)
     return LNFold(wg=(s[:, None] * w1).to(t.fc1_weight.dtype).contiguous(),
                   gw=(s @ w1).contiguous(),
-                  bw=(t.ln_bias.float() @ w1 + t.fc1_bias.float()).contiguous())
+                  bw=(b @ w1 + t.fc1_bias.float()).contiguous())
+
+
+def whole_block(t: BlockTensors, tp: Optional[ModelAxis]) -> BlockTensors:
+    """The block's tensors with fc1 and fc2 whole: gathered over the
+    'model' axis (differentiably: the backward keeps this rank's block of
+    the gradient) where tp is given, as the kernels read whole weights."""
+    if tp is None:
+        return t
+    return t._replace(fc1_weight=col.gather_from_model(t.fc1_weight, tp.group, 0),
+                      fc1_bias=col.gather_from_model(t.fc1_bias, tp.group, 0),
+                      fc2_weight=col.gather_from_model(t.fc2_weight, tp.group, 1))
 
 
 class Block(nn.Module):
@@ -232,18 +266,20 @@ class Block(nn.Module):
     def dw(self, x: torch.Tensor) -> torch.Tensor:
         return depthwise(x, self.tensors(), self.dw_sep)
 
-    def forward(self, x: torch.Tensor, gelu_tier: str = "default") -> torch.Tensor:
+    def forward(self, x: torch.Tensor, gelu_tier: str = "default",
+                tp: Optional[ModelAxis] = None) -> torch.Tensor:
         """The plain block (`block_reference`)."""
-        return block_reference(x, self.tensors(), gelu_tier, self.dw_sep)
+        return block_reference(x, self.tensors(), gelu_tier, self.dw_sep, tp)
 
-    def forward_folded(self, x: torch.Tensor, gelu_tier: str, fold: LNFold) -> torch.Tensor:
+    def forward_folded(self, x: torch.Tensor, gelu_tier: str, fold: LNFold,
+                       tp: Optional[ModelAxis] = None) -> torch.Tensor:
         """The LN-folded block (`block_folded`) with the fold given."""
-        return block_folded(x, self.tensors(), gelu_tier, fold, self.dw_sep)
+        return block_folded(x, self.tensors(), gelu_tier, fold, self.dw_sep, tp)
 
-    def fold_ln(self) -> LNFold:
+    def fold_ln(self, tp: Optional[ModelAxis] = None) -> LNFold:
         """`ln_fold` of the current weights: differentiable; prepare_kernels
         stores it without a graph."""
-        return ln_fold(self.tensors())
+        return ln_fold(self.tensors(), tp)
 
     def _fold_args(self):
         return tuple(self.tensors())[2:]
@@ -306,15 +342,19 @@ def stage_kernel_applies(h: int, c: int) -> bool:
     return h >= 7 and c % 128 == 0
 
 
-def backbone_path(x: torch.Tensor, plan: KernelPlan) -> str:
+def backbone_path(x: torch.Tensor, plan: KernelPlan, tp: bool = False) -> str:
     """'kernels', 'mlp', '1', 'stage' or 'plain' (module docstring). The
     fused paths ignore plan.gelu for their kernels, as the JAX package's
-    do."""
+    do. tp: the backbone is split over a mesh's 'model' axis, where the
+    JAX package's pallas '' takes the kernel backbone no more (only on one
+    device or inside the shard_map scope, convnext.py:480-485 there): ''
+    is the plain graph; 'mlpfull', 'mlp...', '1' and 'stage' keep their
+    kernels, which read whole weights."""
     if not (x.dtype == torch.bfloat16 and x.is_cuda) or plan.pallas == "0":
         return "plain"
     if plan.pallas in ("1", "stage"):
         return plan.pallas
-    if plan.gelu == "exact":
+    if plan.gelu == "exact" or (tp and plan.pallas == ""):
         return "plain"
     return "kernels" if plan.mlp_stages() is None else "mlp"
 
@@ -552,26 +592,33 @@ class ConvNeXt(nn.Module):
         self.head.fc = nn.Linear(dims[-1], num_classes)
         self._kernel_weights: Optional[KernelWeights] = None
         self._fused_weights: Optional[FusedWeights] = None
+        # the 'model' axis when split (parallel/mesh.split_module)
+        self.tp: Optional[ModelAxis] = None
 
     @classmethod
     def from_name(cls, name: str, num_classes: int = 1000) -> "ConvNeXt":
         return cls(num_classes=num_classes, **CONVNEXT_CFGS[name])
 
-    def feature_tensors(self) -> FeatureTensors:
+    def feature_tensors(self, whole: bool = False) -> FeatureTensors:
         """The features' tensors as the module holds them now (under
-        torch.func.functional_call, the ones substituted)."""
+        torch.func.functional_call, the ones substituted); whole: with
+        every block's fc1 and fc2 gathered over the 'model' axis when the
+        module is split (`whole_block`), as the kernels read them."""
         stem = (self.stem[0].weight, self.stem[0].bias, self.stem[1].weight, self.stem[1].bias)
         downsample = tuple(
             None if st.downsample is None else
             (st.downsample[0].weight, st.downsample[0].bias, st.downsample[1].weight,
              st.downsample[1].bias) for st in self.stages)
-        blocks = tuple(tuple(blk.tensors() for blk in st.blocks) for st in self.stages)
+        tp = self.tp if whole else None
+        blocks = tuple(tuple(whole_block(blk.tensors(), tp) for blk in st.blocks)
+                       for st in self.stages)
         return FeatureTensors(stem, downsample, blocks)
 
+    @torch.no_grad()
     def fold_kernel_weights(self, int8_mlp: str = "") -> KernelWeights:
         """The kernel backbone's folds from the module's current weights
-        (`kernel_weights`)."""
-        return kernel_weights(self.feature_tensors(), int8_mlp)
+        (`kernel_weights`), of whole weights when split."""
+        return kernel_weights(self.feature_tensors(whole=True), int8_mlp)
 
     @torch.no_grad()
     def pack_fused_weights(self, pallas: str) -> FusedWeights:
@@ -579,14 +626,19 @@ class ConvNeXt(nn.Module):
         K5's for every block (pallas '1': the rule depends on H, which the
         input sets), K6's stacked for every stage of a width K6 takes, and
         every block's LayerNorm fold."""
-        ln_folds = [[blk.fold_ln() for blk in stage.blocks] for stage in self.stages]
+        ln_folds = [[blk.fold_ln(self.tp) for blk in stage.blocks] for stage in self.stages]
+
+        def pack(blk):   # of whole weights when split
+            t = whole_block(blk.tensors(), self.tp)
+            return pack_block(*t, t.fc1_weight.dtype)
+
         if pallas == "1":
-            return FusedWeights("1", [[blk.pack_fused() for blk in stage.blocks]
+            return FusedWeights("1", [[pack(blk) for blk in stage.blocks]
                                       for stage in self.stages], ln_folds)
         stages = []
         for stage in self.stages:
             c = stage.blocks[0].gamma.shape[0]
-            stages.append(stack_blocks([blk.pack_fused() for blk in stage.blocks])
+            stages.append(stack_blocks([pack(blk) for blk in stage.blocks])
                           if c % 128 == 0 else None)
         return FusedWeights("stage", stages, ln_folds)
 
@@ -597,7 +649,12 @@ class ConvNeXt(nn.Module):
         'stage'). The kernel paths read only these: call it
         again after any change to the weights. Blocks with separable
         depthwise factors refuse '1' and 'stage', whose kernels convolve
-        the exact weights."""
+        the exact weights. Split over a 'model' axis, the kernels' folds
+        and packs are made of whole weights (gathered here, once; the same
+        memory as one process's folds, beside the blocks), the LayerNorm
+        folds of the blocks the kernels leave out of this rank's blocks;
+        pallas '' runs the plain graph there (`backbone_path`) and folds
+        nothing."""
         if plan.pallas in ("1", "stage"):
             if any(sep is not None for stage in self.dw_seps() for sep in stage):
                 raise ValueError(f"pallas={plan.pallas!r} convolves the exact depthwise "
@@ -607,7 +664,8 @@ class ConvNeXt(nn.Module):
             self._fused_weights = self.pack_fused_weights(plan.pallas)
         else:
             self._fused_weights = None
-            self._kernel_weights = self.fold_kernel_weights(plan.int8_mlp)
+            plain = self.tp is not None and (plan.pallas in ("", "0") or plan.gelu == "exact")
+            self._kernel_weights = None if plain else self.fold_kernel_weights(plan.int8_mlp)
 
     def dw_seps(self) -> List[List[Optional[DwSep]]]:
         """Each block's separable depthwise factors (None where it has
@@ -619,9 +677,9 @@ class ConvNeXt(nn.Module):
         per call, in bfloat16; the reference block otherwise."""
         for blk in stage.blocks:
             if x.dtype == torch.bfloat16:
-                x = blk.forward_folded(x, gelu_tier, blk.fold_ln())
+                x = blk.forward_folded(x, gelu_tier, blk.fold_ln(self.tp), self.tp)
             else:
-                x = blk(x, gelu_tier)
+                x = blk(x, gelu_tier, self.tp)
         return x
 
     def _features_plain(self, x: torch.Tensor, gelu_tier: str) -> torch.Tensor:
@@ -663,12 +721,12 @@ class ConvNeXt(nn.Module):
                 if block_kernel_applies(x.shape[2]):
                     if per_call:
                         x = FusedBlock.apply(gelu_tier, fused_convnext_block, x,
-                                             *blk.tensors())
+                                             *whole_block(blk.tensors(), self.tp))
                     else:
                         x = _nchw(fused_convnext_block(_nhwc(x), fw.stages[si][bi]))
                 else:
-                    fold = blk.fold_ln() if per_call else fw.ln_folds[si][bi]
-                    x = blk.forward_folded(x, gelu_tier, fold)
+                    fold = blk.fold_ln(self.tp) if per_call else fw.ln_folds[si][bi]
+                    x = blk.forward_folded(x, gelu_tier, fold, self.tp)
         return x
 
     def _features_stage(self, x: torch.Tensor, gelu_tier: str,
@@ -683,14 +741,19 @@ class ConvNeXt(nn.Module):
             if stage_kernel_applies(x.shape[2], x.shape[1]):
                 if per_call:
                     x = FusedStage.apply(gelu_tier, fused_convnext_stage, x,
-                                         *(t for blk in stage.blocks for t in blk.tensors()))
+                                         *self._whole_chain(stage))
                 else:
                     x = _nchw(fused_convnext_stage(_nhwc(x), fw.stages[si]))
             else:
                 for bi, blk in enumerate(stage.blocks):
-                    fold = blk.fold_ln() if per_call else fw.ln_folds[si][bi]
-                    x = blk.forward_folded(x, gelu_tier, fold)
+                    fold = blk.fold_ln(self.tp) if per_call else fw.ln_folds[si][bi]
+                    x = blk.forward_folded(x, gelu_tier, fold, self.tp)
         return x
+
+    def _whole_chain(self, stage: Stage) -> List[torch.Tensor]:
+        """A stage's blocks' tensors in a row, whole (`whole_block`), as the
+        stage Functions take them."""
+        return [t for blk in stage.blocks for t in whole_block(blk.tensors(), self.tp)]
 
     def _folds(self, int8_mlp: str) -> KernelWeights:
         kw = self._kernel_weights
@@ -723,8 +786,7 @@ class ConvNeXt(nn.Module):
             if si not in stages:
                 x = self._blocks_plain(stage, x, gelu_tier)
             elif per_call:
-                x = MlpStage.apply(gelu_tier, (tail, int8_mlp), x,
-                                   *(t for blk in stage.blocks for t in blk.tensors()))
+                x = MlpStage.apply(gelu_tier, (tail, int8_mlp), x, *self._whole_chain(stage))
             else:
                 x = stage_mlp(x, [blk.tensors() for blk in stage.blocks], kw.blocks[si],
                               gelu_tier, tail, [blk.dw_sep for blk in stage.blocks])
@@ -736,10 +798,10 @@ class ConvNeXt(nn.Module):
         kernel paths fold or pack from the module's tensors on every call
         and are differentiable (training; module docstring); otherwise they
         read prepare_kernels's folds."""
-        path = backbone_path(x, plan)
+        path = backbone_path(x, plan, self.tp is not None)
         if path == "kernels":
             if per_call_folds:
-                ft = self.feature_tensors()
+                ft = self.feature_tensors(whole=True)
                 tail = ln_mlp_residual_int8 if plan.int8_mlp else ln_mlp_residual
                 return KernelBackbone.apply(ft.layout(), plan.gelu, plan.int8_mlp,
                                             (tail, layer_norm_rows), x, *ft.flat())
@@ -757,4 +819,6 @@ class ConvNeXt(nn.Module):
                 per_call_folds: bool = False) -> torch.Tensor:
         x = self.features(x, plan, per_call_folds).mean(dim=(2, 3))
         x = layer_norm(x, self.head.norm.weight, self.head.norm.bias, LN_EPS)
-        return F.linear(x, self.head.fc.weight, self.head.fc.bias)
+        x = col.column_linear(x, self.head.fc.weight, self.head.fc.bias, self.tp)
+        # split: the classifier's column blocks, joined before the branch's concat
+        return x if self.tp is None else col.gather_from_model(x, self.tp.group)

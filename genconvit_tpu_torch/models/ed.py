@@ -11,6 +11,10 @@ head_act='swiglu' is the JAX package's research head (models/ed.py:28-58,
 gate pairs and `swiglu` takes them back to fc2's input width F/4 in place
 of the second GELU. The JAX package picks it by fc's width, as
 core/convert.branch_spec does.
+
+Split over a mesh's 'model' axis (`tp`, parallel/mesh.split_module), fc
+holds a column block (a SwiGLU fc the same block of each half, a_r | b_r)
+and fc2 a row block, summed once over the axis (`head`).
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from genconvit_tpu_torch.models.convnext import DEFAULT_PLAN, ConvNeXt
+from genconvit_tpu_torch.ops import collective as col
 from genconvit_tpu_torch.ops.act import gelu, relu, swiglu
 from genconvit_tpu_torch.ops.conv import conv2d, conv_transpose2d
 from genconvit_tpu_torch.ops.kernel_plan import KernelPlan
@@ -38,6 +43,12 @@ def head_linears(head_act: str, num_features: int, num_classes: int):
     return (nn.Linear(num_features, 2 * hidden if head_act == "swiglu" else hidden),
             nn.Linear(hidden, num_classes))
 
+
+def head(x: torch.Tensor, fc: nn.Linear, fc2: nn.Linear, act, tp) -> torch.Tensor:
+    """fc -> act -> fc2, split as a Megatron pair over tp's 'model' axis
+    when given (fc by column, fc2 by row; ops/collective.py)."""
+    x = act(col.column_linear(x, fc.weight, fc.bias, tp))
+    return col.row_linear(x, fc2.weight, fc2.bias, tp)
 
 
 class Encoder(nn.Module):
@@ -80,6 +91,7 @@ class GenConViTED(nn.Module):
         self.backbone = ConvNeXt.from_name(backbone, backbone_classes)
         self.head_act = head_act
         self.fc, self.fc2 = head_linears(head_act, 2 * backbone_classes, num_classes)
+        self.tp = None   # the 'model' axis when split
 
     def forward(self, images: torch.Tensor, plan: KernelPlan = DEFAULT_PLAN,
                 per_call_folds: bool = False) -> torch.Tensor:
@@ -92,6 +104,5 @@ class GenConViTED(nn.Module):
         feats = self.backbone(both, plan, per_call_folds)
         n = images.shape[0]
         x = gelu(torch.cat([feats[:n], feats[n:]], dim=1), plan.gelu)
-        x = F.linear(x, self.fc.weight, self.fc.bias)
-        x = swiglu(x) if self.head_act == "swiglu" else gelu(x, plan.gelu)
-        return F.linear(x, self.fc2.weight, self.fc2.bias)
+        act = swiglu if self.head_act == "swiglu" else (lambda h: gelu(h, plan.gelu))
+        return head(x, self.fc, self.fc2, act, self.tp)

@@ -32,6 +32,13 @@ reference's dropouts are the identity in eval). In training it returns 4
 encoder and then 3 decoder BN statistics. Keys as the original's except
 decoder.decoder_input and decoder.features.{0,3,6,9} (convT) / {1,4,7}
 (BN), the reference's Sequential indices.
+
+Split over a mesh's 'model' axis (`tp`, parallel/mesh.split_module), each
+latent head (float, or int8 through K3) holds a column block of its
+output features; mu and logvar are gathered before `sample_z`, so that
+eps, z and the KL term are drawn and computed as unsplit. The classifier
+head splits as the ED's (models/ed.head); the updated variant's
+decoder_input stays whole, as in the JAX package's rule.
 """
 
 from __future__ import annotations
@@ -43,7 +50,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from genconvit_tpu_torch.models.convnext import DEFAULT_PLAN, ConvNeXt
-from genconvit_tpu_torch.models.ed import head_linears
+from genconvit_tpu_torch.models.ed import head, head_linears
+from genconvit_tpu_torch.ops import collective as col
 from genconvit_tpu_torch.ops.act import leaky_relu, relu, swiglu
 from genconvit_tpu_torch.ops.conv import conv2d, conv_transpose2d
 from genconvit_tpu_torch.ops.cuda.int8_matmul import matmul_wint8
@@ -99,6 +107,8 @@ class Encoder(nn.Module):
         self.features = nn.Sequential(*layers)
         self.mu = nn.Linear(flat, latent)
         self.var = nn.Linear(flat, latent)
+        self.latent = latent   # mu's width, whole also when the heads are split
+        self.tp = None   # the 'model' axis when split
 
     def forward(self, x: torch.Tensor, train: bool = False, logvar: bool = False,
                 bn_group=None):
@@ -122,11 +132,15 @@ class Encoder(nn.Module):
             return self._head(self.mu, flat), self._head(self.var, flat)
         return self._head(self.mu, flat)
 
-    @staticmethod
-    def _head(head: nn.Module, flat: torch.Tensor) -> torch.Tensor:
-        if isinstance(head, Int8Linear):
-            return head(flat)
-        return F.linear(flat, head.weight, head.bias)
+    def _head(self, head: nn.Module, flat: torch.Tensor) -> torch.Tensor:
+        """A latent head; split, this rank's column block of it (K3 on the
+        block's [latent / m, flat] int8 rows for int8 heads), gathered."""
+        tp = self.tp
+        if tp is not None:
+            flat = col.copy_to_model(flat, tp.group)
+        out = head(flat) if isinstance(head, Int8Linear) else F.linear(flat, head.weight,
+                                                                       head.bias)
+        return out if tp is None else col.gather_from_model(out, tp.group)
 
     @property
     def heads_int8(self) -> bool:
@@ -215,6 +229,7 @@ class GenConViTVAE(nn.Module):
                         else Decoder())
         self.convnext_backbone = ConvNeXt.from_name(backbone, backbone_classes)
         self.fc, self.fc2 = head_linears(head_act, 2 * backbone_classes, num_classes)
+        self.tp = None   # the 'model' axis when split
 
     @property
     def updated(self) -> bool:
@@ -284,9 +299,8 @@ class GenConViTVAE(nn.Module):
         x_hat, dec_stats = self.decoder(z, train, bn_group)
         x1, x2, x_hat = self._features(x, x_hat, plan, train or per_call_folds)
         h = relu(torch.cat([x1, x2], dim=1))
-        h = F.linear(h, self.fc.weight, self.fc.bias)
-        h = swiglu(h) if self.head_act == "swiglu" else relu(h)
-        logits = F.linear(h, self.fc2.weight, self.fc2.bias)
+        logits = head(h, self.fc, self.fc2, swiglu if self.head_act == "swiglu" else relu,
+                      self.tp)
         if not (train or return_recon):
             return logits
         recon = x_hat if self.updated else resize_bilinear_torch(x_hat, (x.shape[2], x.shape[3]))

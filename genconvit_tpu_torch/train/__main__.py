@@ -11,8 +11,10 @@ It trains on the card unless --device names another device; without CUDA
 that raises. Under a launcher (torchrun sets RANK, WORLD_SIZE, LOCAL_RANK,
 MASTER_ADDR, MASTER_PORT) it trains data-parallel over the ranks, each on
 cuda:LOCAL_RANK (NCCL; gloo with --device cpu), as the JAX CLI does over
-every visible chip; without one it runs in one process. Tensor parallelism
-is not ported. The kernel plan is the environment's (GENCONVIT_PALLAS,
+every visible chip; without one it runs in one process. Like the JAX CLI
+(its loop builds model = 1), the CLI does not split the model: tensor
+parallelism is parallel/mesh.shard_params(..., tensor_parallel=True) with
+train/loop.make_train_step, as parallel/dryrun.py runs it. The kernel plan is the environment's (GENCONVIT_PALLAS,
 GENCONVIT_INT8_MLP, ...; GENCONVIT_PALLAS=mlp[:i,j] trains through the
 per-stage kernel path). `--vae-variant updated` trains the updated VAE
 (ref model/genconvit_vae_updated.py, the reference's train_updated.py).

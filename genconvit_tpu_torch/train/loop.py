@@ -37,6 +37,20 @@ No DistributedDataParallel wrapper: the forward runs through
 functional_call under checkpoint, whose graph DDP's hooks do not see.
 Every step equals the one-process step on the same batch up to float32
 summation order, and leaves every rank's parameters bit-equal.
+
+Tensor parallelism (a model split over a mesh's 'model' axis by
+`parallel.mesh.shard_params(..., tensor_parallel=True)`, with `group` its
+'data' group): functional_call runs over this rank's blocks, and the
+forward's Megatron collectives over 'model' (ops/collective.py) run again
+in the same order in the recompute on every rank. The ranks of one 'data'
+index take the same rows, so the BatchNorms' statistics and the
+gradients' sum stay over 'data'; the collectives leave every replicated
+parameter's gradient whole on every 'model' rank, and their mean over
+'model' (equal up to the card's non-deterministic reductions) keeps the
+replicated parameters bit-equal across it. `params_tree` and core/checkpoint.opt_state_tree gather
+the blocks into the one-device layout, `parallel.mesh.
+load_whole_state_dict` and restore_opt_state split it again.
+`train_model` stays data-parallel, as the JAX loop builds model = 1.
 """
 
 from __future__ import annotations
@@ -66,7 +80,8 @@ from genconvit_tpu_torch.models.genconvit import GenConViT, model_spec
 from genconvit_tpu_torch.models.init import init_genconvit_
 from genconvit_tpu_torch.ops.kernel_plan import KernelPlan
 from genconvit_tpu_torch.parallel.mesh import (DATA_AXIS, all_reduce_grads, data_group,
-                                               make_mesh, shard_params, shard_rows)
+                                               make_mesh, shard_params, shard_rows, tp_rule,
+                                               whole_state_dict)
 from genconvit_tpu_torch.train import optim
 
 log = logging.getLogger("genconvit_tpu_torch")
@@ -94,7 +109,7 @@ def draw_eps(model: GenConViT, n: int, dtype: torch.dtype,
     the same draw."""
     if not hasattr(model, "vae"):
         return None
-    latent = model.vae.encoder.mu.out_features
+    latent = model.vae.encoder.latent
     return torch.randn((n, latent), generator=generator, device=generator.device,
                        dtype=torch.float32).to(dtype)
 
@@ -188,6 +203,13 @@ def make_train_step(model: GenConViT, net: str, optimizer: torch.optim.Optimizer
     batch with fewer rows than ranks is refused (a rank would hold none)."""
     loss_fn = make_loss_fn(model, net, use_kl, dtype, plan, group)
     params = [p for g in optimizer.param_groups for p in g["params"]]
+    tp = next((m.tp for m in model.modules() if getattr(m, "tp", None) is not None), None)
+    # split: each 'model' rank computes the replicated parameters' whole
+    # gradient itself; on CUDA, where cuDNN's and cuBLAS's reductions are
+    # not bitwise deterministic, they would part by a rounding, so their
+    # mean over 'model' is taken, which every rank holds alike
+    replicated = [] if tp is None else [p for n, p in model.named_parameters()
+                                        if tp_rule(n, p.dim()) is None]
 
     def step(images_u8: torch.Tensor, labels: torch.Tensor,
              eps: Optional[torch.Tensor] = None):
@@ -201,6 +223,10 @@ def make_train_step(model: GenConViT, net: str, optimizer: torch.optim.Optimizer
         acc = aux["acc"]
         if group is not None:
             all_reduce_grads(params, group)
+            if replicated:
+                all_reduce_grads(replicated, tp.group)
+                for p in replicated:
+                    p.grad.div_(tp.size)
             both = torch.stack([loss.detach(), acc])
             dist.all_reduce(both, group=group)
             loss, acc = both[0], both[1]
@@ -255,8 +281,10 @@ def make_eval_step(model: GenConViT, net: str, dtype: torch.dtype = torch.float3
 
 def params_tree(model: GenConViT) -> Dict[str, Any]:
     """The JAX package's parameter tree of the model, BatchNorm statistics
-    included, nested by branch as train_model saves it."""
-    return {b: tree_from_state_dict(m.state_dict(), b) for b, m in branches(model).items()}
+    included, nested by branch as train_model saves it; of the one-device
+    weights where the model is split over a mesh's 'model' axis
+    (`whole_state_dict`: every rank of the model group must call it)."""
+    return {b: tree_from_state_dict(whole_state_dict(m), b) for b, m in branches(model).items()}
 
 
 def new_model(config: Config, net: str, device: torch.device, seed: int,

@@ -168,13 +168,22 @@ def test_shard_batch_is_p_data(runs):
 
 
 def test_mesh_shapes_and_refusals(runs):
+    """A 3x2 mesh of four ranks is refused; tensor parallelism on the 4x1
+    mesh (a 'model' axis of one: the split leaves every tensor whole) and a
+    2x2 mesh without it (weights replicated over 'model') run, and give the
+    data-parallel verdicts."""
     _, got, _ = runs
     for r in got:
         assert r["mesh_shape"] == (WORLD, 1) and r["mesh2_shape"] == (WORLD // 2, 2)
-        e = r["errors"]
+        e = r["runs"]
         assert e["3x2"][0] == "ValueError"
-        for what in ("tp", "tp_params", "model2", "model2_long", "model2_params"):
-            assert e[what][0] == "NotImplementedError" and "ROADMAP" in e[what][1], what
+        y, v = e["dp"]
+        for what in ("tp", "model2"):
+            np.testing.assert_array_equal(e[what][0], y)
+            np.testing.assert_allclose(e[what][1], v, rtol=0, atol=1e-6)
+        assert e["model2_long"][0] == e["long"][0]
+        np.testing.assert_allclose(e["model2_long"][1], e["long"][1], rtol=0, atol=1e-6)
+        assert e["tp_params"] and e["model2_params"]
 
 
 def test_initialize_multihost(monkeypatch, tmp_path):

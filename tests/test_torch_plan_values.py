@@ -179,7 +179,7 @@ def _count_port(cfg, plan, monkeypatch):
     monkeypatch.setattr(pc, "ln_mlp_residual_int8", tail("k4"))
     monkeypatch.setattr(pc, "layer_norm_rows", ln_rows)
     real = pc.backbone_path
-    monkeypatch.setattr(pc, "backbone_path", lambda x, p: real(_Cuda(x), p))
+    monkeypatch.setattr(pc, "backbone_path", lambda x, p, tp=False: real(_Cuda(x), p, tp))
     with torch.device("meta"):
         model = GenConViT(cfg, "genconvit").to(torch.bfloat16)
         model.prepare_kernels(plan)

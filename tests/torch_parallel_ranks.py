@@ -6,6 +6,7 @@ small backbone itself. Nothing here imports JAX or the JAX package: the
 ranks get their weights and inputs as numpy arrays in a pickle the test
 wrote, and return numpy results."""
 
+import copy
 import hashlib
 import os
 import pickle
@@ -125,42 +126,40 @@ def eval_rank(rank, world, inputs):
 
     out["files"] = eval_shard.shard_file_list(d["paths"])
     out["blocks"] = [shard_batch(np.arange(n), mesh) for n in (2 * world, 2 * world + 2)]
-    errors = {}
-    for what, call in (
-            ("3x2", lambda: make_mesh(data=3, model=2)),
-            ("tp", lambda: eval_shard.predict_sharded(pred, faces, masks, mesh,
-                                                      tensor_parallel=True)),
-            ("tp_params", lambda: shard_params(pred.model, mesh, tensor_parallel=True))):
-        try:
-            call()
-            errors[what] = None
-        except (ValueError, NotImplementedError) as e:
-            errors[what] = (type(e).__name__, str(e))
+    # the meshes and calls the data-parallel port refused now run: tensor parallelism
+    # on the world x 1 mesh (a 'model' axis of one), a mesh with model 2
+    # (weights replicated over 'model'), and the TP split in place
+    runs = {}
+    try:
+        make_mesh(data=3, model=2)
+        runs["3x2"] = None
+    except ValueError as e:
+        runs["3x2"] = (type(e).__name__, str(e))
+    runs["tp"] = eval_shard.predict_sharded(pred, faces, masks, mesh, tensor_parallel=True)
+    runs["dp"] = eval_shard.predict_sharded(pred, faces, masks, mesh)
+    whole = {k: v.clone() for k, v in pred.model.state_dict().items()}
+    split = shard_params(copy.deepcopy(pred.model), mesh, tensor_parallel=True)
+    runs["tp_params"] = all(torch.equal(v, whole[k]) for k, v in split.state_dict().items())
     if world % 2 == 0:
         mesh2 = make_mesh(data=world // 2, model=2)
         out["mesh2_shape"] = tuple(mesh2.mesh.shape)
-        for what, call in (
-                ("model2", lambda: eval_shard.predict_sharded(pred, faces, masks, mesh2)),
-                ("model2_long", lambda: eval_shard.predict_long_video(pred, frames, None,
-                                                                      mesh2)),
-                ("model2_params", lambda: shard_params(pred.model, mesh2))):
-            try:
-                call()
-                errors[what] = None
-            except NotImplementedError as e:
-                errors[what] = (type(e).__name__, str(e))
-    out["errors"] = errors
+        runs["model2"] = eval_shard.predict_sharded(pred, faces, masks, mesh2)
+        runs["model2_long"] = eval_shard.predict_long_video(pred, frames, None, mesh2)
+        runs["long"] = eval_shard.predict_long_video(pred, frames, None, mesh)
+        runs["model2_params"] = _digest(shard_params(pred.model, mesh2)) == _digest(
+            pred.model)
+    out["runs"] = runs
     return out
 
 
 # ------------------------------------------------------------------ training
 
 
-def _model(sds, net="genconvit"):
+def _model(sds, net="genconvit", classes=BACKBONE_CLASSES):
     from genconvit_tpu_torch.models.genconvit import GenConViT
     from genconvit_tpu_torch.train import loop
 
-    model = GenConViT(_config(), net, BACKBONE_CLASSES)
+    model = GenConViT(_config(), net, classes)
     for b, m in loop.branches(model).items():
         m.load_state_dict({k: torch.from_numpy(v) for k, v in sds[b].items()})
     return model.to(memory_format=torch.channels_last)
@@ -330,3 +329,181 @@ def train_model_rank(rank, world, data_dir, wdir):
     return {"history": s["history"], "checkpoint": s["checkpoint"],
             "test": s["test_accuracy"], "digest": _digest(s["model"]), "saves": calls,
             "reads": reads}
+
+
+# ------------------------------------------------------------------ tensor parallelism
+
+TP_CLASSES = 16   # backbone classes that split evenly over 'model' down to the heads' fc2
+TP_CASES = (("ed", "ed", "default"), ("vae", "vae", "default"),
+            ("genconvit", "genconvit", "default"), ("swiglu", "genconvit", "swiglu"),
+            ("updated", "vae", "updated"))
+
+
+def _bias_on_every_rank(x, weight, bias, tp):
+    """row_linear with fc2's bias added on every rank before the sum (a
+    planted fault)."""
+    from genconvit_tpu_torch.ops import collective
+
+    if tp is None:
+        return torch.nn.functional.linear(x, weight, bias)
+    z = x.float() @ weight.float().t() + bias.float()
+    return collective.reduce_from_model(z, tp.group).to(x.dtype)
+
+
+def _summed_twice(x, group):
+    """all_reduce_sum in place of reduce_from_model (a planted fault: the
+    gradient is summed over the group as well)."""
+    from genconvit_tpu_torch.ops.collective import all_reduce_sum
+
+    return all_reduce_sum(x, group)
+
+
+class _Patched:
+    """setattr for the duration of a with block."""
+
+    def __init__(self, obj, name, value):
+        self.obj, self.name, self.value = obj, name, value
+
+    def __enter__(self):
+        self.real = getattr(self.obj, self.name)
+        setattr(self.obj, self.name, self.value)
+
+    def __exit__(self, *exc):
+        setattr(self.obj, self.name, self.real)
+
+
+def _tp_step(sds, mesh, fresh_seed=None):
+    """A split genconvit model (from the weights, or seeded with fresh_seed
+    before the weights are loaded), its optimizer and DP+TP step."""
+    from genconvit_tpu_torch.parallel.mesh import data_group, shard_params
+    from genconvit_tpu_torch.train import loop, optim
+
+    if fresh_seed is None:
+        model = _model(sds, classes=TP_CLASSES)
+    else:
+        model = loop.new_model(_config(), "genconvit", torch.device("cpu"), seed=fresh_seed,
+                               backbone_classes=TP_CLASSES)
+    shard_params(model, mesh, tensor_parallel=True)
+    opt = optim.make_optimizer(model.parameters(), LR, WD)
+    return model, opt, loop.make_train_step(model, "genconvit", opt, group=data_group(mesh))
+
+
+def _take_step(model, step, mesh, batch):
+    """One step on this rank's rows; (loss, acc, every gradient whole)."""
+    from genconvit_tpu_torch.parallel.mesh import all_gather_state_dict, data_group, shard_rows
+    from genconvit_tpu_torch.train import loop
+
+    x, y, e = (torch.from_numpy(a) for a in batch)
+    loss, acc = step(x[shard_rows(len(y), data_group(mesh))], y.long(), e)
+    grads = {}
+    for b, m in loop.branches(model).items():
+        whole = all_gather_state_dict({k: p.grad for k, p in m.named_parameters()}, m.tp)
+        grads[b] = {k: v.numpy().copy() for k, v in whole.items()}
+    return float(loss), float(acc), grads
+
+
+def _split_digests(model):
+    """(digest of the replicated tensors, digest of this rank's blocks)."""
+    from genconvit_tpu_torch.parallel.mesh import tp_splits
+
+    sd = model.state_dict()
+    split = tp_splits({k: tuple(v.shape) for k, v in sd.items()})
+    rep, blk = hashlib.sha256(), hashlib.sha256()
+    for k, t in sorted(sd.items()):
+        (blk if k in split else rep).update(t.detach().contiguous().numpy().tobytes())
+    return rep.hexdigest(), blk.hexdigest()
+
+
+def tp_rank(rank, world, inputs, tmp):
+    """Tensor parallelism on a (world/2) x 2 mesh (tests/test_torch_parallel_tp.py):
+    predict_sharded(tensor_parallel=True) for every case of TP_CASES beside
+    the unsplit forward, planted faults in the eval (a contiguous SwiGLU
+    split, fc2's bias on every rank), the DP+TP genconvit step's record,
+    gradients and digests, a gathered `.gcv` save, a restore into a model
+    split again and the next step, the same first step with all_reduce_sum
+    in place of reduce_from_model (a planted fault), and on rank 1 the
+    one-process step's gradients."""
+    _register_small()
+    from genconvit_tpu_torch.core.checkpoint import (load_checkpoint, opt_state_tree,
+                                                     restore_opt_state, save_checkpoint)
+    from genconvit_tpu_torch.core.convert import state_dict_from_jax
+    from genconvit_tpu_torch.infer.engine import Predictor
+    from genconvit_tpu_torch.ops import collective
+    from genconvit_tpu_torch.ops.kernel_plan import KernelPlan
+    from genconvit_tpu_torch.parallel import eval_shard, mesh as mesh_mod
+    from genconvit_tpu_torch.parallel.mesh import (DATA_AXIS, load_whole_state_dict, make_mesh,
+                                                   model_axis)
+    from genconvit_tpu_torch.train import loop, optim
+
+    d = _load(inputs)
+    mesh = make_mesh(data=world // 2, model=2)
+    out = {"mesh": tuple(mesh.mesh.shape), "model_index": model_axis(mesh).index,
+           "data_index": mesh.get_local_rank(DATA_AXIS)}
+
+    def predictor(net, weights):
+        return Predictor(_config(), net=net, device="cpu", params=_params(d["sds"][weights], net),
+                         deterministic_vae=True, kernel_plan=KernelPlan(),
+                         backbone_classes=TP_CLASSES, face_backend="fullframe")
+
+    def tp_eval(net, weights):
+        return eval_shard.predict_sharded(predictor(net, weights), d["faces"], d["masks"], mesh,
+                                          tensor_parallel=True)
+
+    for case, net, weights in TP_CASES:
+        pred = predictor(net, weights)
+        out[case] = {"tp": eval_shard.predict_sharded(pred, d["faces"], d["masks"], mesh,
+                                                      tensor_parallel=True),
+                     "unsplit": pred.predict_videos_batched(d["faces"], d["masks"])}
+        # the predictor's model stays whole; the cached copy holds the blocks
+        copy, = pred._sharded_params_cache.values()
+        out[case]["fc_rows"] = [(m.tp is not None, m.fc.weight.shape[0])
+                                for m in (pred.model.branches()[-1], copy.branches()[-1])]
+    with _Patched(mesh_mod, "_halves", lambda name, shapes: 1):
+        out["planted_swiglu"] = tp_eval("genconvit", "swiglu")
+    with _Patched(collective, "row_linear", _bias_on_every_rank):
+        out["planted_bias"] = tp_eval("genconvit", "default")
+
+    batch = d["batch"]
+    model, opt, step = _tp_step(d["sds"]["train"], mesh)
+    p0 = _tree(model, opt)["params"]
+    loss, acc, grads = _take_step(model, step, mesh, batch)
+    first = _tree(model, opt)
+    out["digests"] = _split_digests(model)
+    if rank == 0:
+        out["dp_tp"] = {"p0": p0, "first": first, "last": first, "loss": [loss], "acc": [acc],
+                        "grads": grads}
+    out["loss"] = loss
+
+    # the first rank writes the gathered trees; every rank restores and splits
+    ck = os.path.join(tmp, "tp.gcv")
+    params, opt_tree = loop.params_tree(model), opt_state_tree(opt, loop.branches(model))
+    if rank == 0:
+        save_checkpoint(ck, params, epoch=1, min_loss=loss, opt_state=opt_tree)
+    dist.barrier()
+    payload = load_checkpoint(ck)
+    m2, o2, s2 = _tp_step(None, mesh, fresh_seed=rank + 7)
+    for b, m in loop.branches(m2).items():
+        load_whole_state_dict(m, state_dict_from_jax(payload["params"][b], b))
+    restore_opt_state(o2, loop.branches(m2), payload["opt_state"])
+    out["resume"] = (_take_step(model, step, mesh, d["batch2"])[0],
+                     _take_step(m2, s2, mesh, d["batch2"])[0])
+    if rank == 0:
+        out["saved"] = ck
+        out["after_resume"] = _tree(m2, o2)["params"]
+    else:
+        _tree(m2, o2)
+    del model, m2, opt, o2
+
+    with _Patched(collective, "reduce_from_model", _summed_twice):
+        model, opt, step = _tp_step(d["sds"]["train"], mesh)
+        planted = _take_step(model, step, mesh, batch)
+    if rank == 0:
+        out["planted_reduce"] = {"loss": planted[0], "grads": planted[2]}
+    if rank == 1:   # the one-process step's gradients, beside
+        model = _model(d["sds"]["train"], classes=TP_CLASSES)
+        opt = optim.make_optimizer(model.parameters(), LR, WD)
+        x, y, e = (torch.from_numpy(a) for a in batch)
+        loop.make_train_step(model, "genconvit", opt)(x, y.long(), e)
+        out["one_grads"] = {b: {k: p.grad.numpy().copy() for k, p in m.named_parameters()}
+                            for b, m in loop.branches(model).items()}
+    return out
