@@ -343,6 +343,28 @@ Phases (any failed check raises and the exit code is non-zero):
      rank, all_reduce_sum in place of reduce_from_model (the gradients);
      peak device memory a rank. Time-sliced on one card: no scaling number.
 
+  18. the last JAX modules (it runs after phase 17 and before phase 13;
+     `--phase18-only` runs phases 1, 2 and 18 alone): (a) the on-card
+     parity sweep (`tools/onchip_parity.py`): every fast path held against
+     the unfused bf16 graph it replaces (`block_reference`), not against
+     its plain version: the LN-folded block, K1, K1 through stage_mlp, K4
+     in both modes, K5 and K6 where their rules apply at the four
+     convnext_tiny stage shapes (3e-2; int8 4e-2), K7 plain and shifted
+     against the float32 attention (3e-2), the rational GELU against exact
+     erf (1e-2), K2 against F.layer_norm and K3 on the 25088 x 12544 head
+     against the float32 product with the dequantized weight; then the
+     sweep with each of its planted faults (onchip_parity.PLANTS), each of
+     which must fail it; each kernel's max rel diff against the unfused
+     graph, and the kernels' launches in the sweep (one per check); (b)
+     `synth_dataset` over seeded faces and frames in memory (the skin weak
+     labels; cv2 must not be imported), `train_facedet_synth.train` on the card
+     (256 samples, 2 epochs at batch 64): finite epoch losses, evaluate,
+     the `.gcv` written and read back equal by the port's loader, the
+     committed genconvit_tpu/assets/facedet.gcv byte-identical before and
+     after; (c) the published configuration's `model_summary` TOTAL equal
+     to its parameters plus its BatchNorm running statistics (the JAX
+     tree holds those too).
+
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Without CUDA it exits non-zero at once.
 """
@@ -5187,6 +5209,219 @@ def p17_summary(p17: dict, card: str) -> None:
         f"[{card}]")
 
 
+# ---------------------------------------------------------------- phase 18
+
+P18_SAMPLES = 256    # 18b: synth_dataset samples, trained P18_EPOCHS epochs at P18_BATCH
+P18_EPOCHS = 2
+P18_BATCH = 64
+P18_ASSET = ("genconvit_tpu", "assets", "facedet.gcv")   # the committed detector: never written
+
+
+def p18_faces(np, seed: int, n: int) -> list:
+    """n RGB uint8 face crops, 90-199 px a side: a skin-toned ellipse with
+    two dark eyes on a noisy background."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        h, w = (int(v) for v in rng.integers(90, 200, 2))
+        yy, xx = np.mgrid[0:h, 0:w]
+        img = rng.integers(30, 90, (h, w, 3)).astype(np.float32)
+        cy, cx = h / 2 + rng.uniform(-5, 5), w / 2 + rng.uniform(-5, 5)
+        inside = ((yy - cy) / (0.45 * h)) ** 2 + ((xx - cx) / (0.38 * w)) ** 2 < 1
+        img[inside] = np.array([200, 160, 140]) + rng.uniform(-25, 25, 3) \
+            + rng.normal(0, 8, (inside.sum(), 3))
+        for ex in (-0.15, 0.15):
+            eye = (((yy - cy + 0.1 * h) / (0.05 * h)) ** 2
+                   + ((xx - cx - ex * w) / (0.08 * w)) ** 2 < 1)
+            img[eye] = (40, 30, 30)
+        out.append(np.clip(img, 0, 255).astype(np.uint8))
+    return out
+
+
+def p18_frames(np, seed: int, n: int) -> list:
+    """n RGB uint8 video-like frames (180x320, 240x240, 360x640 in turn): blocks
+    of colour leaning away from skin, noise, up to two skin-coloured discs."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        h, w = ((180, 320), (240, 240), (360, 640))[i % 3]
+        yy, xx = np.mgrid[0:h, 0:w]
+        base = rng.integers(0, 256, (h // 16 + 1, w // 16 + 1, 3)).astype(np.float32)
+        base[..., 2] = np.maximum(base[..., 2], base[..., 0] + 40)
+        img = np.repeat(np.repeat(base, 16, 0), 16, 1)[:h, :w] * 0.6 \
+            + rng.normal(0, 10, (h, w, 3))
+        for _ in range(int(rng.integers(0, 3))):
+            r = rng.uniform(0.08, 0.25) * min(h, w)
+            cy, cx = rng.uniform(r, h - r), rng.uniform(r, w - r)
+            disc = (yy - cy) ** 2 + (xx - cx) ** 2 < r * r
+            img[disc] = np.array([205, 150, 125]) + rng.normal(0, 6, (disc.sum(), 3))
+        out.append(np.clip(img, 0, 255).astype(np.uint8))
+    return out
+
+
+def p18_parity(torch, dev, card: str) -> dict:
+    """18a: the parity sweep on the kernels, then once with each planted fault."""
+    import io
+
+    from genconvit_tpu_torch.ops.cuda import launch_counts
+    from genconvit_tpu_torch.tools import onchip_parity as op
+
+    weights = op.make_weights(dev)
+    buf = io.StringIO()
+    before = launch_counts()
+    sweep = op.run(dev, out=buf, weights=weights)
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in launch_counts().items() if v != before[k]}
+    for line in buf.getvalue().splitlines():
+        log(f"  18a {line}")
+    if sweep.failures:
+        raise AssertionError(f"18a: the sweep failed {sweep.failures}")
+    # every fast path a kernel launch: one per check of each kernel
+    wrapper = {"K1": "ln_mlp_residual", "K2": "layer_norm_rows", "K3": "matmul_wint8",
+               "K4 'fc1'": "ln_mlp_residual_int8", "K4 'full'": "ln_mlp_residual_int8",
+               "K5": "fused_convnext_block", "K6": "fused_convnext_stage", "K7": "window_attention"}
+    want: dict = {}
+    for c in sweep.checks:
+        if c.kernel:
+            want[wrapper[c.kernel]] = want.get(wrapper[c.kernel], 0) + 1
+    if launched != want:
+        raise AssertionError(f"18a: kernel launches {launched}, one per check {want}")
+    log(f"18a: kernel launches in the sweep {launched} (one per check) [{card}]")
+    planted = {}
+    for plant, what in op.PLANTS.items():
+        bad = op.run(dev, plant, out=io.StringIO(), weights=weights)
+        if not bad.failures:
+            raise AssertionError(f"18a: the planted fault {plant} ({what}) passed the sweep")
+        worst = max(bad.checks, key=lambda c: c.rel / c.tol)
+        planted[plant] = worst.rel / worst.tol
+        log(f"  18a planted {plant} ({what}): {len(bad.failures)} check(s) failed, worst "
+            f"{worst.name} {worst.rel:.3e} ({worst.rel / worst.tol:.2f}x its tolerance) -> refused")
+    ratios = op.kernel_ratios(sweep)
+    for kernel, rel in sorted(ratios.items()):
+        log(f"18a {kernel}: max rel diff against the unfused graph {rel:.3e} [{card}]")
+    return {"ratios": ratios, "checks": len(sweep.checks), "planted": planted,
+            "gelu": next(c.rel for c in sweep.checks if c.name.startswith("rational_gelu")),
+            "folded": max(c.rel for c in sweep.checks if c.name.startswith("folded_block"))}
+
+
+def p18_facedet(torch, np, dev, card: str, tmp: str) -> dict:
+    """18b: synth_dataset over seeded faces and frames in memory (the skin
+    weak labels without cv2), the detector trained on the card, evaluated,
+    written and read back; the committed detector untouched."""
+    import hashlib
+    import importlib.util
+    import logging
+    import math
+    import os
+
+    from genconvit_tpu_torch.core.checkpoint import load_checkpoint
+    from genconvit_tpu_torch.core.convert import state_dict_from_jax
+    from genconvit_tpu_torch.data.faces import SkinDetector
+    from genconvit_tpu_torch.models.facedet import FaceDet
+    from genconvit_tpu_torch.tools import train_facedet_synth as tfs
+
+    asset = os.path.join(os.path.dirname(os.path.abspath(__file__)), *P18_ASSET)
+
+    def digest():
+        with open(asset, "rb") as f:
+            return hashlib.sha256(f.read()).hexdigest()
+
+    before = digest()
+    cv2_before = "cv2" in sys.modules
+    faces, heldout, frames = p18_faces(np, 1, 12), p18_faces(np, 3, 4), p18_frames(np, 2, 9)
+    skin = sum(len(b) for b in SkinDetector().detect(np.stack(frames[1::3])))
+    losses = []
+
+    class Losses(logging.Handler):
+        def emit(self, record):
+            if "mean loss" in record.getMessage():
+                losses.append(float(record.getMessage().rsplit(" ", 1)[1]))
+
+    logger = logging.getLogger("genconvit_tpu_torch")
+    handler, level = Losses(), logger.level
+    logger.addHandler(handler)
+    logger.setLevel(logging.INFO)
+    try:
+        t = time.perf_counter()
+        model, miou, det = tfs.train(faces, heldout, frames, n=P18_SAMPLES, epochs=P18_EPOCHS,
+                                     batch=P18_BATCH, lr=2e-3, seed=0, device=dev)
+        seconds = time.perf_counter() - t
+    finally:
+        logger.removeHandler(handler)
+        logger.setLevel(level)
+    if len(losses) != P18_EPOCHS or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"18b: epoch losses {losses}")
+    if not (0.0 <= miou <= 1.0 and 0.0 <= det <= 1.0):
+        raise AssertionError(f"18b: evaluate gave {miou}, {det}")
+    path = os.path.join(tmp, "facedet_synth.gcv")
+    tfs.save_facedet(path, model, heldout_mean_iou=miou, heldout_det_rate_at_05=det)
+    payload = load_checkpoint(path)
+    back = FaceDet()
+    back.load_state_dict(state_dict_from_jax(payload["params"], "facedet"), strict=True)
+    for k, v in model.state_dict().items():
+        if not torch.equal(back.state_dict()[k], v.cpu()):
+            raise AssertionError(f"18b: {k} read back differs")
+    if payload["extra"]["kind"] != "facedet":
+        raise AssertionError(f"18b: extra {payload['extra']}")
+    if digest() != before:
+        raise AssertionError("18b: the committed genconvit_tpu/assets/facedet.gcv changed")
+    if not cv2_before and "cv2" in sys.modules:
+        raise AssertionError("18b: the synthetic data or the skin detector imported cv2")
+    cv2 = importlib.util.find_spec("cv2") is not None
+    log(f"18b: {P18_SAMPLES} synthetic samples, {P18_EPOCHS} epochs at batch {P18_BATCH} on the "
+        f"card: epoch losses {', '.join(f'{v:.4f}' for v in losses)}; evaluate mean IoU {miou:.4f}, "
+        f"det-rate@0.5 {det:.4f}; {skin} skin box(es) on 3 frames; cv2 not imported (installed "
+        f"here: {cv2}); the .gcv read back equal; the committed detector unchanged; "
+        f"{seconds:.1f} s [{card}]")
+    return {"losses": losses, "miou": miou, "det": det, "seconds": seconds}
+
+
+def p18_summary_total(torch) -> dict:
+    """18c: the published configuration's model_summary TOTAL (on the meta
+    device: no memory)."""
+    from genconvit_tpu_torch.config import Config
+    from genconvit_tpu_torch.models.genconvit import GenConViT
+    from genconvit_tpu_torch.utils.summary import model_summary
+
+    with torch.device("meta"):
+        model = GenConViT(Config())
+    line = model_summary(model).splitlines()[-1].split()
+    total, mb = int(line[1].replace(",", "")), float(line[2])
+    params = sum(p.numel() for p in model.parameters())
+    stats = sum(b.numel() for n, b in model.named_buffers() if n.endswith(("running_mean",
+                                                                          "running_var")))
+    if total != params + stats:
+        raise AssertionError(f"18c: TOTAL {total} != {params} parameters + {stats} BatchNorm "
+                             f"statistics")
+    log(f"18c: model_summary of GenConViT (convnext_tiny, 224 px, both branches): TOTAL {total:,} "
+        f"({mb:.1f} MB) = {params:,} parameters + {stats:,} BatchNorm running statistics (the JAX "
+        f"tree holds them as 'mean' and 'var')")
+    return {"total": total, "params": params, "stats": stats}
+
+
+def phase_p18(torch, np, dev, card: str, tmp: str) -> dict:
+    """Phase 18 (module docstring): the parity sweep, the detector's synthetic
+    data and training tools, model_summary."""
+    t = time.perf_counter()
+    out = {"a": p18_parity(torch, dev, card)}
+    out["a_seconds"] = time.perf_counter() - t
+    out["b"] = p18_facedet(torch, np, dev, card, tmp)
+    out["c"] = p18_summary_total(torch)
+    out["seconds"] = time.perf_counter() - t
+    return out
+
+
+def p18_summary(p18: dict, card: str) -> None:
+    a, b = p18["a"], p18["b"]
+    log(f"summary [p18]: {a['checks']} parity checks passed against the unfused graph, kernels "
+        + ", ".join(f"{k} {v:.3e}" for k, v in sorted(a["ratios"].items()))
+        + f", LN-folded block {a['folded']:.3e}, GELU {a['gelu']:.3e}; {len(a['planted'])} planted "
+        f"faults refused ({min(a['planted'].values()):.2f}-{max(a['planted'].values()):.2f}x "
+        f"their tolerance); detector: mean IoU {b['miou']:.4f}, det-rate {b['det']:.4f}; "
+        f"TOTAL {p18['c']['total']:,}; sweep {p18['a_seconds']:.1f} s, phase {p18['seconds']:.1f} s "
+        f"[{card}]")
+
+
 def main() -> int:
     import argparse
     import gc
@@ -5212,6 +5447,10 @@ def main() -> int:
     ap.add_argument("--phase17-only", action="store_true",
                     help="phases 1, 2 and 17 alone (no result lines): tensor parallelism "
                          "(two gloo ranks on the card, a 1x2 mesh)")
+    ap.add_argument("--phase18-only", action="store_true",
+                    help="phases 1, 2 and 18 alone (no result lines): the parity sweep against "
+                         "the unfused graph, the detector's synthetic data and training, "
+                         "model_summary")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
@@ -5277,6 +5516,13 @@ def main() -> int:
         log(f"phase 17: {time.perf_counter() - t:.1f} s")
         log(f"chip_smoke --phase17-only: phase 17 passed in {time.perf_counter() - t_all:.1f} s")
         return 0
+    if args.phase18_only:
+        with tempfile.TemporaryDirectory(prefix="gcv_p18_") as tmp:
+            t = time.perf_counter()
+            p18_summary(phase_p18(torch, np, dev, card, tmp), card)
+            log(f"phase 18: {time.perf_counter() - t:.1f} s")
+        log(f"chip_smoke --phase18-only: phase 18 passed in {time.perf_counter() - t_all:.1f} s")
+        return 0
     t = time.perf_counter()
     kernels = (phase_kernels(torch, dev, card) + phase_fused(torch, dev, card)
                + [phase_k7(torch, dev, card)])
@@ -5341,6 +5587,11 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         t = time.perf_counter()
+        p18 = phase_p18(torch, np, dev, card, tmp)
+        log(f"phase 18: {time.perf_counter() - t:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
         training = phase_train(torch, np, dev, card, tmp, args.profile)
         log(f"phase 13: {time.perf_counter() - t:.1f} s")
     for name, r in runs.items():
@@ -5385,6 +5636,7 @@ def main() -> int:
     p15_summary(p15, card)
     p16_summary(p16, card)
     p17_summary(p17, card)
+    p18_summary(p18, card)
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_all:.1f} s [{card}]")
     # each kernel's launches: the count of the run whose main path runs it
     # (the counts were set to 0 just before its requests)

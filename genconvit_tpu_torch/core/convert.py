@@ -294,12 +294,25 @@ def _convnext_tree(sd: Mapping[str, torch.Tensor], prefix: str) -> Dict[str, Any
     return tree
 
 
+def _facedet_tree(sd: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    tree: Dict[str, Any] = {"stem": _conv_tree(sd, "stem")}
+    for group in ("blocks16", "blocks8"):
+        tree[group] = [{"dw": _conv_tree(sd, f"{group}.{i}.dw"),
+                        "pw": _conv_tree(sd, f"{group}.{i}.pw")}
+                       for i in range(_count(sd, rf"{group}\.(\d+)\."))]
+    tree["head16"] = _conv_tree(sd, "head16")
+    tree["head8"] = _conv_tree(sd, "head8")
+    return tree
+
+
 def tree_from_state_dict(sd: Mapping[str, torch.Tensor], branch: str) -> Dict[str, Any]:
-    """The inverse of `state_dict_from_jax` for 'ed', 'vae' (either variant)
-    and 'convnext': the JAX package's tree (float32 numpy leaves), e.g. to
-    write a `.gcv` that both packages read."""
+    """The inverse of `state_dict_from_jax` for 'ed', 'vae' (either variant),
+    'convnext' and 'facedet': the JAX package's tree (float32 numpy leaves),
+    e.g. to write a `.gcv` that both packages read."""
     if branch == "convnext":
         return _convnext_tree(sd, "")
+    if branch == "facedet":
+        return _facedet_tree(sd)
     if branch == "ed":
         tree = {"encoder": [_conv_tree(sd, f"encoder.features.{i}") for i in (0, 3, 6, 9, 12)],
                 "decoder": [_convT_tree(sd, f"decoder.features.{i}") for i in (0, 2, 4, 6, 8)],

@@ -6,7 +6,8 @@ frame counts toward the frame budget (quirk B7). Backends:
 
   fullframe  the whole frame as the "face" box
   center     a centered square crop
-  skin       a YCrCb skin-segmentation heuristic (cv2 on the host)
+  skin       a YCrCb skin-segmentation heuristic (cv2's ops in numpy,
+             data/imgops.py)
   haar       OpenCV 4 cascades through the native shim
              (native/libgcvfacedet.so; staged scored pipeline and box
              calibration, as the JAX package)
@@ -36,6 +37,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from genconvit_tpu_torch.data import imgops
 from genconvit_tpu_torch.device import default_device
 from genconvit_tpu_torch.ops.resize import (area_weights_pair, crop_resize_batch,
                                             crop_resize_weights_pair, resize_area,
@@ -82,38 +84,31 @@ class CenterDetector(FaceDetector):
 
 class SkinDetector(FaceDetector):
     """Classical heuristic: skin mask in YCrCb, largest blob, squared box
-    with headroom. Deterministic, no learned weights."""
+    with headroom. Deterministic, no learned weights. cv2's host ops in
+    numpy (data/imgops.py): the boxes are the JAX package's, with no cv2."""
 
     def __init__(self, min_area_frac: float = 0.01, expand: float = 1.25):
         self.min_area_frac = min_area_frac
         self.expand = expand
 
     def detect(self, frames: Frames) -> List[List[Box]]:
-        import cv2
-
         out: List[List[Box]] = []
         for frame in frames:
             h, w = frame.shape[:2]
-            ycrcb = cv2.cvtColor(frame, cv2.COLOR_RGB2YCrCb)
-            mask = cv2.inRange(ycrcb, (0, 133, 77), (255, 180, 127))
-            mask = cv2.morphologyEx(mask, cv2.MORPH_OPEN, np.ones((5, 5), np.uint8))
-            mask = cv2.morphologyEx(mask, cv2.MORPH_CLOSE, np.ones((9, 9), np.uint8))
-            n, labels, stats, _ = cv2.connectedComponentsWithStats(mask)
+            mask = imgops.in_range(imgops.rgb_to_ycrcb_u8(frame), (0, 133, 77), (255, 180, 127))
+            mask = imgops.morph_close(imgops.morph_open(mask, 5), 9)
+            blob = imgops.largest_component(mask)
             boxes: List[Box] = []
-            if n > 1:
-                areas = stats[1:, cv2.CC_STAT_AREA]
-                best = int(np.argmax(areas)) + 1
-                if stats[best, cv2.CC_STAT_AREA] >= self.min_area_frac * h * w:
-                    x, y = stats[best, cv2.CC_STAT_LEFT], stats[best, cv2.CC_STAT_TOP]
-                    bw, bh = stats[best, cv2.CC_STAT_WIDTH], stats[best, cv2.CC_STAT_HEIGHT]
-                    cx, cy = x + bw / 2, y + bh / 2
-                    s = int(max(bw, bh) * self.expand)
-                    top = max(0, int(cy - s / 2))
-                    left = max(0, int(cx - s / 2))
-                    bottom = min(h, top + s)
-                    right = min(w, left + s)
-                    if bottom > top and right > left:
-                        boxes.append((top, right, bottom, left))
+            if blob is not None and blob[0] >= self.min_area_frac * h * w:
+                _, x, y, bw, bh = blob
+                cx, cy = x + bw / 2, y + bh / 2
+                s = int(max(bw, bh) * self.expand)
+                top = max(0, int(cy - s / 2))
+                left = max(0, int(cx - s / 2))
+                bottom = min(h, top + s)
+                right = min(w, left + s)
+                if bottom > top and right > left:
+                    boxes.append((top, right, bottom, left))
             out.append(boxes)
         return out
 

@@ -1,4 +1,4 @@
-"""What the probe tools share: the device, a timer and the bound."""
+"""What the tools share: the device, a timer and the bound."""
 
 from __future__ import annotations
 
@@ -15,8 +15,8 @@ HBM, BF16, INT8, FP32 = 3.35e12, 989e12, 1979e12, 67e12
 def resolve_device(name: str) -> torch.device:
     dev = torch.device(name)
     if dev.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit(f"{name}: CUDA is not available (pass --device cpu for the plain "
-                         f"versions on the host)")
+        raise SystemExit(f"{name}: CUDA is not available (pass --device cpu to run on the "
+                         f"host, the kernels' plain versions)")
     return dev
 
 

@@ -56,7 +56,9 @@ def test_importing_every_module_loads_nothing_forbidden():
                  "infer.serve_pipeline", "serve", "prediction_v2", "evaluate", "result_all",
                  "plot_comparison", "train.optim", "train.loop", "train.facedet_train",
                  "train.__main__", "ops.dwsep", "parallel.multihost", "parallel.mesh",
-                 "parallel.eval_shard", "parallel.dryrun", "ops.collective"):
+                 "parallel.eval_shard", "parallel.dryrun", "ops.collective", "core.pytree",
+                 "utils.summary", "data.imgops", "data.facedet_synth", "tools.train_facedet",
+                 "tools.train_facedet_synth", "tools.onchip_parity"):
         assert f"genconvit_tpu_torch.{name}" in rec["modules"]
     assert rec["bad"] == []
     assert rec["built"] is False
@@ -75,7 +77,9 @@ def test_sources_import_no_jax_and_compile_nothing():
             "serve_pipeline.py", "serve.py", "prediction_v2.py", "evaluate.py", "result_all.py",
             "plot_comparison.py", "optim.py", "loop.py", "facedet_train.py",
             "__main__.py", "multihost.py", "mesh.py", "eval_shard.py",
-            "dryrun.py", "collective.py"} <= {p.name for p in paths}
+            "dryrun.py", "collective.py", "pytree.py", "summary.py", "imgops.py",
+            "facedet_synth.py", "train_facedet.py", "train_facedet_synth.py",
+            "onchip_parity.py"} <= {p.name for p in paths}
     for path in paths + [ROOT / "chip_smoke.py"]:
         assert not pattern.search(path.read_text()), path
 

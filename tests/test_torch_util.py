@@ -227,3 +227,46 @@ class _MemoryReader:
 
     def close(self):
         pass
+
+
+def seeded_faces(seed, n):
+    """n RGB uint8 face crops, 90-199 px a side: a skin-toned ellipse with two
+    dark eyes on a noisy background (numpy only)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        h, w = (int(v) for v in rng.integers(90, 200, 2))
+        yy, xx = np.mgrid[0:h, 0:w]
+        img = rng.integers(30, 90, (h, w, 3)).astype(np.float32)
+        cy, cx = h / 2 + rng.uniform(-5, 5), w / 2 + rng.uniform(-5, 5)
+        inside = ((yy - cy) / (0.45 * h)) ** 2 + ((xx - cx) / (0.38 * w)) ** 2 < 1
+        img[inside] = np.array([200, 160, 140]) + rng.uniform(-25, 25, 3) \
+            + rng.normal(0, 8, (inside.sum(), 3))
+        for ex in (-0.15, 0.15):
+            eye = (((yy - cy + 0.1 * h) / (0.05 * h)) ** 2
+                   + ((xx - cx - ex * w) / (0.08 * w)) ** 2 < 1)
+            img[eye] = (40, 30, 30)
+        out.append(np.clip(img, 0, 255).astype(np.uint8))
+    return out
+
+
+def seeded_frames(seed, n):
+    """n RGB uint8 video-like frames (180x320, 240x240, 360x640 in turn):
+    16-px blocks of colour leaning away from skin, noise, and up to two
+    skin-coloured discs, so that the skin veto and weak labels go both ways."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        h, w = ((180, 320), (240, 240), (360, 640))[i % 3]
+        yy, xx = np.mgrid[0:h, 0:w]
+        base = rng.integers(0, 256, (h // 16 + 1, w // 16 + 1, 3)).astype(np.float32)
+        base[..., 2] = np.maximum(base[..., 2], base[..., 0] + 40)
+        img = np.repeat(np.repeat(base, 16, 0), 16, 1)[:h, :w] * 0.6 \
+            + rng.normal(0, 10, (h, w, 3))
+        for _ in range(int(rng.integers(0, 3))):
+            r = rng.uniform(0.08, 0.25) * min(h, w)
+            cy, cx = rng.uniform(r, h - r), rng.uniform(r, w - r)
+            disc = (yy - cy) ** 2 + (xx - cx) ** 2 < r * r
+            img[disc] = np.array([205, 150, 125]) + rng.normal(0, 6, (disc.sum(), 3))
+        out.append(np.clip(img, 0, 255).astype(np.uint8))
+    return out
