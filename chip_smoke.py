@@ -365,6 +365,27 @@ Phases (any failed check raises and the exit code is non-zero):
      to its parameters plus its BatchNorm running statistics (the JAX
      tree holds those too).
 
+  19. the weight converter CLI and the A/B runner (it runs after phase 18
+     and before phase 13; `--phase19-only` runs phases 1, 2 and 19 alone):
+     (a) seeded reference-keyed `.pth` files of the published configuration
+     with every dead group (`convert_weights.published_layout`: a whole
+     swin_tiny embedder with timm's buffers, the HybridEmbed's second
+     registration of it and its proj, the VAE's encoder.fc1/fc2 and fc3),
+     the ED bare, the VAE nested under 'state_dict'; (b) `python -m
+     genconvit_tpu_torch.convert_weights` as subprocesses, all at once:
+     --strict with and without --no-dead on both files, --preflight
+     --expect-init on both files' manifests (exit 0; the VAE's with
+     --no-dead too) and on one whose latent heads drifted (exit 1, the heads
+     named); (c) the carrying `.gcv`, the --no-dead one and the `.pth` give
+     the written tensors (the dead groups in the carrying tree only), and
+     Predictors from the `.gcv`'s and the `.pth`'s weights score one V=8
+     batch with equal y_val under the default plan (54 K1 + 3 K2 launches)
+     and under int8 heads (+ 1 K3); (d) `run_benchmark.main` in-process over
+     placeholder files of phase 11's corpus with phase 12's in-memory
+     decoder, the `.gcv` weights by name and the 'jax' detector: both result
+     JSONs, the same labels, preds within 1e-5; the comparison where
+     matplotlib is installed, else its ImportError after both runs.
+
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Without CUDA it exits non-zero at once.
 """
@@ -375,6 +396,7 @@ import json
 import subprocess
 import sys
 import time
+from typing import Optional
 
 REL_TOL = 3e-2       # bf16 kernel vs plain, max|diff| relative to max|ref|
                      # (tools/onchip_parity.py:77 of the JAX package); the
@@ -2118,21 +2140,16 @@ def write_and_check(torch, what: str, path: str, branch: str, write, sd: dict) -
         f"equal to the written ones")
 
 
-def video_weights(torch, dev, wdir: str) -> dict:
-    """11a: seeded random ED and VAE weights (layer scale and heads as in
-    phase 5, so that verdicts are decisive) written through the port's
-    writers: the ED as a `.gcv` nested under 'ed' (train_model's layout),
-    the VAE as a reference-keyed `.pth` nested under 'state_dict' with the
-    dead groups added."""
-    import os
-
-    from genconvit_tpu_torch.core.checkpoint import MAX_CHUNK_SIZE, save_checkpoint
-    from genconvit_tpu_torch.core.convert import tree_from_state_dict
+def seeded_weights(torch, dev, seed: int) -> dict:
+    """{'ed', 'vae'}: the published configuration's state dicts on the host,
+    made on the card from a seed: the port's init, layer scale U(0.1, 1)
+    and both heads' last layer scaled by LOGIT_SCALE (as in phase 5), so
+    that verdicts are decisive."""
     from genconvit_tpu_torch.models.convnext import Block
     from genconvit_tpu_torch.models.genconvit import GenConViT
     from genconvit_tpu_torch.models.init import init_genconvit_
 
-    g = torch.Generator(device=dev).manual_seed(11)
+    g = torch.Generator(device=dev).manual_seed(seed)
     with torch.device("meta"):
         model = GenConViT(backbone_config("convnext_tiny"))
     model = model.to_empty(device=dev)
@@ -2148,6 +2165,21 @@ def video_weights(torch, dev, wdir: str) -> dict:
           for b in ("ed", "vae")}
     del model
     torch.cuda.empty_cache()
+    return sd
+
+
+def video_weights(torch, dev, wdir: str) -> dict:
+    """11a: seeded random ED and VAE weights (layer scale and heads as in
+    phase 5, so that verdicts are decisive) written through the port's
+    writers: the ED as a `.gcv` nested under 'ed' (train_model's layout),
+    the VAE as a reference-keyed `.pth` nested under 'state_dict' with the
+    dead groups added."""
+    import os
+
+    from genconvit_tpu_torch.core.checkpoint import MAX_CHUNK_SIZE, save_checkpoint
+    from genconvit_tpu_torch.core.convert import tree_from_state_dict
+
+    sd = seeded_weights(torch, dev, 11)
     heads = sd["vae"]["encoder.mu.weight"]
     if not heads.element_size() * heads.nelement() > MAX_CHUNK_SIZE:
         raise AssertionError("the VAE head no longer exceeds the chunk size")
@@ -3009,6 +3041,23 @@ def serve_evaluate(torch, np, dev, pred, tmp: str, card: str) -> dict:
     return {"dp": dp}
 
 
+def memory_decoder(corpus: dict, aliases: Optional[dict] = None):
+    """`engine.extract_frames`' stand-in: a placeholder file (or request
+    body) holds the name of a corpus video, or an alias of one; any other
+    name raises as an undecodable video does."""
+    aliases = aliases or {}
+
+    def in_memory(path, num_frames, prefer_native=True):
+        with open(path, "rb") as f:
+            name = f.read().decode("utf-8", "replace")
+        name = aliases.get(name, name)
+        if name not in corpus:
+            raise IOError(f"cannot open video: {name[:40]!r}")
+        return corpus[name][:num_frames]
+
+    return in_memory
+
+
 def phase_serve(torch, np, dev, card: str, tmp: str, corpus: dict) -> dict:
     """Phase 12: the serving path and the remaining entry points on the card
     (see the module docstring), on phase 11's weights (read from `tmp` by
@@ -3022,17 +3071,8 @@ def phase_serve(torch, np, dev, card: str, tmp: str, corpus: dict) -> dict:
 
     faces = sorted(n for n in corpus if not n.startswith("zero"))
     aliases = {f"s{k}_{n}": n for k in range(SERVE_COPIES) for n in faces}
-
-    def in_memory(path, num_frames, prefer_native=True):
-        with open(path, "rb") as f:
-            name = f.read().decode("utf-8", "replace")
-        name = aliases.get(name, name)
-        if name not in corpus:
-            raise IOError(f"cannot open video: {name[:40]!r}")
-        return corpus[name][:num_frames]
-
     decode = engine.extract_frames
-    engine.extract_frames = in_memory
+    engine.extract_frames = memory_decoder(corpus, aliases)
     env = os.environ.get("GENCONVIT_FACE_SIDECAR")
     torch.cuda.reset_peak_memory_stats(dev)
     out = {}
@@ -5422,6 +5462,331 @@ def p18_summary(p18: dict, card: str) -> None:
         f"[{card}]")
 
 
+# ---------------------------------------------------------------- phase 19
+
+P19_SEED = 19
+P19_V = 8             # 19c: the batch both weight files' Predictors score
+P19_AB_TOL = 1e-5     # 19d: the two arch types' preds (the same graph, B12)
+
+
+def p19_pth(torch, np, dev, wdir: str) -> dict:
+    """19a: seeded reference-keyed `.pth` files of the published
+    configuration with every dead group (`convert_weights.published_layout`):
+    the live weights of `seeded_weights`, whose keys and shapes must be the
+    layout's without the dead groups, and the dead groups drawn on the host
+    (a whole swin_tiny embedder, timm's buffers, the HybridEmbed's second
+    registration of the same tensors, its proj, the VAE's encoder.fc1/fc2
+    and fc3). The ED bare, the VAE nested under 'state_dict'."""
+    import os
+
+    from genconvit_tpu_torch.convert_weights import published_layout
+
+    cfg = backbone_config("convnext_tiny")
+    live = seeded_weights(torch, dev, P19_SEED)
+    g = torch.Generator().manual_seed(P19_SEED)
+    out = {"live": live, "paths": {}, "dead": {}}
+    for branch in ("ed", "vae"):
+        t = time.perf_counter()
+        layout = published_layout(branch, cfg)
+        lean = published_layout(branch, cfg, dead=False)
+        sd = dict(live[branch])
+        bad = [k for k in set(sd) | set(lean)
+               if k not in sd or k not in lean or sd[k].shape != lean[k].shape]
+        if bad:
+            raise AssertionError(f"19a: the {branch} module's state dict is not the published "
+                                 f"layout at {sorted(bad)[:5]}")
+        alias = "backbone.patch_embed.backbone." if branch == "ed" else \
+            "convnext_backbone.patch_embed.backbone."
+        for k, v in layout.items():
+            if k in sd or k.startswith(alias):
+                continue
+            if v.dtype == torch.long:
+                sd[k] = torch.zeros(v.shape, dtype=torch.long)
+            else:
+                sd[k] = torch.randn(v.shape, generator=g) * 0.02
+        for k in layout:
+            if k.startswith(alias):
+                sd[k] = sd["embedder." + k[len(alias):]]
+        if set(sd) != set(layout):
+            raise AssertionError(f"19a: {branch} keys differ from the published layout")
+        path = os.path.join(wdir, f"genconvit_{branch}_inference.pth")
+        torch.save(sd if branch == "ed" else {"epoch": 1, "state_dict": sd, "min_loss": 0.5},
+                   path)
+        out["paths"][branch] = path
+        out["dead"][branch] = len(layout) - len(lean)
+        out[f"{branch}_sd"] = sd
+        log(f"p19 [weights]: {branch} .pth of the published layout, {len(layout)} keys ({len(lean)} "
+            f"live, {len(layout) - len(lean)} dead incl. timm's buffers and the HybridEmbed "
+            f"aliases), {os.path.getsize(path) / 2**20:.1f} MiB, "
+            f"{time.perf_counter() - t:.2f} s")
+    return out
+
+
+def p19_convert(torch, tmp: str, w: dict, card: str) -> dict:
+    """19b: `python -m genconvit_tpu_torch.convert_weights` as subprocesses,
+    all at once (host I/O; no card visible to them): --strict with and
+    without --no-dead on both files, and --preflight --expect-init on both
+    files' manifests (with --no-dead too for the VAE), which must exit 0,
+    and on a VAE manifest whose latent heads drifted to 8192, which must
+    exit 1."""
+    import os
+
+    from genconvit_tpu_torch.core.convert import manifest_from_state_dict
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root, CUDA_VISIBLE_DEVICES="")
+    dirs = {"gcv": os.path.join(tmp, "gcv"), "no_dead": os.path.join(tmp, "no_dead")}
+    for d in dirs.values():
+        os.makedirs(d, exist_ok=True)
+    manifests = {}
+    for branch in ("ed", "vae"):
+        m = manifest_from_state_dict(w[f"{branch}_sd"])
+        manifests[branch] = os.path.join(tmp, f"manifest_{branch}.json")
+        with open(manifests[branch], "w") as f:
+            json.dump(m, f)
+        if branch == "vae":
+            for head in ("mu", "var"):
+                m[f"encoder.{head}.weight"]["shape"][0] = 8192
+                m[f"encoder.{head}.bias"]["shape"][0] = 8192
+            manifests["drifted"] = os.path.join(tmp, "manifest_drifted.json")
+            with open(manifests["drifted"], "w") as f:
+                json.dump(m, f)
+    cli = [sys.executable, "-m", "genconvit_tpu_torch.convert_weights"]
+    jobs = {}
+    for branch in ("ed", "vae"):
+        pth = w["paths"][branch]
+        name = f"genconvit_{branch}_inference.gcv"
+        jobs[f"{branch} --strict"] = (cli + [pth, "--strict", "--out",
+                                             os.path.join(dirs["gcv"], name)], 0)
+        jobs[f"{branch} --no-dead --strict"] = (cli + [pth, "--no-dead", "--strict", "--out",
+                                                       os.path.join(dirs["no_dead"], name)], 0)
+        jobs[f"preflight {branch}"] = (cli + ["--preflight", manifests[branch],
+                                              "--expect-init"], 0)
+    jobs["preflight vae --no-dead"] = (cli + ["--preflight", manifests["vae"], "--expect-init",
+                                              "--no-dead"], 0)
+    jobs["preflight drifted"] = (cli + ["--preflight", manifests["drifted"], "--expect-init"], 1)
+    t = time.perf_counter()
+    procs = {k: subprocess.Popen(cmd, cwd=root, env=env, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True)
+             for k, (cmd, _) in jobs.items()}
+    res = {}
+    try:
+        for k, p in procs.items():
+            out, err = p.communicate(timeout=600)
+            res[k] = (p.returncode, out, err)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    dt = time.perf_counter() - t
+    for k, (code, out, err) in res.items():
+        want = jobs[k][1]
+        last = out.strip().splitlines()[-1] if out.strip() else ""
+        if code != want:
+            raise AssertionError(f"19b: convert_weights {k}: exit {code}, want {want}\n"
+                                 f"{out[-2000:]}\n{err[-2000:]}")
+        if k.startswith("preflight"):
+            report = json.loads(out[:out.rindex("}") + 1])
+            ok = last.startswith("PREFLIGHT OK")
+            if ok != (want == 0) or report["ok"] != ok:
+                raise AssertionError(f"19b: {k}: {last!r}, report ok {report['ok']}")
+            if k == "preflight drifted" and not any(
+                    m.startswith("encoder/mu/kernel: checkpoint") and ", 8192) vs" in m
+                    for m in report["shape_mismatches"]):
+                raise AssertionError(f"19b: the drifted heads were not named: {report}")
+            last = last if ok else f"{report['error']}: {report['shape_mismatches'][:2]}"
+        log(f"p19 [convert_weights {k}]: exit {code}: {last}")
+    log(f"p19 [convert_weights]: {len(jobs)} runs in parallel, {dt:.1f} s wall [{card}]")
+    return {"dirs": dirs, "seconds": dt}
+
+
+def p19_files(torch, w: dict, dirs: dict) -> dict:
+    """19c, continued: each branch's state dict from the carrying `.gcv`,
+    the --no-dead one and the `.pth`, tensor for tensor equal to the
+    written live weights; the dead groups in the carrying tree only."""
+    import os
+
+    from genconvit_tpu_torch.core.checkpoint import load_checkpoint, load_params
+    from genconvit_tpu_torch.core.convert import state_dict_from_jax
+
+    sds = {"gcv": {}, "pth": {}}
+    for branch in ("ed", "vae"):
+        name = f"genconvit_{branch}_inference.gcv"
+        t = time.perf_counter()
+        carried = load_checkpoint(os.path.join(dirs["gcv"], name))
+        dead = {"embedder", "hybrid_proj"} | ({"fc3"} if branch == "vae" else set())
+        if not dead <= set(carried["params"]) or carried["extra"] != {
+                "source": os.path.basename(w["paths"][branch]), "branch": branch}:
+            raise AssertionError(f"19c: {branch} .gcv params {sorted(carried['params'])}, "
+                                 f"extra {carried['extra']}")
+        sds["gcv"][branch] = state_dict_from_jax(carried["params"], branch)
+        del carried
+        t_gcv = time.perf_counter() - t
+        lean = load_checkpoint(os.path.join(dirs["no_dead"], name))["params"]
+        if dead & set(lean):
+            raise AssertionError(f"19c: the --no-dead {branch} .gcv holds {dead & set(lean)}")
+        lean = state_dict_from_jax(lean, branch)
+        t = time.perf_counter()
+        sds["pth"][branch] = load_params(w["paths"][branch], branch)[0]
+        t_pth = time.perf_counter() - t
+        want = w["live"][branch]
+        for what, sd in (("gcv", sds["gcv"][branch]), ("no-dead gcv", lean),
+                         ("pth", sds["pth"][branch])):
+            bad = [k for k in want if k not in sd or not torch.equal(sd[k], want[k])]
+            if bad or set(sd) != set(want):
+                raise AssertionError(f"19c: {branch} {what} differs from the written weights at "
+                                     f"{bad[:5]}")
+        os.remove(os.path.join(dirs["no_dead"], name))
+        log(f"p19 [load]: {branch}: the .gcv (dead groups carried), the --no-dead .gcv and the "
+            f".pth give the written {len(want)} tensors; .gcv read {t_gcv:.2f} s, .pth "
+            f"load_params {t_pth:.2f} s")
+    return sds
+
+
+def p19_predictors(torch, np, dev, card: str, sds: dict) -> dict:
+    """19c: a Predictor from each file's weights, under the default plan and
+    under int8 heads, scoring one seeded V=8 batch with masked frames:
+    y_val equal bit for bit, each forward's launches counted (54 K1 + 3 K2,
+    + 1 K3)."""
+    from genconvit_tpu_torch.infer.engine import Predictor
+    from genconvit_tpu_torch.ops import cuda as kcuda
+
+    rng = np.random.default_rng(P19_SEED)
+    faces = rng.integers(0, 256, (P19_V, FRAMES, IMG, IMG, 3), dtype=np.uint8)
+    mask = np.ones((P19_V, FRAMES), np.float32)
+    mask[1, 5:] = mask[6, 11:] = 0
+    out = {}
+    for plan_name, int8_heads in (("default", False), ("int8_heads", True)):
+        want = expected_launches(kcuda, "", "", int8_heads)
+        got = {}
+        for src in ("gcv", "pth"):
+            pred = Predictor(backbone_config("convnext_tiny"), device=dev, params=sds[src],
+                             kernel_plan=make_plan("", "", int8_heads), deterministic_vae=True,
+                             face_backend="center")
+            kcuda.reset_launch_counts()
+            t = time.perf_counter()
+            y, y_val = pred.predict_videos_batched(faces, mask)
+            dt = time.perf_counter() - t
+            counts = kcuda.launch_counts()
+            del pred
+            torch.cuda.empty_cache()
+            check_verdicts(np, np.asarray(y), np.asarray(y_val, np.float64), P19_V)
+            if counts != want:
+                raise AssertionError(f"19c [{plan_name}] {src}: launches {counts}, want {want}")
+            got[src] = (np.asarray(y), np.asarray(y_val))
+            log(f"p19 [{plan_name}] {src}: y={got[src][0].tolist()} "
+                f"y_val={np.round(got[src][1], 5).tolist()} ({dt:.2f} s, launches "
+                f"{ {k: v for k, v in counts.items() if v} }) [{card}]")
+        if not (np.array_equal(got["gcv"][0], got["pth"][0])
+                and np.array_equal(got["gcv"][1], got["pth"][1])):
+            raise AssertionError(f"19c [{plan_name}]: the .gcv's verdicts {got['gcv']} != the "
+                                 f".pth's {got['pth']}")
+        out[plan_name] = {k: v for k, v in kcuda.launch_counts().items() if v}
+    return out
+
+
+def p19_ab(np, tmp: str, corpus: dict, gcv_dir: str, card: str) -> dict:
+    """19d: `run_benchmark.main` in-process over placeholder files of the
+    corpus (names with and without 'fake', one that does not decode) with
+    phase 12's in-memory decoder and the `.gcv` weights by name: both
+    result JSONs, the same names and labels, preds within P19_AB_TOL; the
+    comparison written where matplotlib is installed, its ImportError
+    (after both runs) where it is not."""
+    import glob
+    import importlib.util
+    import os
+
+    from genconvit_tpu_torch import run_benchmark
+    from genconvit_tpu_torch.infer import engine
+
+    vdir, out_dir = os.path.join(tmp, "ab_videos"), os.path.join(tmp, "ab_result")
+    os.makedirs(vdir)
+    for i, n in enumerate(sorted(corpus) + ["broken.mp4"]):
+        with open(os.path.join(vdir, f"fake_{n}" if i % 2 == 0 else n), "w") as f:
+            f.write(n)
+    argv = [vdir, str(FRAMES), out_dir, "--face-backend", "jax", "--weights-dir", gcv_dir]
+    have_mpl = importlib.util.find_spec("matplotlib") is not None
+    decode = engine.extract_frames
+    engine.extract_frames = memory_decoder(corpus)
+    t = time.perf_counter()
+    try:
+        if have_mpl:
+            artifacts = run_benchmark.main(argv)["artifacts"]
+        else:
+            try:
+                run_benchmark.main(argv)
+                raise AssertionError("19d: the comparison ran without matplotlib")
+            except ImportError:
+                artifacts = None
+    finally:
+        engine.extract_frames = decode
+    dt = time.perf_counter() - t
+    paths = sorted(glob.glob(os.path.join(out_dir, "prediction_*.json")))
+    videos = []
+    for arch, path in zip(("original", "v2"), paths):
+        if f"_genconvit_{arch}_" not in os.path.basename(path):
+            raise AssertionError(f"19d: result files {paths}")
+        with open(path) as f:
+            videos.append(json.load(f)["video"])
+    if len(videos) != 2:
+        raise AssertionError(f"19d: result files {paths}")
+    a, b = videos
+    labels = ["FAKE" if "fake" in n.lower() else "REAL" for n in a["name"]]
+    dp = float(np.abs(np.asarray(a["pred"]) - np.asarray(b["pred"])).max())
+    if a["name"] != b["name"] or len(a["name"]) != len(corpus) + 1 \
+            or a["pred_label"] != b["pred_label"] or a["correct_label"] != labels \
+            or b["correct_label"] != labels or dp > P19_AB_TOL \
+            or not np.all(np.isfinite(a["pred"])):
+        raise AssertionError(f"19d: original {list(zip(a['name'], a['pred']))} vs v2 "
+                             f"{b['pred']} (max|d| {dp}, limit {P19_AB_TOL})")
+    if have_mpl:
+        missing = [k for k in ("csv", "report") if not os.path.isfile(artifacts[k])]
+        if missing:
+            raise AssertionError(f"19d: comparison artifacts missing: {missing}")
+        comparison = f"run: {sorted(artifacts)}"
+    else:
+        comparison = "absent (matplotlib is not installed)"
+    log(f"p19 [run_benchmark]: both arch types over {len(a['name'])} placeholder files "
+        f"{dt:.2f} s; max|d pred| {dp:.3e} (limit {P19_AB_TOL}); labels {a['pred_label']}; "
+        f"comparison {comparison} [{card}]")
+    return {"dp": dp, "seconds": dt, "comparison": comparison}
+
+
+def phase_p19(torch, np, dev, card: str, tmp: str, corpus: dict) -> dict:
+    """Phase 19 (module docstring): the weight converter CLI and the A/B
+    runner. Its files live in tmp/p19, removed at the end."""
+    import os
+    import shutil
+
+    t0 = time.perf_counter()
+    wdir = os.path.join(tmp, "p19")
+    os.makedirs(wdir)
+    try:
+        w = p19_pth(torch, np, dev, wdir)
+        t = time.perf_counter()
+        conv = p19_convert(torch, wdir, w, card)
+        sds = p19_files(torch, w, conv["dirs"])
+        del w
+        launches = p19_predictors(torch, np, dev, card, sds)
+        del sds
+        t_c = time.perf_counter() - t
+        ab = p19_ab(np, wdir, corpus, conv["dirs"]["gcv"], card)
+    finally:
+        shutil.rmtree(wdir, ignore_errors=True)
+    return {"launches": launches, "convert_s": conv["seconds"], "bc_s": t_c, "ab": ab,
+            "seconds": time.perf_counter() - t0}
+
+
+def p19_summary(p19: dict, card: str) -> None:
+    log(f"summary [p19]: convert_weights --strict (carrying and --no-dead) and 4 preflights "
+        f"{p19['convert_s']:.1f} s wall; the .gcv and the .pth equal to the written weights, "
+        f"y_val equal bit for bit (default plan {p19['launches']['default']}, int8 heads "
+        f"{p19['launches']['int8_heads']}); run_benchmark {p19['ab']['seconds']:.1f} s, max|d pred| "
+        f"{p19['ab']['dp']:.3e}, comparison {p19['ab']['comparison']}; phase "
+        f"{p19['seconds']:.1f} s [{card}]")
+
+
 def main() -> int:
     import argparse
     import gc
@@ -5451,6 +5816,9 @@ def main() -> int:
                     help="phases 1, 2 and 18 alone (no result lines): the parity sweep against "
                          "the unfused graph, the detector's synthetic data and training, "
                          "model_summary")
+    ap.add_argument("--phase19-only", action="store_true",
+                    help="phases 1, 2 and 19 alone (no result lines): the weight converter CLI "
+                         "on full-size seeded weights and the A/B runner")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
@@ -5523,6 +5891,13 @@ def main() -> int:
             log(f"phase 18: {time.perf_counter() - t:.1f} s")
         log(f"chip_smoke --phase18-only: phase 18 passed in {time.perf_counter() - t_all:.1f} s")
         return 0
+    if args.phase19_only:
+        with tempfile.TemporaryDirectory(prefix="gcv_p19_") as tmp:
+            t = time.perf_counter()
+            p19_summary(phase_p19(torch, np, dev, card, tmp, video_corpus(np)), card)
+            log(f"phase 19: {time.perf_counter() - t:.1f} s")
+        log(f"chip_smoke --phase19-only: phase 19 passed in {time.perf_counter() - t_all:.1f} s")
+        return 0
     t = time.perf_counter()
     kernels = (phase_kernels(torch, dev, card) + phase_fused(torch, dev, card)
                + [phase_k7(torch, dev, card)])
@@ -5561,7 +5936,8 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         t = time.perf_counter()
-        serving = phase_serve(torch, np, dev, card, tmp, video.pop("corpus"))
+        corpus = video.pop("corpus")
+        serving = phase_serve(torch, np, dev, card, tmp, corpus)
         log(f"phase 12: {time.perf_counter() - t:.1f} s")
         gc.collect()
         torch.cuda.empty_cache()
@@ -5589,6 +5965,11 @@ def main() -> int:
         t = time.perf_counter()
         p18 = phase_p18(torch, np, dev, card, tmp)
         log(f"phase 18: {time.perf_counter() - t:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        p19 = phase_p19(torch, np, dev, card, tmp, corpus)
+        log(f"phase 19: {time.perf_counter() - t:.1f} s")
         gc.collect()
         torch.cuda.empty_cache()
         t = time.perf_counter()
@@ -5637,6 +6018,7 @@ def main() -> int:
     p16_summary(p16, card)
     p17_summary(p17, card)
     p18_summary(p18, card)
+    p19_summary(p19, card)
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_all:.1f} s [{card}]")
     # each kernel's launches: the count of the run whose main path runs it
     # (the counts were set to 0 just before its requests)

@@ -58,7 +58,8 @@ def test_importing_every_module_loads_nothing_forbidden():
                  "train.__main__", "ops.dwsep", "parallel.multihost", "parallel.mesh",
                  "parallel.eval_shard", "parallel.dryrun", "ops.collective", "core.pytree",
                  "utils.summary", "data.imgops", "data.facedet_synth", "tools.train_facedet",
-                 "tools.train_facedet_synth", "tools.onchip_parity"):
+                 "tools.train_facedet_synth", "tools.onchip_parity", "convert_weights",
+                 "run_benchmark"):
         assert f"genconvit_tpu_torch.{name}" in rec["modules"]
     assert rec["bad"] == []
     assert rec["built"] is False
@@ -79,7 +80,7 @@ def test_sources_import_no_jax_and_compile_nothing():
             "__main__.py", "multihost.py", "mesh.py", "eval_shard.py",
             "dryrun.py", "collective.py", "pytree.py", "summary.py", "imgops.py",
             "facedet_synth.py", "train_facedet.py", "train_facedet_synth.py",
-            "onchip_parity.py"} <= {p.name for p in paths}
+            "onchip_parity.py", "convert_weights.py", "run_benchmark.py"} <= {p.name for p in paths}
     for path in paths + [ROOT / "chip_smoke.py"]:
         assert not pattern.search(path.read_text()), path
 
