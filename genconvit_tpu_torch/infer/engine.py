@@ -40,6 +40,10 @@ library's thread pool (`predict_files_native_rgb`, :604-651) or, under
 transfer_format='yuv420', ships planar YUV420 with a per-video [3,4]
 colour transform and converts on the device (`predict_files_yuv`,
 `forward_batched_yuv`, `predict_videos_stream_yuv`; :517-602, :875-940).
+
+Under `torch.profiler` each forward's host enqueue is the span
+gcv.predictor.launch, the stream's staging of a batch gcv.predictor.stage,
+and each StageTimers stage gcv.stage.<name> (`utils/timing.py`).
 """
 
 from __future__ import annotations
@@ -68,7 +72,7 @@ from genconvit_tpu_torch.models.genconvit import GenConViT, model_spec
 from genconvit_tpu_torch.models.init import init_genconvit_
 from genconvit_tpu_torch.ops.dwsep import add_dw_sep_
 from genconvit_tpu_torch.ops.kernel_plan import KernelPlan
-from genconvit_tpu_torch.utils.timing import StageTimers
+from genconvit_tpu_torch.utils.timing import StageTimers, span
 
 log = logging.getLogger("genconvit_tpu_torch")
 
@@ -294,12 +298,13 @@ class Predictor:
                 video_batch: int) -> torch.Tensor:
         """One forward of a group, the tail padded to video_batch videos:
         device [2, V] (y, y_val) rows, not fetched."""
-        faces_b, masks_b = torch.stack(faces), torch.stack(masks)
-        pad = video_batch - len(faces)
-        if pad > 0:
-            faces_b = torch.cat([faces_b, faces_b.new_zeros((pad,) + faces_b.shape[1:])])
-            masks_b = torch.cat([masks_b, masks_b.new_zeros((pad,) + masks_b.shape[1:])])
-        return self._rows(self.forward_batched(faces_b, masks_b))
+        with span("gcv.predictor.launch"):
+            faces_b, masks_b = torch.stack(faces), torch.stack(masks)
+            pad = video_batch - len(faces)
+            if pad > 0:
+                faces_b = torch.cat([faces_b, faces_b.new_zeros((pad,) + faces_b.shape[1:])])
+                masks_b = torch.cat([masks_b, masks_b.new_zeros((pad,) + masks_b.shape[1:])])
+            return self._rows(self.forward_batched(faces_b, masks_b))
 
     @staticmethod
     def _rows(verdicts: Tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
@@ -375,27 +380,29 @@ class Predictor:
                      ) -> Tuple[List[torch.Tensor], Optional["torch.cuda.Event"]]:
         """(the arrays on the device, ready event or None); host arrays are
         copied on the copy stream from pinned memory."""
-        ts = [torch.as_tensor(a) for a in arrays]
-        if self.device.type != "cuda" or ts[0].is_cuda:
-            return [t.to(self.device) for t in ts], None
-        if self._copy_stream is None:
-            self._copy_stream = torch.cuda.Stream(self.device)
-        with torch.cuda.stream(self._copy_stream):
-            ts = [t if t.is_cuda else t.pin_memory().to(self.device, non_blocking=True)
-                  for t in ts]
-            ready = torch.cuda.Event()
-            ready.record(self._copy_stream)
-        return ts, ready
+        with span("gcv.predictor.stage"):
+            ts = [torch.as_tensor(a) for a in arrays]
+            if self.device.type != "cuda" or ts[0].is_cuda:
+                return [t.to(self.device) for t in ts], None
+            if self._copy_stream is None:
+                self._copy_stream = torch.cuda.Stream(self.device)
+            with torch.cuda.stream(self._copy_stream):
+                ts = [t if t.is_cuda else t.pin_memory().to(self.device, non_blocking=True)
+                      for t in ts]
+                ready = torch.cuda.Event()
+                ready.record(self._copy_stream)
+            return ts, ready
 
     def _stream_launch(self, forward, ts: List[torch.Tensor],
                        ready: Optional["torch.cuda.Event"]) -> torch.Tensor:
-        if ready is not None:
-            stream = torch.cuda.current_stream(self.device)
-            stream.wait_event(ready)
-            # the copy stream allocated them: keep them until this stream is done
-            for t in ts:
-                t.record_stream(stream)
-        return self._rows(forward(*ts))
+        with span("gcv.predictor.launch"):
+            if ready is not None:
+                stream = torch.cuda.current_stream(self.device)
+                stream.wait_event(ready)
+                # the copy stream allocated them: keep them until this stream is done
+                for t in ts:
+                    t.record_stream(stream)
+            return self._rows(forward(*ts))
 
     def predict_faces(self, faces_u8, num_frames: int) -> Tuple[int, float]:
         """faces_u8: [k,S,S,3] uint8 (numpy or a device tensor), k in

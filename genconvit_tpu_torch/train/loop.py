@@ -83,6 +83,7 @@ from genconvit_tpu_torch.parallel.mesh import (DATA_AXIS, all_reduce_grads, data
                                                make_mesh, shard_params, shard_rows, tp_rule,
                                                whole_state_dict)
 from genconvit_tpu_torch.train import optim
+from genconvit_tpu_torch.utils.timing import span
 
 log = logging.getLogger("genconvit_tpu_torch")
 
@@ -200,7 +201,10 @@ def make_train_step(model: GenConViT, net: str, optimizer: torch.optim.Optimizer
     group: data parallelism (module docstring): every rank passes its rows
     of the images and the global batch's labels and eps; the gradients are summed over the group before
     the optimizer step, and loss and accuracy are the global batch's. A
-    batch with fewer rows than ranks is refused (a rank would hold none)."""
+    batch with fewer rows than ranks is refused (a rank would hold none).
+    Under `torch.profiler` the step's phases are the spans gcv.train.forward,
+    .backward, .grad_sync (with a group), .optimizer and .bn_write_back
+    (`utils/timing.py`)."""
     loss_fn = make_loss_fn(model, net, use_kl, dtype, plan, group)
     params = [p for g in optimizer.param_groups for p in g["params"]]
     tp = next((m.tp for m in model.modules() if getattr(m, "tp", None) is not None), None)
@@ -217,21 +221,26 @@ def make_train_step(model: GenConViT, net: str, optimizer: torch.optim.Optimizer
             raise ValueError(f"a batch of {len(labels)} rows over "
                              f"{dist.get_world_size(group)} ranks leaves a rank without rows")
         optimizer.zero_grad(set_to_none=False)
-        loss, aux = loss_fn(images_u8, labels, eps)
-        loss.backward()
+        with span("gcv.train.forward"):
+            loss, aux = loss_fn(images_u8, labels, eps)
+        with span("gcv.train.backward"):
+            loss.backward()
         optim.fill_missing_grads(optimizer)
         acc = aux["acc"]
         if group is not None:
-            all_reduce_grads(params, group)
-            if replicated:
-                all_reduce_grads(replicated, tp.group)
-                for p in replicated:
-                    p.grad.div_(tp.size)
-            both = torch.stack([loss.detach(), acc])
-            dist.all_reduce(both, group=group)
-            loss, acc = both[0], both[1]
-        optimizer.step()
-        write_back_bn(model, aux["bn_stats"], net)
+            with span("gcv.train.grad_sync"):
+                all_reduce_grads(params, group)
+                if replicated:
+                    all_reduce_grads(replicated, tp.group)
+                    for p in replicated:
+                        p.grad.div_(tp.size)
+                both = torch.stack([loss.detach(), acc])
+                dist.all_reduce(both, group=group)
+                loss, acc = both[0], both[1]
+        with span("gcv.train.optimizer"):
+            optimizer.step()
+        with span("gcv.train.bn_write_back"):
+            write_back_bn(model, aux["bn_stats"], net)
         return loss.detach(), acc
 
     return step
