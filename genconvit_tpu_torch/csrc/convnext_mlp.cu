@@ -42,8 +42,24 @@
 //     both warpgroups in cols plans; the f32 values of earlier passes kept
 //     in a caller-given f32 buffer). The GELU tier is a template argument.
 //
+//     Routing: where that loop makes more than one pass (C from 224 up:
+//     mlp_wgmma_passes > 1) and no post-LN is asked for, it would compute
+//     fc1 once per pass (twice per pass in cols plans, both warpgroups on
+//     one y tile) and stream every weight from L2 per pass; those calls take
+//     the ordered route instead (mlp_ordered.cuh: LN, fc1 and fc2 tiles of
+//     one persistent launch, the hidden written once to a scratch and read
+//     back by TMA, each row block's from L2 after its first tile). The rest
+//     keep the fused loop: C up to 192, where one pass holds the hidden in
+//     registers, and the post-LN launches (the last block of a stage), whose
+//     epilogue needs a row's every column in one block. The choice reads
+//     only C and whether a post-LN is asked for; the wrapper makes it
+//     (convnext_mlp.k1_route), since it allocates the route's scratch, and
+//     a call that passes the scratch takes the route (launch_k1_ordered
+//     refuses a width or a post-LN the route does not take).
+//
 // Every entry point returns cudaGetLastError() after its launch.
 
+#include "mlp_ordered.cuh"
 #include "mlp_wgmma.cuh"
 
 namespace {
@@ -199,6 +215,43 @@ int launch_mlp_tier(const MlpArgs& a, const MlpPlan& p, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// K1 on the ordered route (see the note at the top): only where the fused
+// plan makes more than one pass; ybuf [rows, c] and hbuf [rows, 4c] bf16 are
+// its scratch and flags its readiness words (2 + ceil(rows / 128) (1 + c /
+// 32) u64, zero before the first launch on them), gen a generation not used
+// before on those flags (never 0). plant: 0, or launch_ordered's planted faults.
+int launch_k1_ordered(const void* d, const void* x, const void* w1t, const void* bw,
+                      const void* w2t, const void* b2g, void* out, void* ybuf, void* hbuf,
+                      void* flags, long long rows, int c, int hp, unsigned gen, int plant,
+                      void* stream) {
+  const MlpPlan p = mlp_wgmma_plan(c);
+  if (p.rows == 0 || mlp_wgmma_passes(c, p) < 2 || ybuf == nullptr || hbuf == nullptr ||
+      flags == nullptr || gen == 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (rows <= 0) return static_cast<int>(cudaGetLastError());
+  OrdArgs o;
+  o.d = static_cast<const bf16*>(d);
+  o.x = static_cast<const bf16*>(x);
+  o.bw = static_cast<const float*>(bw);
+  o.b2g = static_cast<const float*>(b2g);
+  o.y = static_cast<bf16*>(ybuf);
+  o.h = static_cast<bf16*>(hbuf);
+  o.out = static_cast<bf16*>(out);
+  o.flags = static_cast<unsigned long long*>(flags);
+  o.rows = rows;
+  o.c = c;
+  o.mblocks = static_cast<int>((rows + kOrdRows - 1) / kOrdRows);
+  o.n1 = 4 * c / kOrdCols;
+  o.n2 = (c + kOrdCols - 1) / kOrdCols;
+  o.nk1 = (c + 63) / 64;
+  o.nk2 = c / 16;
+  o.gen = gen;
+  o.plant = plant;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return hp ? launch_ordered<1>(o, w1t, w2t, s) : launch_ordered<0>(o, w1t, w2t, s);
+}
+
 template <int NC, bool COLS, bool STREAM = false>
 int launch_mlp(const MlpArgs& a, const MlpPlan& p, cudaStream_t stream) {
   return a.hp ? launch_mlp_tier<NC, COLS, STREAM, 1>(a, p, stream)
@@ -228,11 +281,19 @@ const char* gcv_error_string(int err) {
 // K1. c must be one gcv_mlp_plan takes (the caller checks); lns/lnb null
 // selects the plain residual epilogue; vbuf [rows, c] f32 is needed with
 // post-LN when the plan makes more than one pass (mlp_wgmma_passes), else
-// may be null.
+// may be null. Passing ybuf, hbuf and flags takes the ordered route
+// (launch_k1_ordered: no post-LN, more than one pass, gen as it says);
+// else they are null and gen is not read.
 int gcv_ln_mlp_residual(const void* d, const void* x, const void* w1t, const void* bw,
                         const void* w2t, const void* b2g, const void* lns,
-                        const void* lnb, void* vbuf, void* out, long long rows, int c, int hp,
+                        const void* lnb, void* vbuf, void* out, void* ybuf, void* hbuf,
+                        void* flags, long long rows, int c, int hp, unsigned gen,
                         void* stream) {
+  if (ybuf != nullptr || hbuf != nullptr || flags != nullptr) {
+    if (lns != nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_k1_ordered(d, x, w1t, bw, w2t, b2g, out, ybuf, hbuf, flags, rows, c, hp, gen,
+                             0, stream);
+  }
   if (rows <= 0) return static_cast<int>(cudaGetLastError());
   const MlpPlan p = mlp_wgmma_plan(c);
   if (p.rows == 0) return static_cast<int>(cudaErrorInvalidValue);
@@ -267,6 +328,16 @@ int gcv_ln_mlp_residual(const void* d, const void* x, const void* w1t, const voi
     return p.cols == 128 ? launch_mlp<128, true, true>(a, p, s) : launch_mlp<192, true, true>(a, p, s);
   }
   return p.cols == 128 ? launch_mlp<128, true>(a, p, s) : launch_mlp<192, true>(a, p, s);
+}
+
+// K1's ordered route with planted faults, for the card tests: plant 1 skips
+// the readiness waits, 2 hands the items out in row order (launch_ordered).
+int gcv_ln_mlp_residual_planted(const void* d, const void* x, const void* w1t, const void* bw,
+                                const void* w2t, const void* b2g, void* out, void* ybuf,
+                                void* hbuf, void* flags, long long rows, int c, int hp,
+                                unsigned gen, int plant, void* stream) {
+  return launch_k1_ordered(d, x, w1t, bw, w2t, b2g, out, ybuf, hbuf, flags, rows, c, hp, gen,
+                           plant, stream);
 }
 
 }  // extern "C"

@@ -31,3 +31,5 @@ def reset_launch_counts() -> None:
         fn.launches = 0
         if hasattr(fn, "masked_launches"):   # K7's launches with a mask
             fn.masked_launches = 0
+        if hasattr(fn, "ordered_launches"):   # K1's launches on its ordered route
+            fn.ordered_launches = 0

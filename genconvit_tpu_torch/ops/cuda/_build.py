@@ -33,8 +33,8 @@ SOURCES = tuple(os.path.join(_PKG_DIR, "csrc", f) for f in
                  "window_attn.cu", "layer_norm_rows.cu", "int8_dot.cu", "dw_moments.cu",
                  "block_parts.cu", "block_parts_hidden.cu", "block_parts_full.cu"))
 HEADERS = tuple(os.path.join(_PKG_DIR, "csrc", f) for f in
-                ("common.cuh", "wgmma.cuh", "mlp_wgmma.cuh", "convnext_mlp_int8.cuh",
-                 "block_wgmma.cuh"))
+                ("common.cuh", "wgmma.cuh", "mlp_wgmma.cuh", "mlp_ordered.cuh",
+                 "convnext_mlp_int8.cuh", "block_wgmma.cuh"))
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build",
                          "genconvit_tpu_torch")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -42,9 +42,14 @@ NVCC_FLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"
 
 _P = ctypes.c_void_p
 _SIGNATURES = {
-    # d, x, w1t, bw, w2t, b2g, lns, lnb, vbuf, out, rows, c, hp, stream
-    "gcv_ln_mlp_residual": ([_P] * 10 + [ctypes.c_longlong, ctypes.c_int,
-                                        ctypes.c_int, _P], ctypes.c_int),
+    # d, x, w1t, bw, w2t, b2g, lns, lnb, vbuf, out, ybuf, hbuf, flags, rows, c, hp,
+    # gen, stream
+    "gcv_ln_mlp_residual": ([_P] * 13 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                                        ctypes.c_uint, _P], ctypes.c_int),
+    # d, x, w1t, bw, w2t, b2g, out, ybuf, hbuf, flags, rows, c, hp, gen, plant, stream
+    "gcv_ln_mlp_residual_planted": ([_P] * 10 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                                                ctypes.c_uint, ctypes.c_int, _P],
+                                    ctypes.c_int),
     # x, scale, bias, out, rows, c, stream
     "gcv_layer_norm_rows": ([_P] * 4 + [ctypes.c_longlong, ctypes.c_int, _P],
                             ctypes.c_int),

@@ -13,7 +13,12 @@ count of its kernel launches in its `launches` attribute, raised where it
 launches and nowhere else.
 
 The kernels' bounds and designs are in the notes at the top of the CUDA
-sources. K2 has its own instantiations at the stem widths K2_WIDTHS and
+sources. K1 has two routes, chosen by the width and the post-LN alone
+(`k1_route`): the fused loop (csrc/mlp_wgmma.cuh), and, where that loop
+would compute fc1 more than once, one persistent launch of ordered LN, fc1
+and fc2 tiles that hands the hidden on through a scratch in device memory
+(csrc/mlp_ordered.cuh); `ln_mlp_residual.ordered_launches` counts the
+latter. K2 has its own instantiations at the stem widths K2_WIDTHS and
 one generic instantiation for every other multiple of 32 (`k2_plan`). The
 LayerNorm affine folds into fc1 and the layer scale into fc2
 (`fold_block_mlp`), once, at engine construction.
@@ -22,6 +27,8 @@ LayerNorm affine folds into fc1 and the layer scale into fc2
 from __future__ import annotations
 
 import ctypes
+import functools
+import threading
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -94,6 +101,7 @@ _SMEM_MAX = 232448
 _SMEM_MISC = 1152   # mbarriers and the row sums of the post-LN
 
 
+@functools.lru_cache(maxsize=None)
 def mlp_plan(c: int) -> Optional[MlpPlan]:
     """K1's tile plan at width c, as the CUDA source computes it; None where
     K1 does not take c (a multiple of 32 in [32, K1_MAX_C])."""
@@ -121,6 +129,68 @@ def mlp_plan(c: int) -> Optional[MlpPlan]:
     nc = best[0]
     st = stages(nc)
     return MlpPlan(rows, nc, st, 1024 + ybytes + st * stage_bytes(nc) + _SMEM_MISC)
+
+
+def k1_route(c: int, post_ln: bool) -> bool:
+    """Whether K1 takes its ordered route at width c: where the fused plan
+    makes more than one pass over the hidden dimension and no post-LN is
+    asked for. The wrapper decides, since it allocates the route's scratch;
+    the library takes the route when the scratch is passed."""
+    plan = mlp_plan(c)
+    return plan is not None and plan.passes(c) > 1 and not post_ln
+
+
+ORD_ROWS = 128   # rows of the ordered route's row block
+
+
+def k1_scratch_shapes(rows: int, c: int, post_ln: bool) -> Tuple[Tuple[int, int], ...]:
+    """The bf16 scratch K1 asks for: y [rows, C] and the hidden [rows, 4C] on
+    the ordered route, none on the fused loop."""
+    return ((rows, c), (rows, 4 * c)) if k1_route(c, post_ln) else ()
+
+
+def k1_flag_words(rows: int, c: int) -> int:
+    """The ordered route's readiness flags past its two counters: for each
+    128-row block, its LN's and its 4C / 128 fc1 tiles' (csrc/mlp_ordered.cuh
+    ord_flags)."""
+    return -(-rows // ORD_ROWS) * (1 + 4 * c // 128)
+
+
+class _Flags:
+    """The ordered route's readiness words on one device and stream: zeroed
+    once when made (or grown), then handed a new generation each launch, so
+    nothing is cleared between launches. They outlive each call (that is
+    what lets a generation stand in for clearing), so the module keeps one
+    set per device and stream: launches on one stream run in order, and two
+    streams never share a set. Threads share a stream (torch's default), so
+    a set and its generation are taken under _FLAGS_LOCK."""
+
+    def __init__(self, words: int, device: torch.device):
+        self.words = torch.zeros(words, dtype=torch.int64, device=device)
+        self.gen = 0
+
+    def next_gen(self) -> int:
+        self.gen = self.gen % 0xFFFFFFFF + 1   # 1 .. 2**32 - 1, never 0
+        return self.gen
+
+
+_FLAGS: dict = {}   # (device index, stream handle) -> _Flags
+_FLAGS_LOCK = threading.Lock()
+
+
+def _flags_and_gen(dev: torch.device, stream: int, words: int,
+                   stale: bool = False) -> Tuple[torch.Tensor, int]:
+    """The set of readiness words for this device and stream, at least
+    2 + words long, and a generation for one launch on it: a new one, or
+    with `stale` the set's last (a planted fault)."""
+    key = (dev.index, stream)
+    with _FLAGS_LOCK:
+        f = _FLAGS.get(key)
+        if f is None or f.words.numel() < 2 + words:
+            old = 0 if f is None else f.words.numel()
+            f = _Flags(max(2 + words, 2 * old, 1 << 16), dev)
+            _FLAGS[key] = f
+        return f.words, (f.gen if stale and f.gen else f.next_gen())
 
 
 def fold_block_mlp_f32(ln_scale, ln_bias, fc1_weight, fc1_bias, fc2_weight,
@@ -245,7 +315,12 @@ def ln_mlp_residual(dw: torch.Tensor, x: torch.Tensor, folded: FoldedMLP,
     post_ln=(scale, bias), its LayerNorm with those f32 params)."""
     if dw.device.type == "cpu" and x.device.type == "cpu":
         return ln_mlp_residual_plain(dw, x, folded, post_ln, gelu)
-    what = "ln_mlp_residual"
+    lns, lnb = _check_k1("ln_mlp_residual", dw, x, folded, post_ln, gelu)
+    return _launch_k1(dw, x, folded, lns, lnb, gelu, 0, False)
+
+
+def _check_k1(what, dw, x, folded, post_ln, gelu):
+    """K1's argument checks; returns the post-LN (scale, bias) or Nones."""
     _require(dw.is_cuda, what, f"unsupported device {dw.device}")
     _check_rows(what, dw, x)
     c = x.shape[-1]
@@ -264,26 +339,82 @@ def ln_mlp_residual(dw: torch.Tensor, x: torch.Tensor, folded: FoldedMLP,
         lns, lnb = post_ln
         _check_vec(what, lns, (c,), torch.float32, dev)
         _check_vec(what, lnb, (c,), torch.float32, dev)
+    return lns, lnb
+
+
+def _launch_k1(dw, x, folded, lns, lnb, gelu, plant, stale_gen):
+    """One K1 launch on checked arguments; plant and stale_gen are the
+    planted faults of `ln_mlp_residual_planted`."""
+    c = x.shape[-1]
+    dev = x.device
+    post = lns is not None
     out = torch.empty_like(x)
     rows = x.numel() // c
     # post-LN over more than one pass keeps x + o in float32 here
     vbuf = (torch.empty((rows, c), dtype=torch.float32, device=dev)
-            if post_ln is not None and plan.passes(c) > 1 else None)
+            if post and mlp_plan(c).passes(c) > 1 else None)
+    scratch = k1_scratch_shapes(rows, c, post)   # the ordered route's, or none
     lib = _build.load()
+    stream = _stream(dev)
+    ptrs = (dw.data_ptr(), x.data_ptr(), folded.wgt.data_ptr(), folded.bw.data_ptr(),
+            folded.w2gt.data_ptr(), folded.b2g.data_ptr())
+    if scratch:
+        poison = bool(plant or stale_gen)   # planted: a stale read shows as NaN
+        ybuf, hbuf = (torch.full(shape, float("nan"), dtype=torch.bfloat16, device=dev)
+                      if poison else torch.empty(shape, dtype=torch.bfloat16, device=dev)
+                      for shape in scratch)
+        flags, gen = _flags_and_gen(dev, stream, k1_flag_words(rows, c), stale_gen)
+        ord_ptrs = (ybuf.data_ptr(), hbuf.data_ptr(), flags.data_ptr())
+        with torch.cuda.device(dev):
+            if plant:
+                err = lib.gcv_ln_mlp_residual_planted(*ptrs, out.data_ptr(), *ord_ptrs, rows, c,
+                                                      int(gelu == "hp"), gen, plant, stream)
+            else:
+                err = lib.gcv_ln_mlp_residual(*ptrs, None, None, None, out.data_ptr(),
+                                              *ord_ptrs, rows, c, int(gelu == "hp"), gen,
+                                              stream)
+        _build.check(err, "ln_mlp_residual")
+        ln_mlp_residual.launches += 1
+        ln_mlp_residual.ordered_launches += 1
+        return out
     with torch.cuda.device(dev):
         err = lib.gcv_ln_mlp_residual(
-            dw.data_ptr(), x.data_ptr(), folded.wgt.data_ptr(),
-            folded.bw.data_ptr(), folded.w2gt.data_ptr(), folded.b2g.data_ptr(),
-            None if lns is None else lns.data_ptr(),
+            *ptrs, None if lns is None else lns.data_ptr(),
             None if lnb is None else lnb.data_ptr(),
             None if vbuf is None else vbuf.data_ptr(),
-            out.data_ptr(), rows, c, int(gelu == "hp"), _stream(dev))
-    _build.check(err, what)
+            out.data_ptr(), None, None, None, rows, c, int(gelu == "hp"), 0, stream)
+    _build.check(err, "ln_mlp_residual")
     ln_mlp_residual.launches += 1
     return out
 
 
 ln_mlp_residual.launches = 0
+ln_mlp_residual.ordered_launches = 0   # of `launches`, those on the ordered route
+
+# The ordered route's planted faults (`ln_mlp_residual_planted`, through
+# the library's gcv_ln_mlp_residual_planted), each of which the card tests
+# must see fail: the readiness waits skipped, and the previous launch's
+# generation passed again (its words already read ready). Both hand the
+# items out row block by row block, where a reader follows its writer at
+# once (the phase order would hide a missing wait most of the time), and
+# fill the scratch with NaN first, so that a stale read shows. "row_order"
+# alone keeps the waits and a new generation: a sound launch, in which
+# every item waits on the one before it, for the tests that stress the
+# route's hand-overs.
+ORDERED_PLANTS = ("no_wait", "stale_gen")
+_PLANT_BITS = {"no_wait": 3, "stale_gen": 2, "row_order": 2}   # gcv_ln_mlp_residual_planted
+
+
+def ln_mlp_residual_planted(dw: torch.Tensor, x: torch.Tensor, folded: FoldedMLP,
+                            plant: str, gelu: str = "default") -> torch.Tensor:
+    """K1 on the ordered route with one of ORDERED_PLANTS planted, or in
+    "row_order" (sound)."""
+    what = "ln_mlp_residual_planted"
+    _require(plant in _PLANT_BITS, what, f"no plant {plant!r}")
+    _check_k1(what, dw, x, folded, None, gelu)
+    _require(k1_route(x.shape[-1], False), what, "the plants are of the ordered route")
+    return _launch_k1(dw, x, folded, None, None, gelu, _PLANT_BITS[plant],
+                      plant == "stale_gen")
 
 
 def layer_norm_rows(x: torch.Tensor, scale: torch.Tensor,

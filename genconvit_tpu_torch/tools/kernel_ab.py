@@ -3,7 +3,7 @@ the port, timed on the card, so that two checkouts (a change and its
 parent) can be compared on one card:
 
     python3 genconvit_tpu_torch/tools/kernel_ab.py [--package-dir DIR] [--ptxas]
-        [--only k1k4,k5k6,k3,k7,k2,m1m2,m3]
+        [--only k1k4,k5k6,k3,k7,k2,m1m2,m3,k1]
 
 DIR holds the genconvit_tpu_torch package to load (default: this checkout);
 unpack the parent with `git archive HEAD genconvit_tpu_torch` into a
@@ -31,8 +31,12 @@ shapes at the ED call's rows, with the kernel's device time from
 torch.profiler beside the events' time, beside cuDNN's depthwise conv and
 the two reductions and the bound with only the taps inside the image
 counted (m3_bound, the same for every checkout); a kernel that refuses a shape (a
-parent's narrower probe) is printed "refused". --only picks groups of
-those. With --ptxas, the build's ptxas register and spill lines of K1, K4,
+parent's narrower probe) is printed "refused", and (k1) K1 alone at the
+block-tail shapes of a V=8 convnext_tiny and convnext_large forward (no
+post-LN: the route most of a stage's blocks take) beside cuBLAS's two bf16
+products on a hidden made beforehand, and the host's time a call (50 calls
+enqueued, the device not awaited), with depth-weighted sums. --only
+picks groups of those. With --ptxas, the build's ptxas register and spill lines of K1, K4,
 K5, K6, M2 (the block-tail kernels), K7, K2, M1 and M3, anonymous-namespace
 hashes taken out, for a diff between two checkouts.
 Run it by path, not with -m: it chooses which package to import.
@@ -44,6 +48,7 @@ import argparse
 import os
 import re
 import sys
+import time
 
 CALLS = ((240, 224), (120, 224), (120, 112))   # ED, VAE x, VAE x_hat: images, px
 DIMS = (96, 192, 384, 768)
@@ -51,7 +56,9 @@ DEPTHS = (3, 3, 9, 3)
 LATENT = (25088, 12544)
 SWIN = ("swin_tiny_patch4_window7_224", "swin_large_patch4_window7_224")
 SWIN_N = 120     # the V=8 batch of face crops
-GROUPS = ("k1k4", "k5k6", "k3", "k7", "k2", "m1m2", "m3")
+GROUPS = ("k1k4", "k5k6", "k3", "k7", "k2", "m1m2", "m3", "k1")
+# K1 alone: (backbone, stage widths, depths)
+K1_BACKBONES = (("tiny", DIMS, DEPTHS), ("large", (192, 384, 768, 1536), (3, 3, 27, 3)))
 # past convnext_tiny's widths, at the ED call's rows: (backbone, stage, C)
 WIDE = (("large", 0, 192), ("large", 1, 384), ("large", 2, 768), ("large", 3, 1536),
         ("base", 3, 1024))
@@ -352,6 +359,49 @@ def mlp_ab(tag: str, dev, g, cuda_ms) -> None:
         print(f"[{tag}] {name} per V=8 forward (depth-weighted): {t:.4f} ms", flush=True)
 
 
+def k1_ab(tag: str, dev, g, cuda_ms) -> None:
+    """K1 at the 12 block-tail shapes of a V=8 forward of each backbone in
+    K1_BACKBONES, beside cuBLAS's two bf16 products; per forward: x depth."""
+    import torch
+
+    from genconvit_tpu_torch.ops.cuda import convnext_mlp as km
+
+    for name, dims, depths in K1_BACKBONES:
+        k1_total = products_total = host_total = 0.0
+        for n, px in CALLS:
+            for si, c in enumerate(dims):
+                rows = n * ((px // 4) >> si) ** 2
+
+                def r(*shape, s=1.0):
+                    return s * torch.randn(*shape, device=dev, generator=g)
+                folded = km.fold_block_mlp(
+                    1 + r(c, s=0.1), r(c, s=0.1), r(4 * c, c, s=c ** -0.5), r(4 * c, s=0.05),
+                    r(c, 4 * c, s=(4 * c) ** -0.5), r(c, s=0.05),
+                    0.1 + 0.9 * torch.rand(c, device=dev, generator=g), torch.bfloat16)
+                dw = (2 * r(rows, c)).to(torch.bfloat16)
+                x = r(rows, c).to(torch.bfloat16)
+                t = cuda_ms(lambda: km.ln_mlp_residual(dw, x, folded), 10)
+                # the host's time a call: 50 calls enqueued, the device not awaited
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(50):
+                    km.ln_mlp_residual(dw, x, folded)
+                host_us = (time.perf_counter() - t0) / 50 * 1e6
+                torch.cuda.synchronize()
+                del dw, x
+                y = r(rows, c).to(torch.bfloat16)
+                h = r(rows, 4 * c).to(torch.bfloat16)
+                t_p = cuda_ms(lambda: (torch.matmul(y, folded.wg), torch.matmul(h, folded.w2g)), 10)
+                del y, h
+                k1_total += depths[si] * t
+                products_total += depths[si] * t_p
+                host_total += depths[si] * host_us / 1e3
+                print(f"[{tag}] K1 {name} R={rows} C={c}: {t:.4f} ms, two products {t_p:.4f} ms, "
+                      f"host {host_us:.1f} us a call", flush=True)
+        print(f"[{tag}] K1 {name} per V=8 forward (depth-weighted): {k1_total:.4f} ms, "
+              f"two products {products_total:.4f} ms, host {host_total:.4f} ms", flush=True)
+
+
 def k3_ab(tag: str, dev, g, cuda_ms) -> None:
     """K3 on the latent head at M = 15, 30, 120 beside F.linear on the bf16
     head."""
@@ -418,7 +468,7 @@ def main(argv=None) -> int:
 
     g = torch.Generator(device=dev).manual_seed(3)
     for group, fn in (("k1k4", mlp_ab), ("k5k6", fused_ab), ("k3", k3_ab), ("k7", k7_ab),
-                      ("k2", k2_ab), ("m1m2", probes_ab), ("m3", m3_ab)):
+                      ("k2", k2_ab), ("m1m2", probes_ab), ("m3", m3_ab), ("k1", k1_ab)):
         if group in only:
             fn(tag, dev, g, cuda_ms)
     return 0

@@ -201,6 +201,100 @@ def test_k1_refuses_widths_past_its_plan(dev):
             km.ln_mlp_residual(x, x, folded)
 
 
+# K1's ordered route (csrc/mlp_ordered.cuh): every width where the fused plan
+# makes more than one pass, no post-LN. Row counts ragged against its
+# 128-row blocks, up to the ED call's 47040.
+_ORD_WIDTHS = (384, 768, 1024, 1536)
+_ORD_ROWS = (1080, 5880, 11760 + 37, 47040)
+
+
+def _ord_inputs(c, dev, seed, rows):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    dw = (2 * torch.randn(rows, c, device=dev, generator=g)).to(torch.bfloat16)
+    x = torch.randn(rows, c, device=dev, generator=g).to(torch.bfloat16)
+    return dw, x
+
+
+@pytest.mark.parametrize("tier", ["default", "hp"])
+@pytest.mark.parametrize("c", _ORD_WIDTHS)
+def test_k1_ordered_route_matches_plain(dev, c, tier):
+    """Within 2 ulps of the plain version at every row count, one launch a
+    call counted on both counters, the same bits from two launches."""
+    assert km.k1_route(c, False) and not km.k1_route(c, True)
+    folded = km.fold_block_mlp(*_folded_args(c, dev, 700 + c), torch.bfloat16)
+    for rows in _ORD_ROWS:
+        dw, x = _ord_inputs(c, dev, 800 + c + rows, rows)
+        before = (km.ln_mlp_residual.launches, km.ln_mlp_residual.ordered_launches)
+        out = km.ln_mlp_residual(dw, x, folded, None, tier)
+        again = km.ln_mlp_residual(dw, x, folded, None, tier)
+        torch.cuda.synchronize()
+        assert (km.ln_mlp_residual.launches - before[0],
+                km.ln_mlp_residual.ordered_launches - before[1]) == (2, 2)
+        assert torch.equal(out.view(torch.int16), again.view(torch.int16)), rows
+        ref = km.ln_mlp_residual_plain(dw, x, folded, None, tier)
+        assert _agrees(out, ref, x, _branch_max(dw, folded, tier)), rows
+
+
+@pytest.mark.parametrize("c", _ORD_WIDTHS)
+def test_k1_ordered_route_planted_faults_fail(dev, c):
+    """The check refuses the route with fc1's bias dropped, with its
+    readiness waits skipped (a stale hidden) and with the last launch's
+    generation passed again; a sound launch after them is right again."""
+    args = _folded_args(c, dev, 900 + c)
+    folded = km.fold_block_mlp(*args, torch.bfloat16)
+    dw, x = _ord_inputs(c, dev, 1000 + c, 11760 + 37)
+    ref = km.ln_mlp_residual_plain(dw, x, folded)
+    o_max = _branch_max(dw, folded)
+    assert _agrees(km.ln_mlp_residual(dw, x, folded), ref, x, o_max)
+    no_bias = folded._replace(bw=torch.zeros_like(folded.bw))
+    assert not _agrees(km.ln_mlp_residual(dw, x, no_bias), ref, x, o_max)
+    for plant in km.ORDERED_PLANTS:
+        assert not _agrees(km.ln_mlp_residual_planted(dw, x, folded, plant), ref, x, o_max), plant
+    assert _agrees(km.ln_mlp_residual(dw, x, folded), ref, x, o_max)
+
+
+@pytest.mark.parametrize("c,rows", [(384, 47040), (768, 5880 + 37), (1536, 11760 + 37)])
+def test_k1_ordered_route_holds_under_relaunches(dev, c, rows):
+    """Many launches, half of them with the items in row order (every item
+    waits on the one before it, so the ring drains and refills at each
+    hand-over from one warpgroup to the other): every launch gives the
+    first one's bits, which are within 2 ulps of the plain version."""
+    folded = km.fold_block_mlp(*_folded_args(c, dev, 1100 + c), torch.bfloat16)
+    dw, x = _ord_inputs(c, dev, 1200 + c, rows)
+    first = km.ln_mlp_residual(dw, x, folded)
+    ref = km.ln_mlp_residual_plain(dw, x, folded)
+    assert _agrees(first, ref, x, _branch_max(dw, folded))
+    for i in range(24):
+        out = (km.ln_mlp_residual_planted(dw, x, folded, "row_order") if i % 2
+               else km.ln_mlp_residual(dw, x, folded))
+        assert torch.equal(out.view(torch.int16), first.view(torch.int16)), i
+
+
+@pytest.mark.parametrize("backbone,k1,ordered", [("convnext_tiny", 54, 33),
+                                                 ("convnext_large", 108, 93)])
+def test_k1_ordered_launches_per_forward(dev, backbone, k1, ordered):
+    """One default-plan ensemble forward at 224 px: every K1 launch counted
+    once, the ordered route's at C = 384, 768 and 1536 without post-LN."""
+    from genconvit_tpu_torch.config import Config, ModelConfig
+    from genconvit_tpu_torch.infer.engine import Predictor
+    from genconvit_tpu_torch.ops import cuda as kcuda
+
+    pred = Predictor(Config(model=ModelConfig(backbone=backbone)), device=dev,
+                     deterministic_vae=True, face_backend="center")
+    g = torch.Generator(device=dev).manual_seed(11)
+    frames = torch.randint(0, 256, (1, 15, 224, 224, 3), dtype=torch.uint8, device=dev,
+                           generator=g)
+    mask = torch.ones(1, 15, device=dev)
+    pred.forward_batched(frames, mask)
+    torch.cuda.synchronize()
+    kcuda.reset_launch_counts()
+    assert km.ln_mlp_residual.ordered_launches == 0
+    _, y_val = pred.forward_batched(frames, mask)
+    torch.cuda.synchronize()
+    assert torch.isfinite(y_val).all()
+    assert (km.ln_mlp_residual.launches, km.ln_mlp_residual.ordered_launches) == (k1, ordered)
+
+
 # K3 and K4 (the int8 configuration). K4 is held within k4.ULP_TOL bf16
 # ulps: K1's two rounding flips plus one int8 step (convnext_mlp_int8).
 

@@ -4,7 +4,8 @@ same math, float32 sums over 1024 and 4096 terms in another order), the
 port's ConvNeXt at convnext_large's widths against the JAX f32 backbone
 through the weight bridge (rtol 1e-3, atol 1e-4, as test_torch_models),
 its kernel wiring against its plain graph at those widths, and the Python
-mirror of K1's tile plan (the card tests hold it against the library's)."""
+mirror of K1's tile plan and of its route (the card tests hold both against
+the library's)."""
 
 import numpy as np
 import pytest
@@ -125,3 +126,65 @@ def test_k1_folds_carry_the_transposed_matrices():
     f = _fold(_block_params(rng, 64))
     assert torch.equal(f.wgt, f.wg.t()) and f.wgt.is_contiguous()
     assert torch.equal(f.w2gt, f.w2g.t()) and f.w2gt.is_contiguous()
+
+
+@pytest.mark.parametrize("c", range(32, km.K1_MAX_C + 1, 32))
+def test_k1_route_where_the_fused_plan_recomputes_fc1(c):
+    """The ordered route exactly where the fused plan makes more than one
+    pass and no post-LN is asked for; its scratch, y [R, C] and the hidden
+    [R, 4C] bf16, there and nowhere else."""
+    routed = km.mlp_plan(c).passes(c) > 1
+    assert km.k1_route(c, False) == routed
+    assert not km.k1_route(c, True)
+    for rows in (1, 1037):
+        assert km.k1_scratch_shapes(rows, c, False) == (((rows, c), (rows, 4 * c)) if routed
+                                                        else ())
+        assert km.k1_scratch_shapes(rows, c, True) == ()
+
+
+@pytest.mark.parametrize("c", [0, 16, 48, 1568, 2048])
+def test_k1_route_refuses_widths_past_the_plan(c):
+    assert not km.k1_route(c, False)
+
+
+def test_k1_cpu_path_counts_no_launch():
+    """The plain path on CPU tensors, at routed widths and one fused width,
+    raises neither `launches` nor `ordered_launches`."""
+    rng = np.random.default_rng(5)
+    before = (km.ln_mlp_residual.launches, km.ln_mlp_residual.ordered_launches)
+    for c in (384, 768, 192):
+        f = _fold(_block_params(rng, c))
+        dw = torch.from_numpy(rng.standard_normal((3, c)).astype(np.float32)).to(torch.bfloat16)
+        x = torch.from_numpy(rng.standard_normal((3, c)).astype(np.float32)).to(torch.bfloat16)
+        out = km.ln_mlp_residual(dw, x, f._replace(wg=f.wg.to(torch.bfloat16),
+                                                   w2g=f.w2g.to(torch.bfloat16)))
+        assert out.shape == x.shape and torch.isfinite(out.float()).all()
+    assert (km.ln_mlp_residual.launches, km.ln_mlp_residual.ordered_launches) == before
+
+
+def test_k1_generations_are_unique_across_threads():
+    """Threads on one stream share a set of readiness words: each launch's
+    generation is new (never 0) however the threads interleave, and the
+    stale plant gets the set's last one."""
+    import threading
+
+    dev = torch.device("cpu")
+    key = (dev.index, -7)
+    gens, lock = [], threading.Lock()
+
+    def draw():
+        mine = [km._flags_and_gen(dev, -7, 100 + i)[1] for i in range(300)]
+        with lock:
+            gens.extend(mine)
+
+    try:
+        threads = [threading.Thread(target=draw) for _ in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        assert len(gens) == len(set(gens)) == 2400 and 0 not in gens
+        words, last = km._flags_and_gen(dev, -7, 10, stale=True)
+        assert last == max(gens) and words.numel() >= 2 + 399
+    finally:
+        km._FLAGS.pop(key, None)
