@@ -385,6 +385,23 @@ Phases (any failed check raises and the exit code is non-zero):
      decoder, the `.gcv` weights by name and the 'jax' detector: both result
      JSONs, the same labels, preds within 1e-5; the comparison where
      matplotlib is installed, else its ImportError after both runs.
+  20. GenConViT's ED on Swin-L (after phase 19; `--phase20-only` runs
+     phases 1, 2 and 20 alone): (a) K1 as a Swin MLP half (dw = x, a unit
+     layer scale) and K2, both at Swin's eps 1e-5, at the four (R, C) of a
+     V=8 swin_large ED call (752640 x 192 ... 11760 x 1536), and K2 at its
+     three patch mergings' (R, 4C) (188160 x 768 ... 11760 x 3072), on rows
+     a third of which have a variance near 1e-5, against their plain
+     versions (REL_TOL, km.ULP_TOL ulps), ConvNeXt's 1e-6 planted and
+     refused, K1 timed beside the plain bf16 half; K7 at N=240 (the V=8
+     call's images) at each stage's masked and unmasked shape against its
+     plain version (REL_TOL, k7.ULP_TOL), its planted faults refused;
+     (b) a Swin-L block at each stage's
+     shape on K2, K7 and K1 against its plain bf16 graph (REL_TOL);
+     (c) Predictor(net='ed') on swin_large_patch4_window7_224 through
+     predict_videos_stream: 24 K1 launches (22 ordered), 24 K7 (11
+     masked), 29 K2 a V=8 forward, y_val against the float32 plain path on
+     the same weights (SWIN_YVAL_TOL), and V=8 videos/s over 3 calls of 4
+     batches.
 
 The line before the last is the kernels' JSON record; the last line is
 {"ok": true, "device": {...}}. Without CUDA it exits non-zero at once.
@@ -5787,6 +5804,197 @@ def p19_summary(p19: dict, card: str) -> None:
         f"{p19['seconds']:.1f} s [{card}]")
 
 
+SWIN_L = "swin_large_patch4_window7_224"
+SWIN_L_ROWS = ((240 * 56 * 56, 192), (240 * 28 * 28, 384), (240 * 14 * 14, 768),
+               (240 * 7 * 7, 1536))
+SWIN_L_BLOCKS = ((192, 6, 56, 3), (384, 12, 28, 3), (768, 24, 14, 3), (1536, 48, 7, 0))
+SWIN_L_MERGE_ROWS = ((240 * 28 * 28, 768), (240 * 14 * 14, 1536), (240 * 7 * 7, 3072))
+SWIN_ED_PER_FORWARD = {"k1": 24, "k1_ordered": 22, "k7": 24, "k7_masked": 11, "k2": 29}
+SWIN_YVAL_TOL = 1e-3   # bf16 kernel path vs float32 plain path: 2.627e-4 read on the H100
+
+
+def quiet_rows(torch, dev, g, rows: int, c: int):
+    """[rows, c] bf16 of N(0, 1) rows, every third scaled by 3e-3: a variance
+    near 1e-5, where Swin's eps and ConvNeXt's 1e-6 part."""
+    quiet = (torch.arange(rows, device=dev) % 3 == 0)[:, None]
+    return (torch.randn(rows, c, device=dev, generator=g)
+            * torch.where(quiet, 3e-3, 1.0)).to(torch.bfloat16)
+
+
+def check_k2_swin_eps(torch, km, what: str, x, s32, b32) -> tuple:
+    """K2 at eps 1e-5 against its plain version (REL_TOL, km.ULP_TOL ulps),
+    and ConvNeXt's eps 1e-6 planted, which the check must refuse: (ulps,
+    planted ulps)."""
+    want = km.layer_norm_rows_plain(x, s32, b32, 1e-5)
+    _, _, ulps = compare(torch, km, f"{what} K2 at eps 1e-5",
+                         km.layer_norm_rows(x, s32, b32, 1e-5), want)
+    bad = km.layer_norm_rows(x, s32, b32, 1e-6)
+    must_fail(torch, km, f"{what} K2 at eps 1e-6", bad, want)
+    return ulps, km.bf16_ulp_error(bad, want)
+
+
+def phase_p20(torch, np, dev, card: str) -> dict:
+    """Phase 20 (module docstring): GenConViT's ED on Swin-L."""
+    import torch.nn.functional as F
+
+    from genconvit_tpu_torch.config import Config, ModelConfig
+    from genconvit_tpu_torch.infer.engine import Predictor
+    from genconvit_tpu_torch.models.init import init_genconvit_, init_swin_
+    from genconvit_tpu_torch.models.genconvit import GenConViT
+    from genconvit_tpu_torch.models.swin import SwinBlock
+    from genconvit_tpu_torch.ops import cuda as kcuda
+    from genconvit_tpu_torch.ops.act import gelu
+    from genconvit_tpu_torch.ops.cuda import convnext_mlp as km
+    from genconvit_tpu_torch.ops.cuda import window_attn as k7
+    from genconvit_tpu_torch.ops.norm import layer_norm
+
+    def rel(out, ref):
+        return ((out.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
+
+    g = torch.Generator(device=dev).manual_seed(2020)
+    out = {"rows": [], "blocks": []}
+    # (a) K1 and K2 at eps 1e-5
+    k1_total = half_total = 0.0
+    for (rows, c), blocks in zip(SWIN_L_ROWS, (2, 2, 18, 2)):
+        x = quiet_rows(torch, dev, g, rows, c)
+
+        def r(*shape, s=1.0):
+            return s * torch.randn(*shape, device=dev, generator=g)
+        lw, lb = 1 + r(c, s=0.1), r(c, s=0.1)
+        w1, b1 = r(4 * c, c, s=c ** -0.5), r(4 * c, s=0.05)
+        w2, b2 = r(c, 4 * c, s=(4 * c) ** -0.5), r(c, s=0.05)
+        folded = km.fold_block_mlp(lw, lb, w1, b1, w2, b2, torch.ones(c, device=dev),
+                                   torch.bfloat16)
+        got = km.ln_mlp_residual(x, x, folded, None, "default", 1e-5)
+        want = km.ln_mlp_residual_plain(x, x, folded, None, "default", 1e-5)
+        scale = km.ln_mlp_residual_plain(x, torch.zeros_like(x), folded, None, "default",
+                                         1e-5).float().abs().max().item()
+        ulps = km.bf16_ulp_error(got, want, x, scale)
+        planted = km.bf16_ulp_error(km.ln_mlp_residual(x, x, folded, None, "default", 1e-6),
+                                    want, x, scale)
+        if not (rel(got, want) <= REL_TOL and ulps <= km.ULP_TOL) or planted <= km.ULP_TOL:
+            raise AssertionError(f"K1 at eps 1e-5, R={rows} C={c}: rel {rel(got, want):.3e}, "
+                                 f"{ulps:.2f} ulps; eps 1e-6 planted {planted:.2f} ulps")
+        ulps2, planted2 = check_k2_swin_eps(torch, km, f"R={rows} C={c}", x,
+                                            lw.float().contiguous(), lb.float().contiguous())
+        lw16, lb16, w116, b116, w216, b216 = (t.to(torch.bfloat16)
+                                              for t in (lw, lb, w1, b1, w2, b2))
+
+        def plain_half():
+            z = gelu(F.linear(layer_norm(x, lw16, lb16, 1e-5), w116, b116))
+            return x + F.linear(z, w216, b216)
+        t_k1 = cuda_ms(torch, lambda: km.ln_mlp_residual(x, x, folded, None, "default", 1e-5),
+                       10)
+        t_half = cuda_ms(torch, plain_half, 10)
+        k1_total += blocks * t_k1
+        half_total += blocks * t_half
+        log(f"p20a K1/K2 at eps 1e-5 R={rows} C={c}: K1 {ulps:.2f} ulps (1e-6 planted "
+            f"{planted:.1f}), K2 {ulps2:.2f} ulps (1e-6 planted {planted2:.1f}); K1 "
+            f"{t_k1:.4f} ms against the plain bf16 half {t_half:.4f} ms [{card}]")
+        out["rows"].append((rows, c, ulps, ulps2, t_k1, t_half))
+        del x, got, want
+    log(f"p20a per V=8 swin_large forward (x 2, 2, 18, 2 blocks): K1 {k1_total:.4f} ms, plain "
+        f"bf16 halves {half_total:.4f} ms [{card}]")
+    out["k1_ms"], out["half_ms"] = k1_total, half_total
+    # K2 at the patch mergings' (R, 4C); 3072 columns take the re-read path
+    for rows, c in SWIN_L_MERGE_ROWS:
+        x = quiet_rows(torch, dev, g, rows, c)
+        s32 = (1 + 0.1 * torch.randn(c, device=dev, generator=g)).contiguous()
+        b32 = (0.1 * torch.randn(c, device=dev, generator=g)).contiguous()
+        ulps2, planted2 = check_k2_swin_eps(torch, km, f"merge R={rows} 4C={c}", x, s32, b32)
+        log(f"p20a K2 at a patch merging, eps 1e-5, R={rows} 4C={c}: {ulps2:.2f} ulps (1e-6 "
+            f"planted {planted2:.1f}) [{card}]")
+        out["rows"].append((rows, c, None, ulps2, None, None))
+        del x
+    # K7 at N=240, each stage's masked and unmasked launches, planted faults
+    k7rec = {"err": 0.0, "ulps": 0.0, "planted_min": float("inf")}
+    for si, hw, b, heads, hd, w, nw, n_masked, n_plain in k7_shapes(SWIN_L, 240):
+        qkv, bias, mask = k7_inputs(torch, np, dev, g, b, hw, w, heads, hd)
+        for m in ([mask] if n_masked else []) + ([None] if n_plain else []):
+            check_k7(torch, k7, f"p20a K7 s{si} B={b} heads={heads} mask={int(m is not None)}",
+                     qkv, bias, m, heads, 1 if m is None else nw, nw, k7rec)
+        del qkv, bias, mask
+    log(f"p20a K7 at N=240: max ulps {k7rec['ulps']:.3f} (limit {k7.ULP_TOL}); planted faults "
+        f">= {k7rec['planted_min']:.1f} ulps [{card}]")
+    out["k7_ulps"] = k7rec["ulps"]
+    # (b) a block on its kernels against its plain bf16 graph
+    for c, heads, hw, shift in SWIN_L_BLOCKS:
+        blk = SwinBlock(c, heads, 7).to(dev)
+        init_swin_(blk, g)
+        with torch.no_grad():
+            blk.attn.relative_position_bias_table.normal_(generator=g)
+            for ln in (blk.norm1, blk.norm2):
+                ln.weight.add_(0.2 * torch.randn(c, device=dev, generator=g))
+                ln.bias.add_(0.1 * torch.randn(c, device=dev, generator=g))
+        blk = blk.to(torch.bfloat16).eval()
+        x = torch.randn(8, hw * hw, c, device=dev, generator=g).to(torch.bfloat16)
+        ln1 = (blk.norm1.weight.float().contiguous(), blk.norm1.bias.float().contiguous())
+        with torch.inference_mode():
+            got = blk(x, (hw, hw), 7, shift, "default", True, blk.fold(), ln1)
+            want = blk(x, (hw, hw), 7, shift, "default", False)
+        e = rel(got, want)
+        if not e <= REL_TOL or not torch.isfinite(got).all():
+            raise AssertionError(f"Swin block C={c} shift {shift}: rel {e:.3e}")
+        log(f"p20b Swin-L block C={c} heads {heads} {hw}x{hw} shift {shift} on K2/K7/K1 vs "
+            f"the plain bf16 graph: rel {e:.3e} [{card}]")
+        out["blocks"].append((c, shift, e))
+    # (c) the scoring path
+    config = Config(model=ModelConfig(backbone=SWIN_L))
+    with torch.device("meta"):
+        model = GenConViT(config, "ed")
+    model = model.to_empty(device=dev)
+    init_genconvit_(model, g)
+    sd = {k: v.detach().clone() for k, v in model.ed.state_dict().items()}
+    del model
+    pred = Predictor(config, net="ed", device=dev, params={"ed": sd}, face_backend="center")
+    rng = np.random.default_rng(20)
+    batches = [(rng.integers(0, 256, (8, 15, IMG, IMG, 3), dtype=np.uint8),
+                (rng.random((8, 15)) > 0.1).astype(np.float32)) for _ in range(4)]
+    for b in batches:
+        b[1][:, 0] = 1.0
+    pred.predict_videos_stream(batches[:1])
+    kcuda.reset_launch_counts()
+    first = pred.predict_videos_stream(batches[:1])
+    counts = {"k1": km.ln_mlp_residual.launches,
+              "k1_ordered": km.ln_mlp_residual.ordered_launches,
+              "k7": k7.window_attention.launches,
+              "k7_masked": k7.window_attention.masked_launches,
+              "k2": km.layer_norm_rows.launches}
+    if counts != SWIN_ED_PER_FORWARD:
+        raise AssertionError(f"Swin-L ED launches a V=8 forward: {counts}, want "
+                             f"{SWIN_ED_PER_FORWARD}")
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pred.predict_videos_stream(batches)
+        times.append(time.perf_counter() - t0)
+    rate = 32 / min(times)
+    del pred
+    torch.cuda.empty_cache()
+    f32 = Predictor(config, net="ed", device=dev, params={"ed": sd}, face_backend="center",
+                    dtype=torch.float32)
+    (_, ref_val), = f32.predict_videos_stream(batches[:1])
+    dy = float(np.abs(first[0][1] - ref_val).max())
+    del f32
+    torch.cuda.empty_cache()
+    if not dy < SWIN_YVAL_TOL:
+        raise AssertionError(f"Swin-L ED bf16 vs f32 plain: max|dy_val| {dy:.3e} (limit "
+                             f"{SWIN_YVAL_TOL})")
+    log(f"p20c Swin-L ED stream: launches a V=8 forward {counts}; max|dy_val| vs f32 plain "
+        f"{dy:.3e}; V=8 {rate:.2f} videos/s (best of 3 calls of 4 batches) [{card}]")
+    out.update(counts=counts, dy_val=dy, videos_s=rate)
+    return out
+
+
+def p20_summary(p20: dict, card: str) -> None:
+    log(f"summary [p20 swin_large ED]: launches a V=8 forward {p20['counts']}; max|dy_val| vs "
+        f"f32 plain {p20['dy_val']:.3e}; K7 at N=240 {p20['k7_ulps']:.3f} ulps; V=8 "
+        f"{p20['videos_s']:.2f} videos/s; K1 MLP halves "
+        f"{p20['k1_ms']:.4f} ms a forward against the plain bf16 halves' {p20['half_ms']:.4f} "
+        f"[{card}]")
+
+
 def main() -> int:
     import argparse
     import gc
@@ -5819,6 +6027,9 @@ def main() -> int:
     ap.add_argument("--phase19-only", action="store_true",
                     help="phases 1, 2 and 19 alone (no result lines): the weight converter CLI "
                          "on full-size seeded weights and the A/B runner")
+    ap.add_argument("--phase20-only", action="store_true",
+                    help="phases 1, 2 and 20 alone (no result lines): GenConViT's ED on "
+                         "Swin-L (K1 and K2 at eps 1e-5, the block, the scoring path)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
@@ -5898,6 +6109,12 @@ def main() -> int:
             log(f"phase 19: {time.perf_counter() - t:.1f} s")
         log(f"chip_smoke --phase19-only: phase 19 passed in {time.perf_counter() - t_all:.1f} s")
         return 0
+    if args.phase20_only:
+        t = time.perf_counter()
+        p20_summary(phase_p20(torch, np, dev, card), card)
+        log(f"phase 20: {time.perf_counter() - t:.1f} s")
+        log(f"chip_smoke --phase20-only: phase 20 passed in {time.perf_counter() - t_all:.1f} s")
+        return 0
     t = time.perf_counter()
     kernels = (phase_kernels(torch, dev, card) + phase_fused(torch, dev, card)
                + [phase_k7(torch, dev, card)])
@@ -5973,6 +6190,11 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         t = time.perf_counter()
+        p20 = phase_p20(torch, np, dev, card)
+        log(f"phase 20: {time.perf_counter() - t:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
         training = phase_train(torch, np, dev, card, tmp, args.profile)
         log(f"phase 13: {time.perf_counter() - t:.1f} s")
     for name, r in runs.items():
@@ -6019,6 +6241,7 @@ def main() -> int:
     p17_summary(p17, card)
     p18_summary(p18, card)
     p19_summary(p19, card)
+    p20_summary(p20, card)
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_all:.1f} s [{card}]")
     # each kernel's launches: the count of the run whose main path runs it
     # (the counts were set to 0 just before its requests)

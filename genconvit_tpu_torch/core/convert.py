@@ -25,6 +25,13 @@ converted checkpoint's embedder comes across on its own with
 `state_dict_from_jax(tree["embedder"], "swin")`. Leaves may be numpy
 arrays or torch tensors (the checkpoint reader's bfloat16 leaves).
 
+An 'ed' branch may hold a Swin backbone (the reference's ED on a
+config.yaml that names one): timm's keys under `backbone.` (`backbone.layers.*`,
+`backbone.patch_embed.*`, `backbone.head`), a Swin tree under "backbone"
+(one with "layers"). There `backbone.patch_embed.` is the Swin's own
+patch embedding, read and kept; timm's relative_position_index and
+attn_mask buffers are dropped, as the model recomputes them.
+
 `state_dict_from_reference` takes the reference's own torch checkpoints
 (the published `.pth` files, `genconvit_vae_updated` ones too) to the same
 state dicts, and
@@ -163,7 +170,7 @@ def state_dict_from_jax(tree: Mapping[str, Any], branch: str) -> StateDict:
             _conv(sd, f"encoder.features.{i}", p)
         for p, i in zip(tree["decoder"], (0, 2, 4, 6, 8)):
             _convT(sd, f"decoder.features.{i}", p)
-        _convnext(sd, "backbone.", tree["backbone"])
+        (_swin if "layers" in tree["backbone"] else _convnext)(sd, "backbone.", tree["backbone"])
     elif branch == "vae":
         enc = tree["encoder"]
         for conv, bn, i in zip(enc["convs"], enc["bns"], (0, 3, 6, 9)):
@@ -210,6 +217,19 @@ def branch_spec(sd: Mapping[str, Any], branch: str) -> Dict[str, str]:
 _DEAD = {"ed": re.compile(r"^(embedder\.|backbone\.patch_embed\.)"),
          "vae": re.compile(r"^(embedder\.|convnext_backbone\.patch_embed\.|"
                            r"encoder\.fc[12]\.|fc3\.)")}
+# ... and of an ED on a Swin backbone, whose patch_embed is its own: the
+# embedder, and timm's buffers, which the model recomputes
+_DEAD_SWIN_ED = re.compile(r"^embedder\.|^backbone\..*(relative_position_index|attn_mask)$")
+
+
+def swin_backbone(sd: Mapping[str, Any]) -> bool:
+    """Whether an 'ed' state dict holds a Swin backbone (timm's
+    `backbone.layers.*`) rather than a ConvNeXt."""
+    return any(k.startswith("backbone.layers.") for k in sd)
+
+
+def _dead(sd: Mapping[str, Any], branch: str):
+    return _DEAD_SWIN_ED if branch == "ed" and swin_backbone(sd) else _DEAD[branch]
 
 
 def unwrap_state_dict(obj: Any) -> Mapping[str, Any]:
@@ -240,8 +260,10 @@ def state_dict_from_reference(obj: Mapping[str, Any], branch: str) -> StateDict:
     if branch not in _DEAD:
         raise ValueError(f"unknown branch {branch!r}")
     sd: StateDict = {}
-    for k, v in unwrap_state_dict(obj).items():
-        if _DEAD[branch].match(k):
+    src = unwrap_state_dict(obj)
+    dead = _dead(src, branch)
+    for k, v in src.items():
+        if dead.match(k):
             continue
         v = v if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v))
         sd[k] = v.float() if v.dtype == torch.float16 else v
@@ -370,14 +392,15 @@ def _consume_aliases(sd: Mapping[str, Any], backbone: str) -> None:
 
 
 def _ed_tree(sd: Mapping[str, torch.Tensor], carry_dead_params: bool = False) -> Dict[str, Any]:
+    swin = swin_backbone(sd)
     tree = {"encoder": [_conv_tree(sd, f"encoder.features.{i}") for i in (0, 3, 6, 9, 12)],
             "decoder": [_convT_tree(sd, f"decoder.features.{i}") for i in (0, 2, 4, 6, 8)],
-            "backbone": _convnext_tree(sd, "backbone."),
+            "backbone": (_swin_tree if swin else _convnext_tree)(sd, "backbone."),
             "fc": _linear_tree(sd, "fc"),
             "fc2": _linear_tree(sd, "fc2")}
     if carry_dead_params and "embedder.patch_embed.proj.weight" in sd:
         tree["embedder"] = _swin_tree(sd, "embedder.")
-        if "backbone.patch_embed.proj.weight" in sd:
+        if "backbone.patch_embed.proj.weight" in sd and not swin:
             tree["hybrid_proj"] = _conv_tree(sd, "backbone.patch_embed.proj")
         _consume_aliases(sd, "backbone")
     return tree
@@ -489,7 +512,7 @@ def _convert(sd: Mapping[str, Any], which: str,
         tree = _vae_tree(tracked, carry_dead_params, which == "vae_updated")
     else:
         raise ValueError(f"unknown branch {which!r}")
-    dropped = None if carry_dead_params else _DEAD["ed" if which == "ed" else "vae"]
+    dropped = None if carry_dead_params else _dead(sd, "ed" if which == "ed" else "vae")
     unused = sorted(k for k in sd if k not in tracked.used and not _EXPECTED_UNCONSUMED.match(k)
                     and not (dropped and dropped.match(k)))
     return tree, unused

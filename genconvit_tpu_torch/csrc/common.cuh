@@ -11,6 +11,8 @@ namespace {
 typedef __nv_bfloat16 bf16;
 typedef __nv_bfloat162 bf162;
 
+// ConvNeXt's LayerNorm eps, as K4-K6 and the probes fix it; K1 and K2 take
+// theirs as an argument (Swin's LayerNorms use 1e-5).
 constexpr float kLnEps = 1e-6f;
 
 __device__ __forceinline__ float warp_sum(float v) {

@@ -80,6 +80,7 @@ struct MlpArgs {
   int hp;
   int stages;
   int split;          // mlp_wgmma_split: each pass of a tile is a work item
+  float eps;          // the LayerNorms' (the row statistics and the post-LN)
 };
 
 // K1's chunk functor (MlpWgmma::pass): the bias of chunk j loaded before
@@ -150,7 +151,7 @@ __device__ __forceinline__ void ln_rows_to_y(const MlpArgs& a, unsigned char* yt
       sum[i] = warp_sum(sum[i]);
       sumsq[i] = warp_sum(sumsq[i]);
       mean[i] = sum[i] * inv_c;
-      rstd[i] = rsqrtf(sumsq[i] * inv_c - mean[i] * mean[i] + kLnEps);
+      rstd[i] = rsqrtf(sumsq[i] * inv_c - mean[i] * mean[i] + a.eps);
     }
     for (int j = lane; j < nkb * 32; j += 32) {
       float2 v[RB];
@@ -219,11 +220,12 @@ int launch_mlp_tier(const MlpArgs& a, const MlpPlan& p, cudaStream_t stream) {
 // plan makes more than one pass; ybuf [rows, c] and hbuf [rows, 4c] bf16 are
 // its scratch and flags its readiness words (2 + ceil(rows / 128) (1 + c /
 // 32) u64, zero before the first launch on them), gen a generation not used
-// before on those flags (never 0). plant: 0, or launch_ordered's planted faults.
+// before on those flags (never 0; 64 bits, so it never wraps). plant: 0, or
+// launch_ordered's planted faults.
 int launch_k1_ordered(const void* d, const void* x, const void* w1t, const void* bw,
                       const void* w2t, const void* b2g, void* out, void* ybuf, void* hbuf,
-                      void* flags, long long rows, int c, int hp, unsigned gen, int plant,
-                      void* stream) {
+                      void* flags, long long rows, int c, int hp, float eps,
+                      unsigned long long gen, int plant, void* stream) {
   const MlpPlan p = mlp_wgmma_plan(c);
   if (p.rows == 0 || mlp_wgmma_passes(c, p) < 2 || ybuf == nullptr || hbuf == nullptr ||
       flags == nullptr || gen == 0) {
@@ -246,6 +248,7 @@ int launch_k1_ordered(const void* d, const void* x, const void* w1t, const void*
   o.n2 = (c + kOrdCols - 1) / kOrdCols;
   o.nk1 = (c + 63) / 64;
   o.nk2 = c / 16;
+  o.eps = eps;
   o.gen = gen;
   o.plant = plant;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -283,16 +286,17 @@ const char* gcv_error_string(int err) {
 // post-LN when the plan makes more than one pass (mlp_wgmma_passes), else
 // may be null. Passing ybuf, hbuf and flags takes the ordered route
 // (launch_k1_ordered: no post-LN, more than one pass, gen as it says);
-// else they are null and gen is not read.
+// else they are null and gen is not read. eps: the LayerNorms' (ConvNeXt's
+// 1e-6, Swin's 1e-5), of the row statistics and of the post-LN alike.
 int gcv_ln_mlp_residual(const void* d, const void* x, const void* w1t, const void* bw,
                         const void* w2t, const void* b2g, const void* lns,
                         const void* lnb, void* vbuf, void* out, void* ybuf, void* hbuf,
-                        void* flags, long long rows, int c, int hp, unsigned gen,
-                        void* stream) {
+                        void* flags, long long rows, int c, int hp, float eps,
+                        unsigned long long gen, void* stream) {
   if (ybuf != nullptr || hbuf != nullptr || flags != nullptr) {
     if (lns != nullptr) return static_cast<int>(cudaErrorInvalidValue);
-    return launch_k1_ordered(d, x, w1t, bw, w2t, b2g, out, ybuf, hbuf, flags, rows, c, hp, gen,
-                             0, stream);
+    return launch_k1_ordered(d, x, w1t, bw, w2t, b2g, out, ybuf, hbuf, flags, rows, c, hp, eps,
+                             gen, 0, stream);
   }
   if (rows <= 0) return static_cast<int>(cudaGetLastError());
   const MlpPlan p = mlp_wgmma_plan(c);
@@ -311,6 +315,7 @@ int gcv_ln_mlp_residual(const void* d, const void* x, const void* w1t, const voi
   a.rows = rows;
   a.c = c;
   a.hp = hp;
+  a.eps = eps;
   a.stages = p.stages;
   a.split = mlp_wgmma_split(c, p, rows, a.lns != nullptr, sm_count());
   if (a.lns != nullptr && mlp_wgmma_passes(c, p) > 1 && a.vbuf == nullptr) {
@@ -335,9 +340,9 @@ int gcv_ln_mlp_residual(const void* d, const void* x, const void* w1t, const voi
 int gcv_ln_mlp_residual_planted(const void* d, const void* x, const void* w1t, const void* bw,
                                 const void* w2t, const void* b2g, void* out, void* ybuf,
                                 void* hbuf, void* flags, long long rows, int c, int hp,
-                                unsigned gen, int plant, void* stream) {
-  return launch_k1_ordered(d, x, w1t, bw, w2t, b2g, out, ybuf, hbuf, flags, rows, c, hp, gen,
-                           plant, stream);
+                                float eps, unsigned long long gen, int plant, void* stream) {
+  return launch_k1_ordered(d, x, w1t, bw, w2t, b2g, out, ybuf, hbuf, flags, rows, c, hp, eps,
+                           gen, plant, stream);
 }
 
 }  // extern "C"

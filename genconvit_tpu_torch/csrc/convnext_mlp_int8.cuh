@@ -30,6 +30,7 @@ struct Int8Args {
   int hp;
   int stages;
   int split;           // each pass of a tile is a work item (k4_launch_plan)
+  float eps;           // the post-LN's (mlp_wgmma.cuh reads it): kLnEps
 };
 
 // K4's tile plan at width c and mode: rows per block (128: "rows", 64:
@@ -497,6 +498,7 @@ int k4_launch(const void* d, const void* x, const void* wq1, const void* s1, con
   a.hp = hp;
   a.stages = p.stages;
   a.split = split;
+  a.eps = kLnEps;
   if ((FULL ? a.wq2k == nullptr || a.s2 == nullptr : a.w2t == nullptr) ||
       (a.lns != nullptr && k4_passes(c, p) > 1 && a.vbuf == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);

@@ -7,7 +7,7 @@
 //     genconvit_tpu/ops/pallas/convnext_mlp.py (entry layer_norm_rows): per
 //     row of [rows, c] bf16, f32 moments with var = E[x^2] - mean^2
 //     (_row_moments), then (x - mean) * rsqrt(var + eps) * scale + bias in
-//     f32, rounded to bf16.
+//     f32, rounded to bf16; eps is an argument (ConvNeXt's 1e-6, Swin's 1e-5).
 //     What bounds it on the card: the bytes (each row read once and written
 //     once; ~8 f32 operations an element are far below the f32 rate).
 //     What the design does: a few lanes per row (LPR), each holding CH
@@ -70,7 +70,7 @@ template <int LPR, int CH, bool GEN>
 __global__ void __launch_bounds__(kLnThreads)
 layer_norm_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ scale,
                        const float* __restrict__ bias, bf16* __restrict__ out, long long rows,
-                       int c) {
+                       int c, float eps) {
   constexpr int kRpw = 32 / LPR;   // rows per warp
   const int lane = threadIdx.x & 31;
   const int q = lane % LPR, sub = lane / LPR;
@@ -109,7 +109,7 @@ layer_norm_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ sca
       s2 += __shfl_xor_sync(gmask, s2, o);
     }
     const float mean = s1 * inv_c;
-    const float rstd = rsqrtf(s2 * inv_c - mean * mean + kLnEps);
+    const float rstd = rsqrtf(s2 * inv_c - mean * mean + eps);
     uint4* orow = reinterpret_cast<uint4*>(out + r * c);
 #pragma unroll
     for (int j = 0; j < CH; ++j) {
@@ -138,13 +138,14 @@ layer_norm_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ sca
 
 template <int LPR, int CH, bool GEN>
 int launch_ln(const bf16* x, const float* scale, const float* bias, bf16* out, long long rows,
-              int c, cudaStream_t stream) {
+              int c, float eps, cudaStream_t stream) {
   constexpr int kRowsPerBlock = kLnWarps * (32 / LPR);
   const long long need = (rows + kRowsPerBlock - 1) / kRowsPerBlock;
   const long long cap = static_cast<long long>(sm_count()) * kLnBlocksPerSm;
   const long long blocks = need < cap ? need : cap;
   layer_norm_rows_kernel<LPR, CH, GEN>
-      <<<static_cast<unsigned int>(blocks), kLnThreads, 0, stream>>>(x, scale, bias, out, rows, c);
+      <<<static_cast<unsigned int>(blocks), kLnThreads, 0, stream>>>(x, scale, bias, out, rows, c,
+                                                                       eps);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -153,11 +154,11 @@ int launch_ln(const bf16* x, const float* scale, const float* bias, bf16* out, l
 extern "C" {
 
 // K2. x, out [rows, c] bf16 (16-byte aligned), scale, bias [c] f32
-// (16-byte aligned); c a multiple of 32 (the caller checks). The stem
-// widths 96, 128 and 192 take their own instantiation, every other c the
-// generic one.
+// (16-byte aligned); c a multiple of 32 (the caller checks); eps the
+// LayerNorm's. The stem widths 96, 128 and 192 take their own
+// instantiation, every other c the generic one.
 int gcv_layer_norm_rows(const void* x, const void* scale, const void* bias, void* out,
-                        long long rows, int c, void* stream) {
+                        long long rows, int c, float eps, void* stream) {
   if (rows <= 0) return static_cast<int>(cudaGetLastError());
   if (c <= 0 || c % 32 != 0) return static_cast<int>(cudaErrorInvalidValue);
   const bf16* xp = static_cast<const bf16*>(x);
@@ -166,10 +167,10 @@ int gcv_layer_norm_rows(const void* x, const void* scale, const void* bias, void
   bf16* op = static_cast<bf16*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (c) {
-    case 96: return launch_ln<4, 3, false>(xp, sp, bp, op, rows, c, s);
-    case 128: return launch_ln<4, 4, false>(xp, sp, bp, op, rows, c, s);
-    case 192: return launch_ln<8, 3, false>(xp, sp, bp, op, rows, c, s);
-    default: return launch_ln<32, 4, true>(xp, sp, bp, op, rows, c, s);
+    case 96: return launch_ln<4, 3, false>(xp, sp, bp, op, rows, c, eps, s);
+    case 128: return launch_ln<4, 4, false>(xp, sp, bp, op, rows, c, eps, s);
+    case 192: return launch_ln<8, 3, false>(xp, sp, bp, op, rows, c, eps, s);
+    default: return launch_ln<32, 4, true>(xp, sp, bp, op, rows, c, eps, s);
   }
 }
 

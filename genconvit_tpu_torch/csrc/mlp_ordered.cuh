@@ -108,7 +108,8 @@ struct OrdArgs {
   int mblocks;         // row blocks of 128
   int n1, n2;          // fc1 and fc2 tiles a row block
   int nk1, nk2;        // 64-k blocks of fc1 (C) and fc2 (4C)
-  unsigned gen;        // this launch's generation (never 0)
+  float eps;           // the LayerNorm's
+  unsigned long long gen;   // this launch's generation (never 0)
   int plant;           // planted faults (launch_ordered): 1 the readiness waits
                        // skipped, 2 each row block's items in a row
 };
@@ -332,7 +333,7 @@ __device__ __forceinline__ void ord_ln_rows(const OrdArgs& a, long long r0, int 
       sum[i] = warp_sum(sum[i]);
       sumsq[i] = warp_sum(sumsq[i]);
       mean[i] = sum[i] * inv_c;
-      rstd[i] = rsqrtf(sumsq[i] * inv_c - mean[i] * mean[i] + kLnEps);
+      rstd[i] = rsqrtf(sumsq[i] * inv_c - mean[i] * mean[i] + a.eps);
     }
     for (int j = lane; j < half_c; j += 32) {
       float2 v[RB];

@@ -685,7 +685,7 @@ __device__ __forceinline__ void mlp_consumer(const Tail& tail, const Mlp& mlp) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       mean[h] = rsum[h] * inv_c;
-      rstd[h] = rsqrtf(rsq[h] * inv_c - mean[h] * mean[h] + kLnEps);
+      rstd[h] = rsqrtf(rsq[h] * inv_c - mean[h] * mean[h] + a.eps);
     }
     for (int ps = 0; ps < passes; ++ps) {
       const int grp = COLS ? 2 * ps + W : ps;

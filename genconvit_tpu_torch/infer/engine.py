@@ -23,7 +23,10 @@ seeded random init with the JAX engine's warning. The module is built
 from the weights' structure, as the JAX package dispatches on its trees:
 the VAE variant (updated where the weights hold decoder.decoder_input)
 and each branch's head (SwiGLU where fc emits twice fc2's input width);
-config.model.vae_variant for a random init.
+config.model.vae_variant for a random init. A Swin backbone
+(config.model.backbone a SWIN_CFGS name) scores under net 'ed' alone,
+and refuses the plans that name ConvNeXt-only kernels at construction
+(`GenConViT.check_plan`).
 
 The file drivers (`predict_video`, `predict_frames_dir`, `predict_files`
 and its grouped form for detector backends) decode on the host with the
@@ -87,7 +90,7 @@ def default_compute_dtype(device: torch.device) -> torch.dtype:
 def _backbone_classes(params: Mapping[str, Mapping[str, Any]], default: int) -> int:
     """The backbones' head width as the weights have it (the JAX package
     reads every shape off its trees), else `default` for a random init."""
-    for name, key in (("ed", "backbone.head.fc.weight"),
+    for name, key in (("ed", "backbone.head.fc.weight"), ("ed", "backbone.head.weight"),
                       ("vae", "convnext_backbone.head.fc.weight")):
         if key in params.get(name, {}):
             return int(params[name][key].shape[0])
@@ -155,6 +158,7 @@ class Predictor:
         with torch.device("meta"):
             model = GenConViT(self.config, net, _backbone_classes(params, backbone_classes),
                               heads)
+        model.check_plan(self.kernel_plan)   # a Swin backbone refuses ConvNeXt-only kernels
         model = model.to_empty(device=self.device)
         if any(b not in params for b in branches):
             init_genconvit_(model, self.generator)

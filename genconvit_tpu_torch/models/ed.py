@@ -6,6 +6,14 @@ cat([reconstruction, original]) as one 2N batch, then GELU -> fc -> GELU ->
 fc2. Keys: encoder.features.{0,3,6,9,12}, decoder.features.{0,2,4,6,8},
 backbone.*, fc, fc2 (ref model/genconvit_ed.py).
 
+The backbone is built by name (`backbone_module`): a ConvNeXt of
+CONVNEXT_CFGS, or a Swin of SWIN_CFGS, which the reference builds when
+config.yaml's model.backbone names it (`timm.create_model`,
+model/genconvit_ed.py:68): its head's 1000 logits for the reconstruction
+and for the original, concatenated. The reference reads the head width as
+`backbone.head.fc.out_features` (:72), which a timm 0.6.5 Swin's plain
+Linear head lacks; here the width is backbone_classes either way.
+
 head_act='swiglu' is the JAX package's research head (models/ed.py:28-58,
 95-100; the reference documents it but never wires it): fc emits 2F -> F/2
 gate pairs and `swiglu` takes them back to fc2's input width F/4 in place
@@ -24,6 +32,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from genconvit_tpu_torch.models.convnext import DEFAULT_PLAN, ConvNeXt
+from genconvit_tpu_torch.models.swin import SWIN_CFGS, SwinTransformer
 from genconvit_tpu_torch.ops import collective as col
 from genconvit_tpu_torch.ops.act import gelu, relu, swiglu
 from genconvit_tpu_torch.ops.conv import conv2d, conv_transpose2d
@@ -32,6 +41,14 @@ from genconvit_tpu_torch.ops.kernel_plan import KernelPlan
 _ENC_CH = (3, 16, 32, 64, 128, 256)
 _DEC_CH = (256, 128, 64, 32, 16, 3)
 HEAD_ACTS = ("default", "swiglu")
+
+
+def backbone_module(name: str, num_classes: int = 1000) -> nn.Module:
+    """The backbone a name gives: a Swin for a SWIN_CFGS name, else the
+    ConvNeXt of CONVNEXT_CFGS (KeyError for neither)."""
+    if name in SWIN_CFGS:
+        return SwinTransformer(name, num_classes)
+    return ConvNeXt.from_name(name, num_classes)
 
 
 def head_linears(head_act: str, num_features: int, num_classes: int):
@@ -88,7 +105,7 @@ class GenConViTED(nn.Module):
         super().__init__()
         self.encoder = Encoder()
         self.decoder = Decoder()
-        self.backbone = ConvNeXt.from_name(backbone, backbone_classes)
+        self.backbone = backbone_module(backbone, backbone_classes)
         self.head_act = head_act
         self.fc, self.fc2 = head_linears(head_act, 2 * backbone_classes, num_classes)
         self.tp = None   # the 'model' axis when split

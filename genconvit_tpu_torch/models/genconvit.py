@@ -10,6 +10,13 @@ reconstruction, KL term, mu, logvar and BatchNorm statistics under 'vae_*'.
 The VAE branch is the variant config.model.vae_variant names (models/vae.py,
 genconvit_tpu/models/genconvit.py:43-70); `head_act` picks each branch's
 classifier head ('default' or 'swiglu'; a dict gives one per branch).
+
+A Swin backbone (config.model.backbone a SWIN_CFGS name) runs the ED branch
+alone: net 'vae' and 'genconvit' are refused when the model is built. The
+original VAE feeds its half-size reconstruction to the backbone, where at
+224 px Swin's third stage sees a 7 x 7 grid that the next patch merging
+cannot halve (timm 0.6.5's PatchMerging asserts even sides, as
+SwinTransformer.features does).
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ from genconvit_tpu_torch.config import Config
 from genconvit_tpu_torch.core.convert import branch_spec
 from genconvit_tpu_torch.models.convnext import DEFAULT_PLAN, ConvNeXt
 from genconvit_tpu_torch.models.ed import GenConViTED
+from genconvit_tpu_torch.models.swin import SWIN_CFGS, SwinTransformer, refuse_plan
 from genconvit_tpu_torch.models.vae import GenConViTVAE
 from genconvit_tpu_torch.ops.kernel_plan import KernelPlan
 
@@ -57,6 +65,13 @@ class GenConViT(nn.Module):
         config = config or Config()
         self.net = net
         bb = config.model.backbone
+        if bb in SWIN_CFGS and net != "ed":
+            half = config.img_size // 2 // 4 // 4
+            raise ValueError(
+                f"net={net!r} with the Swin backbone {bb!r}: only the ED branch runs on a Swin "
+                f"backbone. The VAE feeds its {config.img_size // 2}-px reconstruction to the "
+                f"backbone, where Swin's third stage sees a {half}x{half} grid that patch "
+                f"merging cannot halve (timm 0.6.5 asserts even sides); use net='ed'")
         heads = dict.fromkeys(("ed", "vae"), head_act) if isinstance(head_act, str) else head_act
         if net in ("ed", "genconvit"):
             self.ed = GenConViTED(bb, config.num_classes, backbone_classes,
@@ -70,8 +85,16 @@ class GenConViT(nn.Module):
     def branches(self) -> List[nn.Module]:
         return [getattr(self, b) for b in ("ed", "vae") if hasattr(self, b)]
 
-    def backbones(self) -> List[ConvNeXt]:
-        return [m for m in self.modules() if isinstance(m, ConvNeXt)]
+    def backbones(self) -> List[nn.Module]:
+        """The ConvNeXt and Swin backbones."""
+        return [m for m in self.modules() if isinstance(m, (ConvNeXt, SwinTransformer))]
+
+    def check_plan(self, plan: KernelPlan) -> None:
+        """Raise ValueError where a backbone cannot run the plan (a Swin
+        under a ConvNeXt-only kernel: `swin.refuse_plan`)."""
+        for bb in self.backbones():
+            if isinstance(bb, SwinTransformer):
+                refuse_plan(plan)
 
     def prepare_kernels(self, plan: KernelPlan = DEFAULT_PLAN) -> None:
         for bb in self.backbones():

@@ -92,11 +92,12 @@ def init_hybrid_embed_(m: HybridEmbed, generator: torch.Generator) -> None:
 
 @torch.no_grad()
 def init_genconvit_(model: nn.Module, generator: torch.Generator) -> None:
-    """Initialize every parameter and buffer of a GenConViT (or branch)."""
-    backbones = [m for m in model.modules() if isinstance(m, ConvNeXt)]
+    """Initialize every parameter and buffer of a GenConViT (or branch): its
+    ConvNeXt or Swin backbones by their own rules."""
+    backbones = [m for m in model.modules() if isinstance(m, (ConvNeXt, SwinTransformer))]
     inside = {id(p) for bb in backbones for p in bb.parameters()}
     for bb in backbones:
-        init_convnext_(bb, generator)
+        (init_swin_ if isinstance(bb, SwinTransformer) else init_convnext_)(bb, generator)
     for mod in model.modules():
         if isinstance(mod, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)):
             if id(mod.weight) in inside:

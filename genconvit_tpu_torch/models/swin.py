@@ -18,25 +18,51 @@ The attention takes one of two paths per call (`window_kernel_applies`):
     casts the softmax to it, where K7 scales in float32: the two bf16 graphs
     round differently and are kept apart.
 
+The MLP half of a block (LN2 -> fc1 -> GELU -> fc2 -> residual) is K1's
+block tail with dw = x and a unit layer scale (`ln_mlp_residual` at Swin's
+eps 1e-5), and every other LayerNorm (the patch embedding's, LN1, the
+patch merging's, the final one) is K2's row LayerNorm (`layer_norm_rows`),
+on the path `models/convnext.backbone_path` gives a CUDA bfloat16 input,
+with the folds `prepare_kernels(plan)` made: 'kernels' (pallas '' or
+'mlpfull') runs K1 in every stage and K2; 'mlp' / 'mlp:<i,j,...>' K1 in the
+stages chosen and plain LayerNorms; 'plain' (float32, the CPU, pallas '0',
+the exact GELU) neither. Without folds (a Swin the caller never prepared,
+as the HybridEmbed research path and the K7 probes run it) the MLP halves
+and LayerNorms are plain; K7 follows its own rule either way. As a
+GenConViT backbone (`GenConViT.check_plan`, which the Predictor calls) a
+Swin refuses the plans that name ConvNeXt-only kernels (pallas '1' and
+'stage', int8_mlp, dw_rank: `refuse_plan`); the embedder alone keeps the
+JAX package's rule, K7 under every pallas value but '0'.
+
+Under `torch.profiler` each block's attention half (LN1 -> roll ->
+partition -> qkv -> K7 -> proj -> reverse -> roll -> residual) is the span
+gcv.swin.attention, its MLP half gcv.swin.mlp, each patch merging
+gcv.swin.merge; the counters gcv.swin.windows and gcv.swin.masked_windows
+count the windows each attention call attends, and those under the
+shifted-window mask (`utils/timing.py`).
+
 Activations are tokens [N, H*W, C]; the input is an NCHW image batch.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Any, Dict, Optional, Tuple, Union
+from typing import Any, Dict, FrozenSet, List, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from genconvit_tpu_torch.models.convnext import Mlp
+from genconvit_tpu_torch.models.convnext import Mlp, backbone_path
 from genconvit_tpu_torch.ops.act import gelu
 from genconvit_tpu_torch.ops.conv import conv2d
+from genconvit_tpu_torch.ops.cuda.convnext_mlp import (FoldedMLP, fold_block_mlp,
+                                                       layer_norm_rows, ln_mlp_residual)
 from genconvit_tpu_torch.ops.cuda.window_attn import window_attention
 from genconvit_tpu_torch.ops.kernel_plan import KernelPlan
 from genconvit_tpu_torch.ops.norm import layer_norm
+from genconvit_tpu_torch.utils.timing import count, span
 
 SWIN_CFGS: Dict[str, Dict[str, Any]] = {
     "swin_tiny_patch4_window7_224": dict(
@@ -104,6 +130,39 @@ def block_window(hw: Tuple[int, int], window: int, bi: int) -> Tuple[int, int]:
 def window_kernel_applies(x: torch.Tensor, plan: KernelPlan) -> bool:
     """K7's rule (module docstring)."""
     return x.is_cuda and x.dtype == torch.bfloat16 and plan.pallas != "0"
+
+
+def refuse_plan(plan: KernelPlan) -> None:
+    """Raise ValueError where the plan names a kernel only ConvNeXt has: the
+    fused blocks and stages (pallas '1', 'stage'), K4's int8 MLPs
+    (int8_mlp) and the separable depthwise approximation (dw_rank)."""
+    bad = [what for what, on in ((f"pallas={plan.pallas!r}", plan.pallas in ("1", "stage")),
+                                 (f"int8_mlp={plan.int8_mlp!r}", bool(plan.int8_mlp)),
+                                 (f"dw_rank={plan.dw_rank!r}", plan.dw_sep)) if on]
+    if bad:
+        raise ValueError(
+            f"a Swin backbone cannot run {', '.join(bad)}: those settings name ConvNeXt-only "
+            f"kernels (the fused blocks and stages K5/K6, the int8 MLPs K4, the separable "
+            f"depthwise convolution); use pallas '', 'mlpfull', 'mlp[:i,j]' or '0'")
+
+
+def kernel_stages(x: torch.Tensor, plan: KernelPlan, stages: int) -> Tuple[FrozenSet[int], bool]:
+    """(the stages whose MLP halves run K1, whether K2 runs the LayerNorms)
+    for input x under the plan (module docstring)."""
+    path = backbone_path(x, plan)
+    if path == "kernels":
+        return frozenset(range(stages)), True
+    if path == "mlp":
+        return plan.mlp_stages(), False
+    return frozenset(), False
+
+
+class SwinKernelWeights(NamedTuple):
+    """What `SwinTransformer.prepare_kernels` made for a plan: each block's
+    MLP half folded for K1 (LN2's affine into fc1, a unit layer scale), by
+    stage, and K2's float32 (scale, bias) of every other LayerNorm."""
+    mlp: List[List[FoldedMLP]]
+    ln: Dict[nn.Module, Tuple[torch.Tensor, torch.Tensor]]
 
 
 def window_partition(x: torch.Tensor, window: int) -> torch.Tensor:
@@ -190,24 +249,44 @@ class SwinBlock(nn.Module):
         self.mlp = Mlp(dim)
 
     def forward(self, x: torch.Tensor, hw: Tuple[int, int], window: int, shift: int,
-                gelu_tier: str, kernel: bool) -> torch.Tensor:
+                gelu_tier: str, kernel: bool, fold: Optional[FoldedMLP] = None,
+                ln1: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
         """swin.py:182-205: x [N, H*W, C]; the roll is (-shift, -shift)
-        before the attention and (+shift, +shift) after."""
+        before the attention and (+shift, +shift) after. kernel: K7 for the
+        attention; fold: K1 for the MLP half; ln1: K2 for LN1, with these
+        float32 (scale, bias)."""
         h, w = hw
         n, l, c = x.shape
-        y = layer_norm(x, self.norm1.weight, self.norm1.bias, LN_EPS).view(n, h, w, c)
-        mask = None
-        if shift > 0:
-            y = torch.roll(y, (-shift, -shift), dims=(1, 2))
-            mask = _mask_on(h, w, window, shift, x.device)
-        y = self.attn(window_partition(y, window), window, mask, kernel)
-        y = window_reverse(y, window, h, w)
-        if shift > 0:
-            y = torch.roll(y, (shift, shift), dims=(1, 2))
-        x = x + y.reshape(n, l, c)
-        z = layer_norm(x, self.norm2.weight, self.norm2.bias, LN_EPS)
-        z = gelu(F.linear(z, self.mlp.fc1.weight, self.mlp.fc1.bias), gelu_tier)
-        return x + F.linear(z, self.mlp.fc2.weight, self.mlp.fc2.bias)
+        with span("gcv.swin.attention"):
+            y = (layer_norm_rows(x, *ln1, LN_EPS) if ln1 is not None else
+                 layer_norm(x, self.norm1.weight, self.norm1.bias, LN_EPS)).view(n, h, w, c)
+            mask = None
+            if shift > 0:
+                y = torch.roll(y, (-shift, -shift), dims=(1, 2))
+                mask = _mask_on(h, w, window, shift, x.device)
+            windows = n * (h // window) * (w // window)
+            count("gcv.swin.windows", windows)
+            if mask is not None:
+                count("gcv.swin.masked_windows", windows)
+            y = self.attn(window_partition(y, window), window, mask, kernel)
+            y = window_reverse(y, window, h, w)
+            if shift > 0:
+                y = torch.roll(y, (shift, shift), dims=(1, 2))
+            x = x + y.reshape(n, l, c)
+        with span("gcv.swin.mlp"):
+            if fold is not None:
+                return ln_mlp_residual(x, x, fold, None, gelu_tier, LN_EPS)
+            z = layer_norm(x, self.norm2.weight, self.norm2.bias, LN_EPS)
+            z = gelu(F.linear(z, self.mlp.fc1.weight, self.mlp.fc1.bias), gelu_tier)
+            return x + F.linear(z, self.mlp.fc2.weight, self.mlp.fc2.bias)
+
+    @torch.no_grad()
+    def fold(self) -> FoldedMLP:
+        """The MLP half's K1 folds, in the weights' dtype."""
+        ones = torch.ones_like(self.norm2.weight)
+        return fold_block_mlp(self.norm2.weight, self.norm2.bias, self.mlp.fc1.weight,
+                              self.mlp.fc1.bias, self.mlp.fc2.weight, self.mlp.fc2.bias, ones,
+                              self.mlp.fc1.weight.dtype)
 
 
 class PatchMerging(nn.Module):
@@ -216,18 +295,22 @@ class PatchMerging(nn.Module):
         self.norm = nn.LayerNorm(4 * dim, eps=LN_EPS)
         self.reduction = nn.Linear(4 * dim, 2 * dim, bias=False)
 
-    def forward(self, x: torch.Tensor, hw: Tuple[int, int]):
-        """[N, H*W, C] -> ([N, H*W/4, 2C], (H/2, W/2)) (swin.py:208-222)."""
+    def forward(self, x: torch.Tensor, hw: Tuple[int, int],
+                ln: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+        """[N, H*W, C] -> ([N, H*W/4, 2C], (H/2, W/2)) (swin.py:208-222);
+        ln: K2 for the LayerNorm, with these float32 (scale, bias)."""
         h, w = hw
         if h % 2 or w % 2:
             raise ValueError(f"swin patch merging needs an even grid, got {h}x{w}")
-        n, _, c = x.shape
-        x = x.view(n, h, w, c)
-        # torch cat order: [0::2, 0::2], [1::2, 0::2], [0::2, 1::2], [1::2, 1::2]
-        x = torch.cat([x[:, 0::2, 0::2], x[:, 1::2, 0::2], x[:, 0::2, 1::2],
-                       x[:, 1::2, 1::2]], dim=-1).view(n, (h // 2) * (w // 2), 4 * c)
-        x = layer_norm(x, self.norm.weight, self.norm.bias, LN_EPS)
-        return F.linear(x, self.reduction.weight), (h // 2, w // 2)
+        with span("gcv.swin.merge"):
+            n, _, c = x.shape
+            x = x.view(n, h, w, c)
+            # torch cat order: [0::2, 0::2], [1::2, 0::2], [0::2, 1::2], [1::2, 1::2]
+            x = torch.cat([x[:, 0::2, 0::2], x[:, 1::2, 0::2], x[:, 0::2, 1::2],
+                           x[:, 1::2, 1::2]], dim=-1).view(n, (h // 2) * (w // 2), 4 * c)
+            x = (layer_norm_rows(x, *ln, LN_EPS) if ln is not None else
+                 layer_norm(x, self.norm.weight, self.norm.bias, LN_EPS))
+            return F.linear(x, self.reduction.weight), (h // 2, w // 2)
 
 
 class SwinStage(nn.Module):
@@ -258,20 +341,55 @@ class SwinTransformer(nn.Module):
         self.layers = nn.ModuleList(layers)
         self.norm = nn.LayerNorm(dim, eps=LN_EPS)
         self.head = nn.Linear(dim, num_classes)
+        self._kernel_weights: Optional[SwinKernelWeights] = None
 
     @property
     def width(self) -> int:
         """The final token width."""
         return self.norm.weight.shape[0]
 
+    def _norms(self) -> List[nn.LayerNorm]:
+        """The LayerNorms K2 takes: the patch embedding's, each block's LN1,
+        each patch merging's and the final one."""
+        out = [self.patch_embed.norm]
+        for layer in self.layers:
+            out += [blk.norm1 for blk in layer.blocks]
+            if layer.downsample is not None:
+                out.append(layer.downsample.norm)
+        return out + [self.norm]
+
+    @torch.no_grad()
+    def prepare_kernels(self, plan: KernelPlan = DEFAULT_PLAN) -> None:
+        """Fold once for the plan, after the final dtype cast: every block's
+        MLP half for K1 and every LayerNorm's float32 parameters for K2
+        (`kernel_stages` picks among them per call, as it reads the input);
+        nothing for a plan that is plain on any input (pallas '0', the exact
+        GELU). Call it again after any change to the weights."""
+        self._kernel_weights = None
+        if plan.pallas == "0" or plan.gelu == "exact":
+            return
+        ln = {m: (m.weight.float().contiguous(), m.bias.float().contiguous())
+              for m in self._norms()}
+        self._kernel_weights = SwinKernelWeights(
+            [[blk.fold() for blk in layer.blocks] for layer in self.layers], ln)
+
     def features(self, x: torch.Tensor, plan: KernelPlan = DEFAULT_PLAN) -> torch.Tensor:
         """[N, 3, H, W] -> [N, L, C] final token features (after the final
         LN) (swin.py:225-257)."""
+        kw = self._kernel_weights
+        k1_stages, k2 = kernel_stages(x, plan, len(self.layers))
+        if kw is None:   # not prepared: the MLP halves and LayerNorms stay plain
+            k1_stages, k2 = frozenset(), False
+
+        def norm(t: torch.Tensor, m: nn.LayerNorm) -> torch.Tensor:
+            if k2:
+                return layer_norm_rows(t, *kw.ln[m], LN_EPS)
+            return layer_norm(t, m.weight, m.bias, LN_EPS)
+
         x = conv2d(x, self.patch_embed.proj.weight, self.patch_embed.proj.bias, stride=4)
         n, c, h, w = x.shape
         # tokens [N, H*W, C]: the conv output's storage when it is channels_last
-        x = layer_norm(x.flatten(2).transpose(1, 2).contiguous(), self.patch_embed.norm.weight,
-                       self.patch_embed.norm.bias, LN_EPS)
+        x = norm(x.flatten(2).transpose(1, 2).contiguous(), self.patch_embed.norm)
         hw = (h, w)
         kernel = window_kernel_applies(x, plan)
         for li, layer in enumerate(self.layers):
@@ -283,11 +401,20 @@ class SwinTransformer(nn.Module):
                     f"<= window grids at every stage, as in timm 0.6.5)")
             for bi, blk in enumerate(layer.blocks):
                 window, shift = block_window(hw, self.cfg["window"], bi)
-                x = blk(x, hw, window, shift, plan.gelu, kernel)
+                x = blk(x, hw, window, shift, plan.gelu, kernel,
+                        kw.mlp[li][bi] if li in k1_stages else None,
+                        kw.ln[blk.norm1] if k2 else None)
             if layer.downsample is not None:
-                x, hw = layer.downsample(x, hw)
-        return layer_norm(x, self.norm.weight, self.norm.bias, LN_EPS)
+                x, hw = layer.downsample(x, hw, kw.ln[layer.downsample.norm] if k2 else None)
+        return norm(x, self.norm)
 
-    def forward(self, x: torch.Tensor, plan: KernelPlan = DEFAULT_PLAN) -> torch.Tensor:
-        """[N, 3, H, W] -> [N, num_classes]: mean token pool, then the head."""
+    def forward(self, x: torch.Tensor, plan: KernelPlan = DEFAULT_PLAN,
+                per_call_folds: bool = False) -> torch.Tensor:
+        """[N, 3, H, W] -> [N, num_classes]: mean token pool, then the head
+        (the logits GenConViT's ED branch concatenates, as timm's Swin gives
+        them). per_call_folds (training, or an evaluation during it) is
+        refused: K7 has no backward, so a Swin backbone is not trained."""
+        if per_call_folds:
+            raise ValueError("a Swin backbone is not trained: its window attention (K7) has "
+                             "no backward")
         return F.linear(self.features(x, plan).mean(dim=1), self.head.weight, self.head.bias)

@@ -43,15 +43,15 @@ NVCC_FLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"
 _P = ctypes.c_void_p
 _SIGNATURES = {
     # d, x, w1t, bw, w2t, b2g, lns, lnb, vbuf, out, ybuf, hbuf, flags, rows, c, hp,
-    # gen, stream
+    # eps, gen, stream
     "gcv_ln_mlp_residual": ([_P] * 13 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                                        ctypes.c_uint, _P], ctypes.c_int),
-    # d, x, w1t, bw, w2t, b2g, out, ybuf, hbuf, flags, rows, c, hp, gen, plant, stream
+                                        ctypes.c_float, ctypes.c_ulonglong, _P], ctypes.c_int),
+    # d, x, w1t, bw, w2t, b2g, out, ybuf, hbuf, flags, rows, c, hp, eps, gen, plant, stream
     "gcv_ln_mlp_residual_planted": ([_P] * 10 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                                                ctypes.c_uint, ctypes.c_int, _P],
-                                    ctypes.c_int),
-    # x, scale, bias, out, rows, c, stream
-    "gcv_layer_norm_rows": ([_P] * 4 + [ctypes.c_longlong, ctypes.c_int, _P],
+                                                ctypes.c_float, ctypes.c_ulonglong, ctypes.c_int,
+                                                _P], ctypes.c_int),
+    # x, scale, bias, out, rows, c, eps, stream
+    "gcv_layer_norm_rows": ([_P] * 4 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_float, _P],
                             ctypes.c_int),
     # d, x, wq1, s1, bw, w2t, wq2k, s2, b2g, lns, lnb, vbuf, out, rows, c, hp, mode, stream
     "gcv_ln_mlp_residual_int8": ([_P] * 13 + [ctypes.c_longlong, ctypes.c_int,

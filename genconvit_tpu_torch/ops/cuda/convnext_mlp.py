@@ -21,7 +21,10 @@ and fc2 tiles that hands the hidden on through a scratch in device memory
 latter. K2 has its own instantiations at the stem widths K2_WIDTHS and
 one generic instantiation for every other multiple of 32 (`k2_plan`). The
 LayerNorm affine folds into fc1 and the layer scale into fc2
-(`fold_block_mlp`), once, at engine construction.
+(`fold_block_mlp`), once, at engine construction. Both kernels take the
+LayerNorm eps as an argument: ConvNeXt's LN_EPS by default, Swin's 1e-5
+from models/swin.py (a Swin MLP half is K1 with dw = x and a unit layer
+scale).
 """
 
 from __future__ import annotations
@@ -36,7 +39,7 @@ import torch
 from genconvit_tpu_torch.ops.act import gelu_rational_f32
 from genconvit_tpu_torch.ops.cuda import _build
 
-LN_EPS = 1e-6
+LN_EPS = 1e-6   # ConvNeXt's LayerNorms; the wrappers' default eps
 K1_MAX_C = 1536  # K1 splits its fc2 sum into output-column groups (mlp_plan)
 ULP_TOL = 2.0  # kernel vs plain, elementwise, in bf16 ulps (bf16_ulp_error)
 K2_WIDTHS = (96, 128, 192)  # the stems of convnext_tiny, _base and _large
@@ -170,7 +173,9 @@ class _Flags:
         self.gen = 0
 
     def next_gen(self) -> int:
-        self.gen = self.gen % 0xFFFFFFFF + 1   # 1 .. 2**32 - 1, never 0
+        # 1 .. 2**64 - 1, never 0: the kernel compares 64-bit words, so no
+        # run lives to see a generation come round again
+        self.gen = self.gen % 0xFFFFFFFFFFFFFFFF + 1
         return self.gen
 
 
@@ -217,22 +222,22 @@ def fold_block_mlp(ln_scale, ln_bias, fc1_weight, fc1_bias, fc2_weight,
                       wgt=wg.t().contiguous(), w2gt=w2g.t().contiguous())
 
 
-def _row_moments(v32: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def _row_moments(v32: torch.Tensor, eps: float = LN_EPS) -> Tuple[torch.Tensor, torch.Tensor]:
     """(mean, rsqrt(var + eps)) over the last axis, var = E[v^2] - mean^2."""
     mean = v32.mean(-1, keepdim=True)
     var = (v32 * v32).mean(-1, keepdim=True) - mean * mean
-    return mean, torch.rsqrt(var + LN_EPS)
+    return mean, torch.rsqrt(var + eps)
 
 
 def ln_mlp_residual_plain(dw: torch.Tensor, x: torch.Tensor, folded: FoldedMLP,
                           post_ln: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                          gelu: str = "default") -> torch.Tensor:
+                          gelu: str = "default", eps: float = LN_EPS) -> torch.Tensor:
     """K1's math in plain PyTorch. bf16 operands are upcast before each
     matmul: their products are exact in float32, so this is the kernel's
     bf16-in, f32-accumulate product."""
     dtype = x.dtype
     d32 = dw.float()
-    mean, inv = _row_moments(d32)
+    mean, inv = _row_moments(d32, eps)
     y = ((d32 - mean) * inv).to(dtype)
     z = y.float() @ folded.wg.float() + folded.bw
     h = gelu_rational_f32(z, gelu).to(dtype)
@@ -240,15 +245,15 @@ def ln_mlp_residual_plain(dw: torch.Tensor, x: torch.Tensor, folded: FoldedMLP,
     if post_ln is None:
         return x + o.to(dtype)
     out = x.float() + o
-    m2, inv2 = _row_moments(out)
+    m2, inv2 = _row_moments(out, eps)
     return ((out - m2) * inv2 * post_ln[0].float() + post_ln[1].float()).to(dtype)
 
 
 def layer_norm_rows_plain(x: torch.Tensor, scale: torch.Tensor,
-                          bias: torch.Tensor) -> torch.Tensor:
+                          bias: torch.Tensor, eps: float = LN_EPS) -> torch.Tensor:
     """K2's math in plain PyTorch: f32 statistics and affine."""
     v = x.float()
-    mean, inv = _row_moments(v)
+    mean, inv = _row_moments(v, eps)
     return ((v - mean) * inv * scale.float() + bias.float()).to(x.dtype)
 
 
@@ -309,14 +314,15 @@ def _stream(device: torch.device) -> int:
 
 def ln_mlp_residual(dw: torch.Tensor, x: torch.Tensor, folded: FoldedMLP,
                     post_ln: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                    gelu: str = "default") -> torch.Tensor:
+                    gelu: str = "default", eps: float = LN_EPS) -> torch.Tensor:
     """K1: block tail of a ConvNeXt block. dw = depthwise-conv output and
     x = block input, both [..., C]; returns the block output (or, with
-    post_ln=(scale, bias), its LayerNorm with those f32 params)."""
+    post_ln=(scale, bias), its LayerNorm with those f32 params). eps: the
+    LayerNorms' (a Swin MLP half passes dw = x and 1e-5)."""
     if dw.device.type == "cpu" and x.device.type == "cpu":
-        return ln_mlp_residual_plain(dw, x, folded, post_ln, gelu)
+        return ln_mlp_residual_plain(dw, x, folded, post_ln, gelu, eps)
     lns, lnb = _check_k1("ln_mlp_residual", dw, x, folded, post_ln, gelu)
-    return _launch_k1(dw, x, folded, lns, lnb, gelu, 0, False)
+    return _launch_k1(dw, x, folded, lns, lnb, gelu, eps, 0, False)
 
 
 def _check_k1(what, dw, x, folded, post_ln, gelu):
@@ -342,7 +348,7 @@ def _check_k1(what, dw, x, folded, post_ln, gelu):
     return lns, lnb
 
 
-def _launch_k1(dw, x, folded, lns, lnb, gelu, plant, stale_gen):
+def _launch_k1(dw, x, folded, lns, lnb, gelu, eps, plant, stale_gen):
     """One K1 launch on checked arguments; plant and stale_gen are the
     planted faults of `ln_mlp_residual_planted`."""
     c = x.shape[-1]
@@ -368,10 +374,10 @@ def _launch_k1(dw, x, folded, lns, lnb, gelu, plant, stale_gen):
         with torch.cuda.device(dev):
             if plant:
                 err = lib.gcv_ln_mlp_residual_planted(*ptrs, out.data_ptr(), *ord_ptrs, rows, c,
-                                                      int(gelu == "hp"), gen, plant, stream)
+                                                      int(gelu == "hp"), eps, gen, plant, stream)
             else:
                 err = lib.gcv_ln_mlp_residual(*ptrs, None, None, None, out.data_ptr(),
-                                              *ord_ptrs, rows, c, int(gelu == "hp"), gen,
+                                              *ord_ptrs, rows, c, int(gelu == "hp"), eps, gen,
                                               stream)
         _build.check(err, "ln_mlp_residual")
         ln_mlp_residual.launches += 1
@@ -382,7 +388,7 @@ def _launch_k1(dw, x, folded, lns, lnb, gelu, plant, stale_gen):
             *ptrs, None if lns is None else lns.data_ptr(),
             None if lnb is None else lnb.data_ptr(),
             None if vbuf is None else vbuf.data_ptr(),
-            out.data_ptr(), None, None, None, rows, c, int(gelu == "hp"), 0, stream)
+            out.data_ptr(), None, None, None, rows, c, int(gelu == "hp"), eps, 0, stream)
     _build.check(err, "ln_mlp_residual")
     ln_mlp_residual.launches += 1
     return out
@@ -406,22 +412,23 @@ _PLANT_BITS = {"no_wait": 3, "stale_gen": 2, "row_order": 2}   # gcv_ln_mlp_resi
 
 
 def ln_mlp_residual_planted(dw: torch.Tensor, x: torch.Tensor, folded: FoldedMLP,
-                            plant: str, gelu: str = "default") -> torch.Tensor:
+                            plant: str, gelu: str = "default", eps: float = LN_EPS) -> torch.Tensor:
     """K1 on the ordered route with one of ORDERED_PLANTS planted, or in
     "row_order" (sound)."""
     what = "ln_mlp_residual_planted"
     _require(plant in _PLANT_BITS, what, f"no plant {plant!r}")
     _check_k1(what, dw, x, folded, None, gelu)
     _require(k1_route(x.shape[-1], False), what, "the plants are of the ordered route")
-    return _launch_k1(dw, x, folded, None, None, gelu, _PLANT_BITS[plant],
+    return _launch_k1(dw, x, folded, None, None, gelu, eps, _PLANT_BITS[plant],
                       plant == "stale_gen")
 
 
 def layer_norm_rows(x: torch.Tensor, scale: torch.Tensor,
-                    bias: torch.Tensor) -> torch.Tensor:
-    """K2: LayerNorm over the last axis of [..., C] with f32 (scale, bias)."""
+                    bias: torch.Tensor, eps: float = LN_EPS) -> torch.Tensor:
+    """K2: LayerNorm over the last axis of [..., C] with f32 (scale, bias)
+    and the LayerNorm's eps."""
     if x.device.type == "cpu":
-        return layer_norm_rows_plain(x, scale, bias)
+        return layer_norm_rows_plain(x, scale, bias, eps)
     what = "layer_norm_rows"
     _require(x.is_cuda, what, f"unsupported device {x.device}")
     _check_rows(what, x)
@@ -433,7 +440,7 @@ def layer_norm_rows(x: torch.Tensor, scale: torch.Tensor,
     with torch.cuda.device(x.device):
         err = lib.gcv_layer_norm_rows(x.data_ptr(), scale.data_ptr(),
                                       bias.data_ptr(), out.data_ptr(),
-                                      x.numel() // c, c, _stream(x.device))
+                                      x.numel() // c, c, eps, _stream(x.device))
     _build.check(err, what)
     layer_norm_rows.launches += 1
     return out

@@ -30,7 +30,11 @@ genconvit_tpu/ops/kernel_plan.py:36-130 the scoring path reads).
               but '0' (genconvit_tpu/ops/pallas/__init__.py:17-29);
               float32, and every CPU tensor, run the JAX package's XLA
               attention graph (swin.py:170-179), as the ConvNeXt kernels
-              leave float32 and the CPU to the plain graph.
+              leave float32 and the CPU to the plain graph. A Swin's MLP
+              halves run K1 and its LayerNorms K2 where a ConvNeXt's block
+              tails and stem LN would ('' and 'mlpfull'; K1 alone in the
+              stages 'mlp...' chooses); a Swin backbone refuses '1',
+              'stage', int8_mlp and dw_rank (ConvNeXt-only kernels).
   int8_mlp    ''     the block tails in bf16 (K1)
               'fc1'  int8 fc1 with a fixed activation scale, bf16 fc2 (K4)
               'full' W8A8: both MLP matmuls int8, per-row activation

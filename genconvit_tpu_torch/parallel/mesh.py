@@ -21,7 +21,9 @@ its second. A SwiGLU head's fc (twice fc2's input width) is split in each
 of its halves a | b, so that a rank holds a_r | b_r, the pairs its gate
 takes. Splits are even: a width that the axis does not divide is refused.
 The models run a split module through ops/collective.py's Megatron
-collectives, reading the `ModelAxis` that `split_module` gives them.
+collectives, reading the `ModelAxis` that `split_module` gives them. A
+Swin backbone is refused: its blocks' `mlp.fc1`/`mlp.fc2` match the MLP
+rules, but a Swin block runs its MLP whole, with no all-reduce.
 """
 
 from __future__ import annotations
@@ -245,7 +247,14 @@ def split_module(module: torch.nn.Module, tp: ModelAxis,
     block and `tp` given to every module that runs split tensors (those
     with a `tp` attribute). in_place False: a copy that holds the blocks
     and shares every replicated tensor with `module`, which is left as it
-    was (without any kernel folds or packs: prepare them on the copy)."""
+    was (without any kernel folds or packs: prepare them on the copy).
+    A module holding a Swin backbone is refused (module docstring)."""
+    from genconvit_tpu_torch.models.swin import SwinTransformer
+
+    if any(isinstance(m, SwinTransformer) for m in module.modules()):
+        raise ValueError("tensor parallelism does not run a Swin backbone: tp_rule splits "
+                         "its blocks' mlp.fc1/mlp.fc2, but a Swin block has no all-reduce "
+                         "and would return a partial MLP sum; run it data parallel only")
     items = list(_tensors(module))
     splits = tp_splits({name: tuple(t.shape) for _, _, name, t, _ in items})
     blocks = {}

@@ -3,7 +3,7 @@ the port, timed on the card, so that two checkouts (a change and its
 parent) can be compared on one card:
 
     python3 genconvit_tpu_torch/tools/kernel_ab.py [--package-dir DIR] [--ptxas]
-        [--only k1k4,k5k6,k3,k7,k2,m1m2,m3,k1]
+        [--only k1k4,k5k6,k3,k7,k2,m1m2,m3,k1,swin]
 
 DIR holds the genconvit_tpu_torch package to load (default: this checkout);
 unpack the parent with `git archive HEAD genconvit_tpu_torch` into a
@@ -35,8 +35,13 @@ parent's narrower probe) is printed "refused", and (k1) K1 alone at the
 block-tail shapes of a V=8 convnext_tiny and convnext_large forward (no
 post-LN: the route most of a stage's blocks take) beside cuBLAS's two bf16
 products on a hidden made beforehand, and the host's time a call (50 calls
-enqueued, the device not awaited), with depth-weighted sums. --only
-picks groups of those. With --ptxas, the build's ptxas register and spill lines of K1, K4,
+enqueued, the device not awaited), with depth-weighted sums, and (swin)
+K1 as a Swin MLP half (dw = x, a unit layer scale, eps 1e-5 where the
+checkout's K1 takes an eps) at the four (R, C) of a V=8 swin_large ED
+call, beside the plain bf16 half the port runs without K1 (two-pass
+LayerNorm, F.linear, GELU, F.linear, the residual add) and cuBLAS's two
+products, with depth-weighted sums (2, 2, 18, 2). --only picks groups of
+those. With --ptxas, the build's ptxas register and spill lines of K1, K4,
 K5, K6, M2 (the block-tail kernels), K7, K2, M1 and M3, anonymous-namespace
 hashes taken out, for a diff between two checkouts.
 Run it by path, not with -m: it chooses which package to import.
@@ -56,7 +61,10 @@ DEPTHS = (3, 3, 9, 3)
 LATENT = (25088, 12544)
 SWIN = ("swin_tiny_patch4_window7_224", "swin_large_patch4_window7_224")
 SWIN_N = 120     # the V=8 batch of face crops
-GROUPS = ("k1k4", "k5k6", "k3", "k7", "k2", "m1m2", "m3", "k1")
+GROUPS = ("k1k4", "k5k6", "k3", "k7", "k2", "m1m2", "m3", "k1", "swin")
+# Swin-L's MLP halves at the ED call's rows (240 images): (R, C, blocks)
+SWIN_L_MLP = ((240 * 56 * 56, 192, 2), (240 * 28 * 28, 384, 2), (240 * 14 * 14, 768, 18),
+              (240 * 7 * 7, 1536, 2))
 # K1 alone: (backbone, stage widths, depths)
 K1_BACKBONES = (("tiny", DIMS, DEPTHS), ("large", (192, 384, 768, 1536), (3, 3, 27, 3)))
 # past convnext_tiny's widths, at the ED call's rows: (backbone, stage, C)
@@ -402,6 +410,49 @@ def k1_ab(tag: str, dev, g, cuda_ms) -> None:
               f"two products {products_total:.4f} ms, host {host_total:.4f} ms", flush=True)
 
 
+def swin_ab(tag: str, dev, g, cuda_ms) -> None:
+    """K1 as Swin-L's MLP half (SWIN_L_MLP) beside the plain bf16 half and
+    cuBLAS's two products; per forward: x blocks."""
+    import inspect
+
+    import torch
+    import torch.nn.functional as F
+
+    from genconvit_tpu_torch.ops.act import gelu
+    from genconvit_tpu_torch.ops.cuda import convnext_mlp as km
+    from genconvit_tpu_torch.ops.norm import layer_norm
+
+    eps = {"eps": 1e-5} if "eps" in inspect.signature(km.ln_mlp_residual).parameters else {}
+    tot = [0.0, 0.0, 0.0]
+    for rows, c, blocks in SWIN_L_MLP:
+        def r(*shape, s=1.0):
+            return s * torch.randn(*shape, device=dev, generator=g)
+        lw, lb = 1 + r(c, s=0.1), r(c, s=0.1)
+        w1, b1 = r(4 * c, c, s=c ** -0.5), r(4 * c, s=0.05)
+        w2, b2 = r(c, 4 * c, s=(4 * c) ** -0.5), r(c, s=0.05)
+        folded = km.fold_block_mlp(lw, lb, w1, b1, w2, b2, torch.ones(c, device=dev),
+                                   torch.bfloat16)
+        lw, lb, w1, b1, w2, b2 = (t.to(torch.bfloat16) for t in (lw, lb, w1, b1, w2, b2))
+        x = r(rows, c).to(torch.bfloat16)
+
+        def plain():
+            z = gelu(F.linear(layer_norm(x, lw, lb, 1e-5), w1, b1))
+            return x + F.linear(z, w2, b2)
+        t = cuda_ms(lambda: km.ln_mlp_residual(x, x, folded, None, "default", **eps), 10)
+        t_half = cuda_ms(plain, 10)
+        del x
+        y = r(rows, c).to(torch.bfloat16)
+        h = r(rows, 4 * c).to(torch.bfloat16)
+        t_p = cuda_ms(lambda: (torch.matmul(y, folded.wg), torch.matmul(h, folded.w2g)), 10)
+        del y, h
+        for i, v in enumerate((t, t_half, t_p)):
+            tot[i] += blocks * v
+        print(f"[{tag}] K1 swin_large MLP half R={rows} C={c}: {t:.4f} ms, plain bf16 half "
+              f"{t_half:.4f} ms, two products {t_p:.4f} ms", flush=True)
+    print(f"[{tag}] K1 swin_large MLP halves per V=8 forward (24 blocks): {tot[0]:.4f} ms, "
+          f"plain bf16 halves {tot[1]:.4f} ms, two products {tot[2]:.4f} ms", flush=True)
+
+
 def k3_ab(tag: str, dev, g, cuda_ms) -> None:
     """K3 on the latent head at M = 15, 30, 120 beside F.linear on the bf16
     head."""
@@ -468,7 +519,8 @@ def main(argv=None) -> int:
 
     g = torch.Generator(device=dev).manual_seed(3)
     for group, fn in (("k1k4", mlp_ab), ("k5k6", fused_ab), ("k3", k3_ab), ("k7", k7_ab),
-                      ("k2", k2_ab), ("m1m2", probes_ab), ("m3", m3_ab), ("k1", k1_ab)):
+                      ("k2", k2_ab), ("m1m2", probes_ab), ("m3", m3_ab), ("k1", k1_ab),
+                      ("swin", swin_ab)):
         if group in only:
             fn(tag, dev, g, cuda_ms)
     return 0

@@ -122,6 +122,10 @@ def _check_rows(images_u8: torch.Tensor, n: int, rows: slice) -> None:
                          f"{rows.stop} of a batch of {n} (pass only those rows)")
 
 
+SWIN_REFUSED = ("training a GenConViT on a Swin backbone is not supported: its window "
+                "attention kernel (K7) has no backward; score it with the Predictor (net 'ed')")
+
+
 def _targets(net: str, labels: torch.Tensor) -> torch.Tensor:
     return torch.cat([labels, labels]) if net == "genconvit" else labels
 
@@ -347,6 +351,10 @@ def train_model(
     batches are scored whole. Only the first rank writes files. Returns a
     summary."""
     config = config or Config()
+    from genconvit_tpu_torch.models.swin import SWIN_CFGS
+
+    if config.model.backbone in SWIN_CFGS:   # before any data is read
+        raise ValueError(SWIN_REFUSED)
     weight_dir = weight_dir or config.weight_dir
     device = torch.device(device) if device is not None else default_device()
     mesh, group, part, writer = None, None, None, True

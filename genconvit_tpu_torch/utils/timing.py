@@ -7,13 +7,14 @@ device work measures the enqueue; 'device_forward' is the host's wait at
 a call's final fetch of its verdicts, which carries whatever device work
 is still queued then: it is not the device's time.
 
-Spans and counters: `span(name)` marks a region of the program and
+Spans and counters: `span(name)` marks a region of the program,
 `add(name, seconds)` counts a duration measured elsewhere (a request's
-wait in a queue). Both record only while `torch.profiler` records (a span
-that the profiler's start or stop cuts is left out), in one process-wide
-table that `spans()` reads: per name its count, total seconds and self
-seconds (the total less the spans nested in it on the same thread). A
-span also opens `record_function(name)`, so that an operator who runs
+wait in a queue) and `count(name, n)` adds n occurrences of no duration
+(the windows an attention call attends). All three record only while
+`torch.profiler` records (a span that the profiler's start or stop cuts
+is left out), in one process-wide table that `spans()` reads: per name
+its count, total seconds and self seconds (the total less the spans
+nested in it on the same thread). A span also opens `record_function(name)`, so that an operator who runs
 the scoring or serving CLI under `torch.profiler` sees the range on the
 profiler's timeline beside the device's kernels. Off, a span costs one
 read of the profiler's process-wide flag; it takes no clock, no lock and
@@ -39,6 +40,13 @@ The program's names, each entered once per unit of work:
   gcv.train.grad_sync     its gradients' all-reduce (data parallelism)
   gcv.train.optimizer     its optimizer step
   gcv.train.bn_write_back its BatchNorm statistics' write-back
+  gcv.swin.attention      a Swin block's attention half: LN1, the rolls, the
+                          window partition and reverse, qkv, the attention,
+                          proj and the residual (models/swin.py)
+  gcv.swin.mlp            a Swin block's MLP half (K1, or the plain half)
+  gcv.swin.merge          a Swin patch merging
+  gcv.swin.windows        (counter) the windows an attention call attends
+  gcv.swin.masked_windows (counter) those of them under the shifted-window mask
 
 A range opened on a thread that was running before the profiler started
 (the batcher's worker, a server's request threads) reaches the profiler's
@@ -173,6 +181,15 @@ def add(name: str, seconds: float) -> None:
     while the profiler records."""
     if _profiler._is_profiler_enabled:
         _record(name, seconds, seconds)
+
+
+def count(name: str, n: int) -> None:
+    """Counts n occurrences of `name`, of no duration, while the profiler
+    records."""
+    if _profiler._is_profiler_enabled:
+        with _lock:
+            row = _table.setdefault(name, [0, 0.0, 0.0])
+            row[0] += n
 
 
 def spans() -> Dict[str, Dict[str, float]]:

@@ -935,3 +935,116 @@ def test_predict_videos_stream_equals_the_batched_path(dev, monkeypatch):
     for (gy, gv), (f, m) in zip(got, batches, strict=True):
         wy, wv = pred.predict_videos_batched(f, m)
         assert np.array_equal(gy, wy) and np.array_equal(gv, wv)
+
+
+# GenConViT's ED on Swin-L: K1 and K2 at Swin's eps 1e-5 at the four (R, C)
+# of a V=8 forward's ED call (752640 x 192, 188160 x 384, 47040 x 768,
+# 11760 x 1536), each against its plain version within km.ULP_TOL ulps, on
+# rows a third of which have a variance near 1e-5, where ConvNeXt's 1e-6 (a
+# planted fault) moves rsqrt(var + eps) by a quarter and must fail.
+
+_SWIN_L_ROWS = [(752640, 192), (188160, 384), (47040, 768), (11760, 1536)]
+
+
+def _swin_rows(rows, c, dev, g):
+    x = torch.randn(rows, c, device=dev, generator=g)
+    quiet = torch.arange(rows, device=dev) % 3 == 0
+    scale = torch.where(quiet, 3e-3, 1.0)[:, None]
+    return (x * scale).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("rows,c", _SWIN_L_ROWS)
+def test_k1_at_swin_eps(dev, rows, c):
+    g = torch.Generator(device=dev).manual_seed(700 + c)
+    x = _swin_rows(rows, c, dev, g)
+
+    def r(*shape, s=1.0):
+        return s * torch.randn(*shape, device=dev, generator=g)
+    folded = km.fold_block_mlp(1 + r(c, s=0.1), r(c, s=0.1), r(4 * c, c, s=c ** -0.5),
+                               r(4 * c, s=0.05), r(c, 4 * c, s=(4 * c) ** -0.5), r(c, s=0.05),
+                               torch.ones(c, device=dev), torch.bfloat16)
+    out = km.ln_mlp_residual(x, x, folded, None, "default", 1e-5)
+    ref = km.ln_mlp_residual_plain(x, x, folded, None, "default", 1e-5)
+    scale = km.ln_mlp_residual_plain(x, torch.zeros_like(x), folded, None, "default",
+                                     1e-5).float().abs().max().item()
+    torch.cuda.synchronize()
+    assert _agrees(out, ref, x, scale)
+    assert not _agrees(km.ln_mlp_residual(x, x, folded, None, "default", 1e-6), ref, x, scale)
+
+
+@pytest.mark.parametrize("rows,c", _SWIN_L_ROWS)
+def test_k2_at_swin_eps(dev, rows, c):
+    g = torch.Generator(device=dev).manual_seed(800 + c)
+    x = _swin_rows(rows, c, dev, g)
+    scale = (1 + 0.1 * torch.randn(c, device=dev, generator=g)).float()
+    bias = (0.1 * torch.randn(c, device=dev, generator=g)).float()
+    out = km.layer_norm_rows(x, scale, bias, 1e-5)
+    ref = km.layer_norm_rows_plain(x, scale, bias, 1e-5)
+    torch.cuda.synchronize()
+    assert _agrees(out, ref)
+    assert not _agrees(km.layer_norm_rows(x, scale, bias, 1e-6), ref)
+
+
+def _swin_block(dev, c, heads, g):
+    from genconvit_tpu_torch.models.init import init_swin_
+    from genconvit_tpu_torch.models.swin import SwinBlock
+
+    blk = SwinBlock(c, heads, 7).to(dev)
+    init_swin_(blk, g)
+    with torch.no_grad():   # off init's trivial values: O(1) bias table, LN affines
+        blk.attn.relative_position_bias_table.normal_(generator=g)
+        for ln in (blk.norm1, blk.norm2):
+            ln.weight.add_(0.2 * torch.randn(c, device=dev, generator=g))
+            ln.bias.add_(0.1 * torch.randn(c, device=dev, generator=g))
+    return blk.to(torch.bfloat16).eval()
+
+
+@pytest.mark.parametrize("c,heads,hw,shift", [(192, 6, 56, 3), (768, 24, 14, 3),
+                                              (768, 24, 14, 0), (1536, 48, 7, 0)])
+def test_swin_block_on_k1_and_k7_matches_the_plain_bf16_graph(dev, c, heads, hw, shift):
+    """A Swin-L block on its kernels (K2 for LN1, K7, K1 for the MLP half)
+    against the same block's plain bf16 graph (the port's two-pass
+    LayerNorms, the XLA attention, F.linear): the same function, rounded
+    at other points."""
+    from genconvit_tpu_torch.ops.cuda import window_attn as k7
+
+    g = torch.Generator(device=dev).manual_seed(900 + c + shift)
+    blk = _swin_block(dev, c, heads, g)
+    x = torch.randn(4, hw * hw, c, device=dev, generator=g).to(torch.bfloat16)
+    ln1 = (blk.norm1.weight.float().contiguous(), blk.norm1.bias.float().contiguous())
+    before = (km.ln_mlp_residual.launches, k7.window_attention.launches,
+              km.layer_norm_rows.launches)
+    with torch.inference_mode():
+        out = blk(x, (hw, hw), 7, shift, "default", True, blk.fold(), ln1)
+        ref = blk(x, (hw, hw), 7, shift, "default", False)
+    torch.cuda.synchronize()
+    assert (km.ln_mlp_residual.launches, k7.window_attention.launches,
+            km.layer_norm_rows.launches) == tuple(b + 1 for b in before)
+    assert _rel(out, ref) <= TOL
+    assert torch.isfinite(out).all() and not out.equal(ref)
+
+
+def test_swin_ed_stream_launches_per_forward(dev):
+    """Predictor(net='ed') on swin_large_patch4_window7_224 through
+    predict_videos_stream, one V=8 batch: 24 K1 launches (22 on the ordered
+    route: C >= 224), 24 K7 (11 masked), 29 K2 (the patch embedding's, 24
+    LN1, 3 patch mergings', the final one), per forward."""
+    import numpy as np
+
+    from genconvit_tpu_torch.config import Config, ModelConfig
+    from genconvit_tpu_torch.infer.engine import Predictor
+    from genconvit_tpu_torch.ops import cuda as kcuda
+    from genconvit_tpu_torch.ops.cuda import window_attn as k7
+
+    pred = Predictor(Config(model=ModelConfig(backbone="swin_large_patch4_window7_224")),
+                     net="ed", device=dev, face_backend="center")
+    rng = np.random.default_rng(12)
+    batch = (rng.integers(0, 256, (8, 15, 224, 224, 3), dtype=np.uint8),
+             np.ones((8, 15), np.float32))
+    pred.predict_videos_stream([batch])
+    kcuda.reset_launch_counts()
+    (y, y_val), = pred.predict_videos_stream([batch])
+    assert np.isfinite(y_val).all() and y.shape == (8,)
+    assert (km.ln_mlp_residual.launches, km.ln_mlp_residual.ordered_launches) == (24, 22)
+    assert (k7.window_attention.launches, k7.window_attention.masked_launches) == (24, 11)
+    assert km.layer_norm_rows.launches == 29
